@@ -1,0 +1,22 @@
+"""Which device the port's entry points run on.
+
+The default is the CUDA card. The CPU is used only when the caller asks for
+it (`device="cpu"`, as the tests do); without a card, asking for CUDA
+raises instead of quietly running on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {dev} requested but no CUDA device is available; pass device='cpu' to run on the CPU"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}: the port runs on 'cuda' or 'cpu'")
+    return dev

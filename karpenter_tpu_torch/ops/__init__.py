@@ -1,0 +1,10 @@
+from .bucket_cost import bucket_cost_packed, load_catalog
+from .feasibility import availability_counts, bucket_type_cost, bucket_type_cost_packed
+
+__all__ = [
+    "availability_counts",
+    "bucket_cost_packed",
+    "bucket_type_cost",
+    "bucket_type_cost_packed",
+    "load_catalog",
+]

@@ -1,0 +1,5 @@
+"""The options the solve reads (the port keeps only these)."""
+
+# Batches below this many pods route to the exact host loop. This is the
+# reference's value; it has not been measured for this port.
+DENSE_MIN_BATCH_DEFAULT = 320
