@@ -1,0 +1,125 @@
+"""The warm-fill admission surface: plain version, exact oracle and kernel wrapper.
+
+For every distinct pod size class s in a batch and every existing node v,
+an upper bound on how many pods of size s fit in v's residual headroom: the
+closed form the certified cohort fast path evaluates per (run, view) pair
+(scheduler/existingnode.py:add_certified_view_run), lifted to one [S, V]
+surface.
+
+Numerics contract (the JAX package's ops/warmfill.py): the surface is
+computed in f32 with a deliberate upward slack, so its counts are an UPPER
+BOUND on the exact f64 closed form `warm_fill_counts_np`. The host scan
+(solver/warmfill.py) uses the surface only to prune views that can never
+take a size class (a zero is then exact-safe); every placement is
+re-derived with exact f64 host arithmetic.
+
+`warm_fill_counts` is the plain torch version and follows the reference's
+jnp formula step by step. The Pallas kernel it replaces
+(karpenter_tpu/ops/warmfill.py:_kernel) floors a size at 1e-12 where the jnp
+path substitutes 1 for a zero size; the two differ only for sizes in
+(0, 1e-12), which no resource quantity takes, and this module follows the
+jnp form. `warm_fill_counts_device` is the wrapper of the hand-written CUDA
+kernel (csrc/warm_fill.cu): it takes the plain version only for tensors that
+lie on the CPU; for CUDA tensors it launches the kernel or raises.
+`LAUNCHES` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ._cuda_build import KernelLibrary
+
+# relative slack applied on the device so f32 rounding can only round the
+# count UP vs the exact f64 closed form (f32 rel. error ~1.2e-7 per operand)
+_SLACK = 4e-6
+# the f32 constants, each an exact f32 value held in a Python float: 1 + s
+# and 1 - s are f32 sums, as jnp.float32(1.0) + slack computes them
+_F32_SLACK = float(np.float32(_SLACK))
+_ONE_PLUS = float(np.float32(1.0) + np.float32(_SLACK))
+_ONE_MINUS = float(np.float32(1.0) - np.float32(_SLACK))
+_EPS = float(np.float32(1e-12))
+_BIG = float(2**30)
+
+MAX_R = 8  # the kernel is instantiated for R = 1..8
+
+LAUNCHES = 0
+
+
+def warm_fill_counts_np(sizes: np.ndarray, head: np.ndarray) -> np.ndarray:
+    """Exact f64 reference: [S, V] int32 closed-form counts.
+
+    sizes: [S, R] f64 per-size-class request vectors; head: [V, R] f64
+    residual headroom (available + tolerance - requests). A view whose
+    headroom is negative on ANY resource takes nothing (the certified run's
+    base-fits gate); a size's count is the min over its positive resources
+    of floor(head / size)."""
+    base_ok = (head >= 0).all(axis=1)  # [V]
+    positive = sizes > 0  # [S, R]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = head[None, :, :] / np.where(positive, sizes, 1.0)[:, None, :]  # [S, V, R]
+    ratio = np.where(positive[:, None, :], ratio, np.inf)
+    counts = np.floor(ratio.min(axis=2))
+    counts = np.where(np.isfinite(counts), counts, float(np.iinfo(np.int32).max))
+    counts = np.clip(counts, 0, np.iinfo(np.int32).max)
+    return (counts * base_ok[None, :]).astype(np.int32)
+
+
+def warm_fill_counts(sizes: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """Plain version: [S, V] int32 upper-bound counts on f32 sizes [S, R] and
+    head [V, R], in the reference jnp path's order of operations."""
+    base_ok = (head >= -_EPS).all(dim=1)  # [V]
+    positive = sizes > 0  # [S, R]
+    slack_head = head * _ONE_PLUS + _F32_SLACK
+    safe_sizes = torch.where(positive, sizes, 1.0) * _ONE_MINUS
+    ratio = slack_head[None, :, :] / safe_sizes[:, None, :]  # [S, V, R]
+    ratio = torch.where(positive[:, None, :], ratio, _BIG)
+    counts = torch.floor(ratio.amin(dim=2))
+    counts = torch.clamp(counts, 0.0, _BIG)
+    return (counts * base_ok[None, :].to(counts.dtype)).to(torch.int32)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.warm_fill_launch.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+    lib.warm_fill_launch.restype = ci
+
+
+LIBRARY = KernelLibrary("warm_fill", _bind)
+SOURCE = LIBRARY.source
+build = LIBRARY.build
+
+
+def warm_fill_counts_device(sizes: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """sizes [S, R] f32, head [V, R] f32 -> int32 [S, V] upper-bound counts,
+    as `warm_fill_counts` computes them."""
+    global LAUNCHES
+    tensors = (sizes, head)
+    if all(t.device.type == "cpu" for t in tensors):
+        return warm_fill_counts(sizes, head)
+    device = sizes.device
+    if device.type != "cuda" or head.device != device:
+        raise ValueError(f"warm_fill_counts_device: inputs on {[str(t.device) for t in tensors]}; want one CUDA device")
+    if sizes.dim() != 2 or head.dim() != 2 or sizes.shape[1] != head.shape[1]:
+        raise ValueError(f"want sizes [S, R] and head [V, R], got {tuple(sizes.shape)} and {tuple(head.shape)}")
+    S, R = sizes.shape
+    V = head.shape[0]
+    if not 1 <= R <= MAX_R:
+        raise ValueError(f"kernel takes 1 <= R <= {MAX_R}, got R={R}")
+    for name, t in (("sizes", sizes), ("head", head)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32, got {t.dtype} (contiguous={t.is_contiguous()})")
+    out = torch.empty((S, V), dtype=torch.int32, device=device)
+    if S == 0 or V == 0:
+        return out
+    lib = LIBRARY.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.warm_fill_launch(sizes.data_ptr(), head.data_ptr(), out.data_ptr(), S, V, R, stream)
+    if err != 0:
+        raise RuntimeError(f"warm_fill kernel launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return out

@@ -1,4 +1,4 @@
-"""DenseSolver: the device fast path for provisioning solves on empty clusters.
+"""DenseSolver: the device fast path for provisioning solves.
 
 Pipeline (one call per batch, attached to Scheduler via `dense_solver=`):
 
@@ -21,6 +21,16 @@ Pipeline (one call per batch, attached to Scheduler via `dense_solver=`):
                  record topology domains, so host-path pods that follow see
                  consistent counts.
 
+Existing/in-flight nodes are first-class: before opening new bins, each
+bucket fills compatible existing capacity (mirroring the host loop's
+existing-nodes-first rule, reference scheduler.go:191-195 and
+existingnode.go:97). The certified common case runs the vectorized fill
+(solver/warmfill.py), whose [sizes x views] admission surface is the
+hand-written warm-fill kernel (ops/warmfill.py); anything else commits
+through the exact ExistingNodeView protocol. This is what makes
+consolidation simulations (which always carry existing nodes) a real
+consumer of the dense path.
+
 Multi-provisioner batches encode every template: the type axis concatenates
 each template's (weight-ordered) universe and a group binds to its first
 workable template, the host loop's rule. Provisioner limits apply at commit
@@ -28,9 +38,8 @@ with the same filter-then-subtractMax pessimism the host loop keeps per
 opened node (scheduler.go:263-284).
 
 Pods whose constraints the dense IR can't express return to the caller for
-the exact host loop. A batch on a cluster that already has nodes raises
-NotImplementedError: filling existing capacity (warm fill) is not ported
-yet. Nothing here falls back from the device: a device failure propagates.
+the exact host loop. Nothing here falls back from the device: a device
+failure propagates.
 """
 
 from __future__ import annotations
@@ -85,11 +94,22 @@ class DenseSolveStats:
     batches: int = 0
     pods_in: int = 0
     pods_committed: int = 0
+    pods_on_existing: int = 0  # subset of pods_committed placed on existing nodes
     pods_to_host: int = 0
     nodes_created: int = 0
     encode_seconds: float = 0.0
+    fill_seconds: float = 0.0  # existing-node fill (incl. its exact commits)
     device_seconds: float = 0.0
     commit_seconds: float = 0.0
+    # warm-fill routing: vectorized (solver/warmfill.py) vs host-loop solves,
+    # and the device share of fill_seconds (the [sizes x views] surface)
+    fills_vectorized: int = 0
+    fills_host: int = 0
+    fill_device_seconds: float = 0.0
+    # per-pod routing of the fill stream: items offered to the vectorized
+    # scan vs items a plan() fail-open sent through the host loop
+    fill_pods_vectorized: int = 0
+    fill_pods_host: int = 0
     # host-side assembly/audit time hidden UNDER the device round trip
     # (subset of device_seconds)
     assemble_seconds: float = 0.0
@@ -171,11 +191,6 @@ class DenseSolver:
     def presolve(self, scheduler, pods: Sequence[Pod]) -> List[Pod]:
         """Commit dense-expressible placements into `scheduler`; returns the
         pods that still need the exact host loop."""
-        if scheduler.existing_nodes:
-            raise NotImplementedError(
-                "the port's DenseSolver solves empty clusters only: filling existing nodes "
-                "(warm fill and its admission kernel) is the next slice in ROADMAP.md"
-            )
         pods = list(pods)
         if len(pods) < self.min_batch:
             return pods
@@ -227,24 +242,73 @@ class DenseSolver:
             self.stats.pods_to_host += len(leftover)
             return leftover
 
-        buckets = self._build_buckets(problem, scheduler.topology, scheduler)
+        defer_spread = bool(scheduler.existing_nodes)
+        buckets = self._build_buckets(problem, scheduler.topology, scheduler, defer_spread=defer_spread)
+        t_encoded = time.perf_counter()
+        existing_committed = 0
+        taken = None
+        if scheduler.existing_nodes:
+            existing_committed, taken, placed_extras = self._fill_existing(
+                scheduler, problem, buckets, extra_pods=leftover
+            )
+            if placed_extras:
+                leftover = [p for p in leftover if id(p) not in placed_extras]
+            buckets = [b for b in buckets if b.pod_rows]
+        if any(b.deferred_spread for b in buckets):
+            # the warm fill consumed what it could; assign domains to the
+            # remainder with counts that now include every warm placement.
+            # The freeness memo predates the fill's commits — drop it so the
+            # domain scoring sees post-fill capacity.
+            self._view_free_memo.clear()
+            expanded: List[_Bucket] = []
+            for b in buckets:
+                if not b.deferred_spread:
+                    expanded.append(b)
+                    continue
+                group = problem.groups[b.group_index]
+                if group.kind == GroupKind.AFFINITY:
+                    # colocation: warm placements (if any) bootstrapped the
+                    # domain, so the pick now collapses to that zone
+                    zone = self._pick_affinity_zone(problem, scheduler.topology, group, b.pod_rows, scheduler)
+                    expanded.append(
+                        _Bucket(group_index=b.group_index, pod_rows=b.pod_rows, zone=zone if zone is not None else "__infeasible__")
+                    )
+                elif group.topology_key == lbl.LABEL_TOPOLOGY_ZONE:
+                    expanded.extend(
+                        self._water_fill(
+                            problem, scheduler.topology, group, b.pod_rows, problem.zones, problem.group_zone_allowed[b.group_index], "zone", scheduler
+                        )
+                    )
+                else:
+                    expanded.extend(
+                        self._water_fill(
+                            problem, scheduler.topology, group, b.pod_rows, problem.capacity_types, problem.group_ct_allowed[b.group_index], "ct", scheduler
+                        )
+                    )
+            buckets = [b for b in expanded if b.pod_rows]
         t1 = time.perf_counter()
         if buckets:
-            prep = self._device_solve(scheduler, problem, buckets)
+            prep = self._device_solve(scheduler, problem, buckets, taken)
             t2 = time.perf_counter()
-            if self._node_guard_tripped(problem, buckets, prep, None):
+            if self._node_guard_tripped(problem, buckets, prep, taken):
                 # dense would open pathologically many nodes vs the
                 # algorithm-independent floor: fail open, the exact host
-                # loop packs the batch
-                committed, fallback_rows = 0, list(range(problem.P))
+                # loop repacks every un-taken pod (warm commits stand — they
+                # went through the exact protocol)
+                unassigned = np.arange(problem.P) if taken is None else np.nonzero(~taken)[0]
+                committed, fallback_rows = 0, [int(r) for r in unassigned]
             else:
                 committed, fallback_rows = self._apply_commit(scheduler, prep)
         else:
             t2 = time.perf_counter()
-            committed, fallback_rows = 0, list(range(problem.P))
+            unassigned = np.arange(problem.P) if taken is None else np.nonzero(~taken)[0]
+            committed, fallback_rows = 0, [int(r) for r in unassigned]
+        committed += existing_committed
+        self.stats.pods_on_existing += existing_committed
         t3 = time.perf_counter()
 
-        self.stats.encode_seconds += t1 - t0
+        self.stats.encode_seconds += t_encoded - t0
+        self.stats.fill_seconds += t1 - t_encoded
         self.stats.device_seconds += t2 - t1
         self.stats.commit_seconds += t3 - t2
         leftover.extend(problem.pods[row] for row in fallback_rows)
@@ -526,10 +590,9 @@ class DenseSolver:
         """Free-capacity vector of an existing-node view IF this group's
         constraint shape can land there (the shared warm-capacity model of
         _pick_affinity_zone and _warm_absorbable). The freeness half is
-        group-independent and memoized per solve — valid ONLY before a warm
-        fill starts committing (view.add rebinds view.requests). The port
-        has no warm fill yet: presolve refuses clusters with existing nodes,
-        so this scoring stays idle until that slice."""
+        group-independent and memoized per solve — valid ONLY before
+        _fill_existing starts committing (view.add rebinds view.requests);
+        the fill invalidates the memo on entry."""
         if not self._view_accepts(group, view):
             return None
         if id(view) in self._view_free_memo:
@@ -769,7 +832,7 @@ class DenseSolver:
                     return best[0]
         return allowed[0]
 
-    # -- existing-node acceptance (warm-capacity scoring; idle on an empty cluster)
+    # -- step 2.5: fill existing/in-flight node capacity ----------------------
 
     def _view_accepts(self, group, view) -> bool:
         """Exact host-algebra gate: can this group's constraint shape land on
@@ -795,6 +858,379 @@ class DenseSolver:
         if group.requirements.has(lbl.LABEL_HOSTNAME):
             return False
         return view.requirements.compatible(group.requirements) is None
+
+    def _fill_existing(self, scheduler, problem: DenseProblem, buckets: List[_Bucket], extra_pods: Sequence[Pod] = ()):
+        """Fill existing-node capacity before opening new bins.
+
+        Mirrors the host loop's existing-nodes-first rule
+        (scheduler.go:191-195, existingnode.go:97): ONE pass in the host
+        queue's FFD order over every pod kind — plain/pinned buckets,
+        domain-deferred spread and affinity cohorts, dedicated (per-host
+        zero-count) pods, single-bin components, host-routed rows, and the
+        IR-inexpressible extras — each placement through the exact
+        ExistingNodeView protocol. Consecutive same-bucket same-size items
+        batch into add_cohort runs whose per-pod residue is integer/capacity
+        arithmetic (existingnode.py), which keeps the exact pass flat at
+        10k+ pods with no scale switch.
+
+        `extra_pods` are the IR-inexpressible pods (problem.host_pods) bound
+        for the exact host loop. They join this fill at their global FFD
+        position, attempted against each view through the same exact
+        view.add the host loop's existing-first pass would run with the
+        pod's full unrelaxed constraint set — so their claim on warm
+        capacity is decided by the one global FFD order, not by which phase
+        processes them. Without this, every dense commit lands before ANY
+        host-routed pod, and a warm slot the host loop's interleaved order
+        would have given to a host pod goes to a dense pod instead — the
+        host pod then opens a fresh (often upgraded) node the host oracle
+        never pays for (campaign seed 12 is the canonical shape). A veto
+        leaves the pod for the host loop, which still owns relaxation.
+
+        Every placement commits through ExistingNodeView.add, so capacity
+        modeling here only *proposes*; a rejected add leaves the pod in its
+        bucket for the new-bin solve. Returns (count committed, taken [P],
+        ids of extra_pods placed).
+
+        Routing: the certified common case — every fill item a plain /
+        dedicated / deferred-spread / deferred-affinity cohort whose
+        BucketCert reduces the add() verdict to taints + capacity + integer
+        domain lookups — runs the vectorized fill (solver/warmfill.py:
+        encode → the warm-fill kernel's admission surface → exact scan →
+        bulk commit) instead of this per-item loop; the same placements as
+        the JAX package's fill, pinned by tests/test_torch_warm_solve.py.
+        Anything outside that case
+        (IR-inexpressible extras, host-routed buckets, single-bin
+        components, requirement-carrying cohorts) fails open to the loop
+        below, wholesale, so one algorithm owns the global FFD order.
+        """
+        from . import warmfill
+
+        fill_items = sum(len(b.pod_rows) for b in buckets) + len(extra_pods)
+        fill_plan = warmfill.plan(scheduler, problem, buckets, extra_pods=extra_pods)
+        if fill_plan is not None:
+            # commits rebind view.requests: the pre-fill freeness memo is
+            # invalid from here on (same contract as the host loop)
+            self._view_free_memo.clear()
+            committed, taken = warmfill.execute(scheduler, problem, buckets, fill_plan, solver=self)
+            self.stats.fills_vectorized += 1
+            self.stats.fill_pods_vectorized += fill_items
+            return committed, taken, set()
+        self.stats.fills_host += 1
+        self.stats.fill_pods_host += fill_items
+
+        from ..scheduler.errors import IncompatibleError
+        from ..scheduler.existingnode import ExistingNodeView
+        from ..scheduler.queue import ffd_sort_key
+
+        views = scheduler.existing_nodes
+        zone_index = {z: i for i, z in enumerate(problem.zones)}
+        ct_index = {c: i for i, c in enumerate(problem.capacity_types)}
+        taken = np.zeros((problem.P,), dtype=bool)
+        zone_of: List[Optional[str]] = []
+        ct_of: List[Optional[str]] = []
+        # headroom matrix [V, R] (free + fits() tolerance), maintained by the
+        # commit helpers — the single authoritative capacity model for this
+        # fill; every screen below is one vector compare against a row or
+        # slice of it instead of per-view Python arithmetic
+        Rdim = problem.requests.shape[1]
+        head = np.full((len(views), Rdim), -1.0)
+        usable = np.zeros((len(views),), dtype=bool)
+        for vi, view in enumerate(views):
+            avail = resource_vector(view.available)
+            used = resource_vector(view.requests)
+            if avail is not None and used is not None:
+                head[vi] = np.maximum(avail - used, 0.0) + res.tolerance(avail)
+                usable[vi] = True
+            zone_of.append(view.node.metadata.labels.get(lbl.LABEL_TOPOLOGY_ZONE))
+            ct_of.append(view.node.metadata.labels.get(lbl.LABEL_CAPACITY_TYPE))
+
+        # commits below rebind view.requests: the pre-fill freeness memo is
+        # invalid from here on (the acceptance memo stays — view.add re-checks
+        # exactly, so stale-True only costs a probe)
+        self._view_free_memo.clear()
+        committed = 0
+        # group-membership scans are cohort-constant: one context per solver
+        # group, one inverse-owner index per fill (topology.cohort_context)
+        shared_inverse = scheduler.topology.inverse_owner_index()
+        ctx_cache: Dict[int, object] = {}
+
+        def ctx_of(group_index: int):
+            c = ctx_cache.get(group_index)
+            if c is None:
+                rep = problem.groups[group_index].pods[0]
+                c = scheduler.topology.cohort_context(rep, inverse_index=shared_inverse)
+                ctx_cache[group_index] = c
+            return c
+
+        def view_ok(bucket: _Bucket, group, vi: int) -> bool:
+            if not usable[vi]:
+                return False
+            if bucket.zone is not None and zone_of[vi] != bucket.zone:
+                return False
+            if bucket.capacity_type is not None and ct_of[vi] != bucket.capacity_type:
+                return False
+            return self._view_accepts(group, views[vi])  # per-solve memoized
+
+        def commit(vi: int, row: int, ctx=None) -> bool:
+            nonlocal committed
+            try:
+                views[vi].add(problem.pods[row], ctx=ctx)
+            except IncompatibleError:
+                return False
+            taken[row] = True
+            committed += 1
+            head[vi] -= problem.requests[row]
+            return True
+
+        # Two certificate tiers amortize the full add() protocol:
+        # - per-BUCKET (certify_bucket): cohorts with no node requirements —
+        #   the common shape — get exact verdicts on ANY view from set/
+        #   integer lookups, so they never pay a full add (except an
+        #   affinity bootstrap round, which the full protocol must own);
+        # - per-(bucket, view) (certify): cohorts WITH requirements pay one
+        #   full add per pair, then the per-pod residue, guarded by the
+        #   view's requirement-content epoch.
+        bucket_certs: Dict[int, object] = {}
+        cert_cache: Dict[tuple, object] = {}
+        _UNSET = object()
+
+        def bucket_cert_of(bucket: _Bucket, rep_row: int, ctx):
+            gid = id(bucket)
+            cert = bucket_certs.get(gid, _UNSET)
+            if cert is _UNSET:
+                cert = ExistingNodeView.certify_bucket(problem.pods[rep_row], ctx)
+                bucket_certs[gid] = cert
+            if cert is not None and cert.affinity_groups:
+                # bootstrap round: no populated domain anywhere means the
+                # full protocol must make (and record) the domain choice
+                for g in cert.affinity_groups:
+                    if not any(g.domains.values()):
+                        return None
+            return cert
+
+        def commit_run(vi: int, rows: List[int], bucket: _Bucket, ctx=None) -> int:
+            """Commit a same-bucket same-size run through the certified
+            cohort fast paths; returns how many landed (a prefix of rows)."""
+            nonlocal committed
+            view = views[vi]
+            bcert = bucket_cert_of(bucket, rows[0], ctx)
+            if bcert is not None:
+                n = view.add_certified_view_run([problem.pods[r] for r in rows], bcert)
+            else:
+                key = (id(bucket), vi)
+                cert = cert_cache.get(key)
+                if cert is not None and cert.epoch == view.req_epoch:
+                    n = view.add_certified_run([problem.pods[r] for r in rows], cert)
+                else:
+                    n = view.add_cohort([problem.pods[r] for r in rows], ctx=ctx)
+                    if n:
+                        cert = view.certify(problem.pods[rows[0]], ctx)
+                        if cert is not None:
+                            cert_cache[key] = cert
+                        else:
+                            cert_cache.pop(key, None)
+            for r in rows[:n]:
+                taken[r] = True
+            committed += n
+            if n:
+                head[vi] -= problem.requests[rows[:n]].sum(axis=0)
+            return n
+
+        placed_extras: set = set()
+
+        def try_extra(pod: Pod) -> bool:
+            """One host-routed pod's existing-first attempt at its FFD
+            position: first view (in the host loop's order) the exact add
+            protocol accepts, full unrelaxed constraints."""
+            nonlocal committed
+            vec = resource_vector(res.pod_requests(pod))
+            if vec is None:
+                return False  # resources outside the axis: host loop owns it
+            fit_views = np.flatnonzero(usable & (vec <= head).all(axis=1))
+            if fit_views.size == 0:
+                return False
+            ctx = scheduler.topology.cohort_context(pod, inverse_index=shared_inverse)
+            for vi in fit_views:
+                vi = int(vi)
+                try:
+                    views[vi].add(pod, ctx=ctx)
+                except IncompatibleError:
+                    continue
+                committed += 1
+                head[vi] -= vec
+                placed_extras.add(id(pod))
+                return True
+            return False
+
+        plain_buckets: List[_Bucket] = []
+        special_buckets: List[_Bucket] = []  # dedicated / single_bin
+        deferred_buckets: List[_Bucket] = []  # spread/affinity, domain deferred
+        host_route_buckets: List[_Bucket] = []  # __infeasible__: host loop owns them
+        for bucket in buckets:
+            if not bucket.pod_rows:
+                continue
+            if bucket.zone == "__infeasible__":
+                # these pods are bound for the exact host loop (inexpressible
+                # domain shape), but the host loop runs AFTER every dense
+                # commit — without a warm attempt at their global FFD
+                # position they lose warm slots the host oracle gives them,
+                # shifting the entire downstream packing. The exact add
+                # re-checks everything, so per-pod attempts here are safe
+                # for any constraint shape.
+                host_route_buckets.append(bucket)
+            elif bucket.dedicated or bucket.single_bin:
+                special_buckets.append(bucket)
+            elif bucket.deferred_spread:
+                deferred_buckets.append(bucket)
+            else:
+                plain_buckets.append(bucket)
+
+        # ONE unified pass in the host queue's FFD order over every pod kind
+        # — bucketed (plain/pinned), domain-deferred spread and affinity,
+        # dedicated, single-bin components, host-routed rows, and the
+        # IR-inexpressible extras — so the claim on warm capacity is decided
+        # by the one global FFD order the host loop uses, at any batch size.
+        # Consecutive same-bucket same-size items batch into add_cohort runs
+        # (existingnode.py): the first pod of a run pays the full protocol,
+        # the rest pay only the genuinely per-pod checks, which is what
+        # keeps this exact pass flat at 10k+ pods (the former
+        # _FILL_EXACT_MAX_PODS switch to a class-vectorized approximation
+        # is gone — one algorithm, one semantics, every scale).
+        all_buckets = plain_buckets + special_buckets + deferred_buckets + host_route_buckets
+        items: List[tuple] = [
+            (problem.pods[r], r, bucket) for bucket in all_buckets for r in bucket.pod_rows
+        ]
+        items.extend((pod, None, None) for pod in extra_pods)
+        items.sort(key=lambda t: ffd_sort_key(t[0]))
+
+        singlebin_tried: set = set()
+        N = len(items)
+        i = 0
+        while i < N:
+            pod_obj, row, bucket = items[i]
+            if bucket is None:  # host-routed extra at its FFD position
+                try_extra(pod_obj)
+                i += 1
+                continue
+            group = problem.groups[bucket.group_index]
+            req = problem.requests[row]
+            if bucket.zone == "__infeasible__":
+                # host-routed rows: raw exact adds, view order — no
+                # group-level prescreen (hostname-keyed requirements make
+                # _view_accepts meaningless here; the add is authority)
+                for vi in np.flatnonzero(usable & (req <= head).all(axis=1)):
+                    if commit(int(vi), row, ctx_of(bucket.group_index)):
+                        break
+                i += 1
+                continue
+            if bucket.single_bin:
+                # bootstrap hostname-affinity component: all-or-nothing
+                # swallow at the component's first FFD position (greedy
+                # per-pod adds cannot backtrack a half-placed component;
+                # the whole-component contract schedules the cohort on a
+                # fresh host where per-pod order would strand its tail)
+                i += 1
+                if id(bucket) in singlebin_tried:
+                    continue
+                singlebin_tried.add(id(bucket))
+                rows_sb = bucket.pod_rows
+                order_sb = np.lexsort(tuple(-problem.requests[rows_sb][:, c] for c in (1, 0)))
+                queue_sb = [rows_sb[k] for k in order_sb]
+                total_sb = problem.requests[rows_sb].sum(axis=0)
+                ctx = ctx_of(bucket.group_index)
+                for vi in np.flatnonzero(usable & (total_sb <= head).all(axis=1)):
+                    vi = int(vi)
+                    if not view_ok(bucket, group, vi):
+                        continue
+                    if commit(vi, queue_sb[0], ctx):
+                        for r in queue_sb[1:]:
+                            if not commit(vi, r, ctx):
+                                # rare (ports/volume veto mid-component):
+                                # the host loop owns the remainder — it
+                                # sees the recorded affinity domain and
+                                # applies the exact bootstrap rules
+                                bucket.zone = "__infeasible__"
+                                break
+                        break  # component is bound to this host now
+                continue
+            if bucket.dedicated:
+                # at most one pod per host: per-pod, first accepting view
+                # (the zero-count rule is per-host, so a veto moves to the
+                # next view, never ends the scan). Certified cohorts reduce
+                # each attempt to set/integer lookups — without this, N
+                # anti-affinity pods cost N full protocol runs each scanning
+                # every registered hostname.
+                ctx = ctx_of(bucket.group_index)
+                dcert = bucket_cert_of(bucket, row, ctx)
+                for vi in np.flatnonzero(usable & (req <= head).all(axis=1)):
+                    vi = int(vi)
+                    if not view_ok(bucket, group, vi):
+                        continue
+                    if dcert is not None:
+                        if views[vi].add_certified_view(problem.pods[row], dcert):
+                            taken[row] = True
+                            committed += 1
+                            head[vi] -= req
+                            break
+                    elif commit(vi, row, ctx):
+                        break
+                i += 1
+                continue
+
+            # plain / pinned / deferred: maximal same-bucket same-size run
+            j = i + 1
+            while j < N and items[j][2] is bucket and np.array_equal(problem.requests[items[j][1]], req):
+                j += 1
+            run = [items[k][1] for k in range(i, j)]
+            i = j
+            gi = bucket.group_index
+            ctx = ctx_of(gi)
+            if not bucket.deferred_spread:
+                # rejections are persistent for identical pods on a plain
+                # run (capacity and port state only shrink, acceptance memo
+                # is static), so one forward scan over fit views is exact
+                for vi in np.flatnonzero(usable & (req <= head).all(axis=1)):
+                    vi = int(vi)
+                    if not view_ok(bucket, group, vi):
+                        continue
+                    n = commit_run(vi, run, bucket, ctx)
+                    if n:
+                        run = run[n:]
+                        if not run:
+                            break
+                continue
+            # deferred spread/affinity: any group-allowed domain; the exact
+            # add judges transient counts exactly as the host loop would at
+            # this queue position. Skew admission is NOT monotone (another
+            # domain's placements can raise the global min), so after each
+            # placed sub-run the scan restarts from view 0 — the same views
+            # the next pod would probe per-pod.
+            zone_keyed = group.topology_key == lbl.LABEL_TOPOLOGY_ZONE
+            while run:
+                placed_any = False
+                for vi in np.flatnonzero(usable & (req <= head).all(axis=1)):
+                    vi = int(vi)
+                    if zone_keyed:
+                        dv = zone_index.get(zone_of[vi])
+                        if dv is None or not problem.group_zone_allowed[gi][dv]:
+                            continue
+                    else:
+                        dv = ct_index.get(ct_of[vi])
+                        if dv is None or not problem.group_ct_allowed[gi][dv]:
+                            continue
+                    if not self._view_accepts(group, views[vi]):
+                        continue
+                    n = commit_run(vi, run, bucket, ctx)
+                    if n:
+                        run = run[n:]
+                        placed_any = True
+                        break
+                if not placed_any:
+                    break
+
+        for bucket in all_buckets:
+            bucket.pod_rows = [r for r in bucket.pod_rows if not taken[r]]
+        return committed, taken, placed_extras
 
     # -- step 3: device solve -------------------------------------------------
 
@@ -828,7 +1264,7 @@ class DenseSolver:
             cached = self._device_catalog[key] = load_catalog(caps_eff, prices, self.device)
         return cached
 
-    def _device_solve(self, scheduler, problem: DenseProblem, buckets: List[_Bucket]):
+    def _device_solve(self, scheduler, problem: DenseProblem, buckets: List[_Bucket], taken: Optional[np.ndarray] = None):
         """Bucket→type choice on the device; packing via counts (see
         pack_counts.py).
 
@@ -954,7 +1390,7 @@ class DenseSolver:
         reroute = bool(scheduler.existing_nodes)
         t_asm = time.perf_counter()
         sol = self._assemble(problem, buckets, local, bucket_extra, caps_eff, reroute_fragments=reroute)
-        prep = self._prepare_commit(scheduler, problem, buckets, sol)
+        prep = self._prepare_commit(scheduler, problem, buckets, sol, taken)
         self.stats.assemble_seconds += time.perf_counter() - t_asm
 
         if landed is not None:
@@ -1007,7 +1443,7 @@ class DenseSolver:
         if changed:  # genuine disagreement: re-run assembly + preparation
             t_asm = time.perf_counter()
             sol = self._assemble(problem, buckets, local, bucket_extra, caps_eff, reroute_fragments=reroute)
-            prep = self._prepare_commit(scheduler, problem, buckets, sol)
+            prep = self._prepare_commit(scheduler, problem, buckets, sol, taken)
             self.stats.assemble_seconds += time.perf_counter() - t_asm
         return prep
 

@@ -1,11 +1,13 @@
 """Seeded workload and catalog builders for the port.
 
 The port's counterparts of the JAX package's test fixtures (tests/helpers.py
-make_pod / make_provisioner) and of bench.py's workload builders
-(build_workload, build_selectors_taints_workload, build_spot_od_types). They
-draw from numpy with the same seeds in the same order, so both packages
-build the same pods and catalogs: the tests and chip_smoke.py build the
-port's side from here.
+make_pod / make_provisioner / make_node / make_state_node), of bench.py's
+builders (build_workload, build_selectors_taints_workload,
+build_spot_od_types, build_repack_state) and of the randomized warm-cluster
+generators of its differential tests (tests/test_differential_campaign.py,
+tests/test_warm_fill_vectorized.py). They draw from numpy with the same
+seeds in the same order, so both packages build the same pods, catalogs and
+clusters: the tests and chip_smoke.py build the port's side from here.
 """
 
 from __future__ import annotations
@@ -15,15 +17,26 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .api.labels import LABEL_HOSTNAME, LABEL_TOPOLOGY_ZONE
+from .api.labels import (
+    LABEL_CAPACITY_TYPE,
+    LABEL_HOSTNAME,
+    LABEL_INSTANCE_TYPE,
+    LABEL_TOPOLOGY_ZONE,
+    PROVISIONER_NAME_LABEL,
+)
 from .api.objects import (
+    OP_IN,
     Affinity,
     Container,
     ContainerPort,
     LabelSelector,
+    Node,
     NodeAffinity,
+    NodeCondition,
     NodeSelectorRequirement,
     NodeSelectorTerm,
+    NodeSpec,
+    NodeStatus,
     ObjectMeta,
     Pod,
     PodAffinity,
@@ -34,6 +47,7 @@ from .api.objects import (
     PodStatus,
     PreferredSchedulingTerm,
     ResourceRequirements,
+    Taint,
     Toleration,
     TopologySpreadConstraint,
     WeightedPodAffinityTerm,
@@ -42,6 +56,8 @@ from .api.objects import (
 )
 from .api.provisioner import Budget, Consolidation, Disruption, Limits, Provisioner, ProvisionerSpec
 from .cloudprovider.fake import Offering, instance_type
+from .scheduling.hostports import HostPortUsage
+from .scheduling.volumelimits import VolumeCount, VolumeLimits
 from .utils.quantity import parse_quantity
 
 _counter = itertools.count(1)
@@ -241,3 +257,208 @@ def build_spot_od_types(total: int):
         offers = [Offering(capacity_type="spot", zone=z) for z in zones]
         types.append(instance_type(f"spot-{i}", cpu=cpu, memory=mem, pods=pods, offerings=offers, price=0.04 * cpu))
     return types
+
+
+def make_node(
+    name: str = "",
+    labels: Optional[Dict[str, str]] = None,
+    taints=None,
+    allocatable: Optional[Dict[str, object]] = None,
+    capacity: Optional[Dict[str, object]] = None,
+    ready: bool = True,
+) -> Node:
+    if not name:
+        name = f"node-{next(_counter):05d}"
+    alloc = _parse_resources(allocatable)
+    cap = _parse_resources(capacity) or dict(alloc)
+    return Node(
+        metadata=ObjectMeta(name=name, namespace="", labels=dict(labels or {})),
+        spec=NodeSpec(taints=list(taints or [])),
+        status=NodeStatus(
+            capacity=cap,
+            allocatable=alloc or dict(cap),
+            conditions=[NodeCondition(type="Ready", status="True" if ready else "False")],
+        ),
+    )
+
+
+class StateNode:
+    """The minimal cluster-state node surface ExistingNodeView consumes."""
+
+    def __init__(self, node: Node, available: Dict[str, float], daemonset_requested: Dict[str, float]):
+        self.node = node
+        self.available = available
+        self.daemonset_requested = daemonset_requested
+        self.host_port_usage = HostPortUsage()
+        self.volume_usage = VolumeLimits()
+        self.volume_limits = VolumeCount()
+
+
+def make_state_node(
+    node: Optional[Node] = None,
+    provisioner: str = "default",
+    available: Optional[Dict[str, object]] = None,
+    daemonset_requested: Optional[Dict[str, object]] = None,
+    **node_kwargs,
+) -> StateNode:
+    """An existing (warm) node for the scheduler: `state_nodes=[...]`."""
+    if node is None:
+        labels = dict(node_kwargs.pop("labels", {}) or {})
+        if provisioner is not None:
+            labels.setdefault(PROVISIONER_NAME_LABEL, provisioner)
+        node = make_node(labels=labels, **node_kwargs)
+    return StateNode(
+        node,
+        _parse_resources(available) if available is not None else dict(node.status.allocatable),
+        _parse_resources(daemonset_requested),
+    )
+
+
+ZONES = ("test-zone-1", "test-zone-2", "test-zone-3")
+
+
+def build_repack_state(node_count: int) -> List[StateNode]:
+    """BASELINE config 4: a warm cluster of 16-CPU / 32Gi on-demand nodes,
+    round-robin over three zones, to repack onto."""
+    nodes = []
+    for i in range(node_count):
+        labels = {
+            PROVISIONER_NAME_LABEL: "default",
+            LABEL_INSTANCE_TYPE: "fake-it-15",
+            LABEL_TOPOLOGY_ZONE: ZONES[i % 3],
+            LABEL_CAPACITY_TYPE: "on-demand",
+        }
+        nodes.append(make_state_node(labels=labels, allocatable={"cpu": 16, "memory": "32Gi", "pods": 110}))
+    return nodes
+
+
+def rename(pods, tag):
+    """Deterministic pod names (make_pod's come from a process-global
+    counter), so two builds of one batch compare by name."""
+    for i, pod in enumerate(pods):
+        pod.metadata.name = f"dp-{tag}-{i:04d}"
+    return pods
+
+
+def random_workload(rng: np.random.Generator, count: int):
+    """A random mix of plain cohorts, zonal spread, zonal self-affinity,
+    hostname anti-affinity, zone selectors, host ports, tolerations of the
+    dedicated pool's taint and preferred zone affinity."""
+    cpus = [0.25, 0.5, 1.0, 2.0]
+    mems = ["128Mi", "512Mi", "1Gi", "2Gi"]
+    pods = []
+    for i in range(count):
+        kind = rng.integers(0, 12)
+        size = {"cpu": cpus[rng.integers(len(cpus))], "memory": mems[rng.integers(len(mems))]}
+        cohort = f"c{rng.integers(4)}"
+        if kind < 4:  # plain
+            pods.append(make_pod(labels={"app": cohort}, requests=size))
+        elif kind == 10:  # tolerates the dedicated provisioner's taint
+            pods.append(
+                make_pod(
+                    labels={"app": cohort},
+                    requests=size,
+                    tolerations=[Toleration(key="dedicated", operator="Equal", value="batch", effect="NoSchedule")],
+                )
+            )
+        elif kind == 11:  # preferred zone affinity: exercises relaxation
+            zone = ZONES[rng.integers(3)]
+            pods.append(
+                make_pod(
+                    labels={"app": cohort},
+                    requests=size,
+                    node_preferences=[
+                        PreferredSchedulingTerm(
+                            weight=int(rng.integers(1, 100)),
+                            preference=NodeSelectorTerm(
+                                match_expressions=[NodeSelectorRequirement(LABEL_TOPOLOGY_ZONE, OP_IN, [zone])]
+                            ),
+                        )
+                    ],
+                )
+            )
+        elif kind < 6:  # zonal spread
+            pods.append(
+                make_pod(
+                    labels={"spread": cohort},
+                    requests=size,
+                    topology_spread_constraints=[
+                        TopologySpreadConstraint(
+                            max_skew=int(rng.integers(1, 3)),
+                            topology_key=LABEL_TOPOLOGY_ZONE,
+                            label_selector=LabelSelector(match_labels={"spread": cohort}),
+                        )
+                    ],
+                )
+            )
+        elif kind < 7:  # zonal self-affinity
+            pods.append(
+                make_pod(
+                    labels={"aff": cohort},
+                    requests=size,
+                    pod_requirements=[
+                        PodAffinityTerm(topology_key=LABEL_TOPOLOGY_ZONE, label_selector=LabelSelector(match_labels={"aff": cohort}))
+                    ],
+                )
+            )
+        elif kind < 8:  # hostname anti-affinity
+            pods.append(
+                make_pod(
+                    labels={"anti": cohort},
+                    requests=size,
+                    pod_anti_requirements=[
+                        PodAffinityTerm(topology_key=LABEL_HOSTNAME, label_selector=LabelSelector(match_labels={"anti": cohort}))
+                    ],
+                )
+            )
+        elif kind < 9:  # zone selector
+            pods.append(make_pod(requests=size, node_selector={LABEL_TOPOLOGY_ZONE: ZONES[rng.integers(3)]}))
+        else:  # host port (few port numbers, so some conflict)
+            pods.append(make_pod(requests=size, host_ports=[ContainerPort(host_port=int(8000 + rng.integers(4)))]))
+    return pods
+
+
+def random_states(rng: np.random.Generator) -> List[StateNode]:
+    """0-7 small warm nodes in random zones."""
+    states = []
+    for i in range(int(rng.integers(0, 8))):
+        states.append(
+            make_state_node(
+                labels={
+                    PROVISIONER_NAME_LABEL: "default",
+                    LABEL_INSTANCE_TYPE: "fake-it-3",
+                    LABEL_CAPACITY_TYPE: "on-demand",
+                    LABEL_TOPOLOGY_ZONE: ZONES[int(rng.integers(3))],
+                },
+                allocatable={"cpu": int(rng.integers(4, 17)), "memory": "32Gi", "pods": 110},
+            )
+        )
+    return states
+
+
+def warm_states(rng: np.random.Generator) -> List[StateNode]:
+    """The warm-heavy variant of random_states: enough existing capacity
+    that the fill decides most placements."""
+    states = random_states(rng)
+    for i in range(int(rng.integers(6, 18))):
+        states.append(
+            make_state_node(
+                labels={
+                    PROVISIONER_NAME_LABEL: "default",
+                    LABEL_INSTANCE_TYPE: "fake-it-3",
+                    LABEL_CAPACITY_TYPE: "on-demand",
+                    LABEL_TOPOLOGY_ZONE: ZONES[int(rng.integers(3))],
+                },
+                allocatable={"cpu": int(rng.integers(8, 33)), "memory": "64Gi", "pods": 110},
+            )
+        )
+    return states
+
+
+def campaign_provisioners() -> List[Provisioner]:
+    """Weight order: the untainted default first, then a dedicated pool whose
+    NoSchedule taint only tolerating pods may land on."""
+    return [
+        make_provisioner(name="default", weight=10),
+        make_provisioner(name="dedicated", weight=1, taints=[Taint(key="dedicated", value="batch", effect="NoSchedule")]),
+    ]

@@ -132,36 +132,3 @@ def test_default_device_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DenseSolver(device="cuda")
 
-
-def test_existing_nodes_raise_not_implemented():
-    from karpenter_tpu_torch.api.labels import PROVISIONER_NAME_LABEL
-    from karpenter_tpu_torch.api.objects import Node, NodeSpec, NodeStatus, ObjectMeta
-    from karpenter_tpu_torch.scheduling.hostports import HostPortUsage
-    from karpenter_tpu_torch.scheduling.volumelimits import VolumeCount, VolumeLimits
-
-    class StateNode:
-        pass
-
-    state = StateNode()
-    state.node = Node(
-        metadata=ObjectMeta(name="warm-1", namespace="", labels={PROVISIONER_NAME_LABEL: "default"}),
-        spec=NodeSpec(),
-        status=NodeStatus(capacity={"cpu": 4.0, "pods": 10.0}, allocatable={"cpu": 4.0, "pods": 10.0}),
-    )
-    state.available = dict(state.node.status.allocatable)
-    state.daemonset_requested = {}
-    state.host_port_usage = HostPortUsage()
-    state.volume_usage = VolumeLimits()
-    state.volume_limits = VolumeCount()
-
-    pods = [testing.make_pod(requests={"cpu": 1}) for _ in range(4)]
-    scheduler = build_scheduler(
-        [testing.make_provisioner()],
-        FakeCloudProvider(instance_types(10)),
-        pods,
-        state_nodes=[state],
-        dense_solver=DenseSolver(min_batch=1, device="cpu"),
-    )
-    assert scheduler.existing_nodes, "the state node should be an existing node"
-    with pytest.raises(NotImplementedError, match="next slice"):
-        scheduler.solve(pods)
