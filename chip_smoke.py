@@ -20,10 +20,21 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     nodes that cannot hold it, so K1 runs after K2 in the same solve; also
     solved with both plain versions and through the exact host loop.
 
-Each solve checks that its kernels launched (counts zeroed just before the
-timed solves, read just after), that every pod was scheduled, and that the
-placements equal the plain versions' solve. It times the kernels and prints
-one JSON object per phase. The last line is
+K2 is held against its plain version twice per input: through its wrapper
+on CUDA tensors and through the warm solve's round trip from host arrays
+(ops/warmfill.py:AdmissionSurface); both make the same one call into the
+kernel's library. Each solve checks that its kernels launched (counts
+zeroed just before the timed solves, read just after), that every pod was
+scheduled, and that the placements equal the plain versions' solve, in
+which neither kernel may launch. The warm solves report K2's round trip
+(fill_device) in its parts: staging, enqueue, wait.
+
+Then it measures, on the same card: the launch floor (the device time of
+the smallest kernel PyTorch launches); how each kernel's device time
+scales with its shape (kernel_scaling); and each kernel's time at its main
+path's shape beside its bound. It prints one JSON object per phase.
+chip_sweep.py holds the measurements that chose the kernels' launch
+geometries and K2's round trip. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -33,6 +44,7 @@ repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -42,9 +54,25 @@ import time
 
 import torch
 
-PARITY_SHAPES = [(1, 1, 1), (3, 7, 2), (16, 100, 4), (53, 500, 8), (64, 512, 8)]
-WARM_PARITY_SHAPES = [(1, 1, 2), (5, 17, 3), (8, 128, 3), (32, 200, 4), (64, 512, 3), (30, 2400, 8)]
+# (B, T, R[, kind]): test_pallas.py's shapes, then K1's edges: T past one
+# block and not a multiple of it, B past the grid cap, a tie-heavy catalog
+# (price in proportion to capacity) and buckets with no feasible type
+PARITY_SHAPES = [
+    (1, 1, 1), (3, 7, 2), (16, 100, 4), (53, 500, 8), (64, 512, 8),
+    (8, 1025, 8), (64, 2000, 8), (2048, 500, 8), (5000, 64, 3),
+    (16, 600, 4, "ties"), (30, 500, 8, "ties"), (64, 2000, 8, "ties"),
+    (12, 200, 3, "infeasible"), (2048, 500, 8, "infeasible"),
+    (30, 500, 8, "unrequested"), (2048, 500, 8, "unrequested"),
+]
+# (S, V, R): then K2's edges: S not a multiple of the size-class chunk, V
+# not a multiple of the node tile, S in the hundreds
+WARM_PARITY_SHAPES = [
+    (1, 1, 2), (5, 17, 3), (8, 128, 3), (32, 200, 4), (64, 512, 3), (30, 2400, 8),
+    (37, 300, 8), (300, 129, 3), (301, 2400, 8), (30, 20001, 4),
+]
 PARITY_SEEDS = range(8)
+K1_SCALING_B, K1_SCALING_T = (30, 2048), (32, 500, 1024, 2000)
+K2_SCALING = [(30, 2400), (300, 2400), (30, 20000)]
 HEADLINE_PODS, HEADLINE_TYPES = 10_000, 500
 # (name, pods, workload seed, types, warm nodes): bench.py's repack config
 # (BASELINE config 4 at 16k)
@@ -53,6 +81,8 @@ REPACK = ("repack_16k_x_2400", 16_000, 5, 100, 2400)
 OVERFLOW = ("warm_overflow_10k_x_500", 300)
 SOLVE_TRIALS = 3
 KERNEL_ITERS, PLAIN_ITERS, SCALING_ITERS = 200, 20, 50
+# the profiler's trace now and then keeps no kernel at all; it is taken again
+TRACE_ATTEMPTS = 3
 # the host loop may cost at most this much more than dense, as
 # tests/test_dense_solver.py:test_mixed_workload_cost_parity allows
 HOST_COST_SLACK = 1.3
@@ -73,33 +103,13 @@ def check(cond: bool, what: str) -> None:
         raise PhaseFailed(what)
 
 
-def scaling_shapes(B, T):
-    """(buckets, types) for K1's scaling phase around the headline's (B, T)."""
-    return [(1, T), (B, T), (256, T), (2048, T), (B, 32)]
-
-
-def random_problem(rng, B, T, R):
-    """tests/test_pallas.py's generator."""
-    import numpy as np
-
-    sum_req = (rng.random((B, R)) * 20).astype(np.float32)
-    max_req = (sum_req * rng.random((B, R))).astype(np.float32)
-    caps = (rng.random((T, R)) * 16).astype(np.float32)
-    caps[rng.random((T, R)) < 0.1] = 0.0
-    prices = (rng.random((T,)) * 4 + 0.1).astype(np.float32)
-    allowed = rng.random((B, T)) > 0.3
-    return np.stack([sum_req, max_req]), caps, prices, allowed
-
-
-def random_surface(rng, S, V, R):
-    """tests/test_warm_fill_vectorized.py's _random_surface generator."""
-    import numpy as np
-
-    sizes = (rng.random((S, R)) * 4).astype(np.float64)
-    sizes[rng.random((S, R)) < 0.2] = 0.0
-    head = (rng.random((V, R)) * 32).astype(np.float64)
-    head[rng.random((V,)) < 0.1] = -1.0
-    return sizes, head
+def k1_scaling_shapes(B, T):
+    """(buckets, types[, kind]) for K1's scaling phase: around the
+    headline's (B, T), then K1_SCALING_B x K1_SCALING_T, then the headline's
+    resource pattern (most sums zero) at B and 2048."""
+    shapes = [(1, T), (B, T), (256, T), (2048, T), (B, 32)]
+    shapes += [(b, t) for b in K1_SCALING_B for t in K1_SCALING_T if (b, t) not in shapes]
+    return shapes + [(B, T, "unrequested"), (2048, T, "unrequested")]
 
 
 def compare(kernel_fn, plain_fn, inputs):
@@ -124,26 +134,54 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_device_ms(fn, iters: int, match: str = ""):
-    """Device time per call from torch.profiler's CUDA trace: the summed
-    time of the kernels whose name contains `match` (every kernel when
-    empty). Returns (ms or None, why None)."""
+def profiled_total_ms(fn, iters: int):
+    """Device time per call of `fn` from torch.profiler's CUDA trace: the
+    summed time of every kernel it launched, over `iters` calls (for the
+    plain versions, which launch several kernels a call). Returns (ms or
+    None, why None)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    try:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(evt.self_device_time_total for evt in prof.key_averages())
+    if total_us <= 0:
+        return None, "the profiler showed no device time"
+    return total_us / iters / 1e3, ""
+
+
+def profiled_device_ms(fn, iters: int, match: str = ""):
+    """Device time per launch of `fn`'s one kernel (its name contains
+    `match`) from a torch.profiler trace of `iters` calls: the mean over the
+    kernels the trace kept, since the profiler may drop events. A trace
+    that kept none is taken again, up to TRACE_ATTEMPTS traces. Returns (ms
+    or None, why None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(TRACE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-    except RuntimeError as exc:  # the profiler could not trace this card
-        return None, f"profiler failed: {exc}"
-    total_us = sum(evt.self_device_time_total for evt in prof.key_averages() if match in evt.key)
-    if total_us <= 0:
-        return None, "the profiler showed no device time"
-    return total_us / iters / 1e3, ""
+        kept = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA and match in e.name]
+        if kept:
+            return statistics.mean(kept) / 1e3, ""
+    return None, f"{TRACE_ATTEMPTS} traces kept no kernel named {match!r}"
+
+
+def profiled_series(fns, iters: int, match: str):
+    """profiled_device_ms of each of `fns`, one trace each: (list of ms or
+    None, why any is None)."""
+    results = [profiled_device_ms(fn, iters, match) for fn in fns]
+    return [r[0] for r in results], "; ".join(sorted({r[1] for r in results if r[1]}))
 
 
 def outcome(results, pods):
@@ -222,41 +260,49 @@ def main() -> int:
     # 1. build both kernels from the checkout's sources
     build_kernels([bucket_cost.LIBRARY, warmfill.LIBRARY])
 
-    # 2. K1 against its plain version on the card, test_pallas.py's shapes
+    def k1_problem(seed, B, T, R, kind="random"):
+        arrays = testing.bucket_cost_problem(np.random.default_rng(seed), B, T, R, kind)
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    # 2. K1 against its plain version on the card: test_pallas.py's shapes,
+    # then the edges of its block and grid
     mismatches, max_err = [], 0
-    for B, T, R in PARITY_SHAPES:
+    for B, T, R, *kind in PARITY_SHAPES:
         for seed in PARITY_SEEDS:
-            stats, caps, prices, allowed = random_problem(np.random.default_rng(seed * 1000 + B), B, T, R)
-            inputs = [torch.from_numpy(a).to(dev) for a in (stats, caps, prices, allowed)]
-            equal, diff = compare(kernel, bucket_type_cost_packed, inputs)
+            equal, diff = compare(kernel, bucket_type_cost_packed, k1_problem(seed * 1000 + B, B, T, R, *kind))
             max_err = max(max_err, diff)
             if not equal:
-                mismatches.append([B, T, R, seed])
+                mismatches.append([B, T, R, *kind, seed])
     emit({"phase": "kernel_parity", "kernel": "bucket_type_cost", "shapes": [list(s) for s in PARITY_SHAPES], "seeds": len(PARITY_SEEDS), "tolerance": "exact", "mismatches": mismatches, "max_abs_err": max_err})
     check(not mismatches, f"K1 disagrees with its plain version at {mismatches}")
 
-    # 3. K2 against its plain version on the card (exact), and the counts an
-    # upper bound on the exact f64 closed form
-    def k2_parity(sizes, head):
-        """sizes/head as f32 CUDA tensors; returns (equal, max |diff|, upper bound holds)."""
-        equal, diff = compare(k2, warm_fill_counts, [sizes, head])
-        got = k2(sizes, head).cpu().numpy()
+    # 3. K2 against its plain version on the card (exact), through its
+    # wrapper and through the solve's round trip, and the counts an upper
+    # bound on the exact f64 closed form
+    surface = warmfill.AdmissionSurface(dev)
+
+    def k2_parity(sizes_np, head_np):
+        """Host sizes/head, cast to f32; returns (equal, max |diff|, upper bound holds)."""
+        sizes, head = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (sizes_np, head_np))
+        want = warm_fill_counts(sizes, head)
+        got = [k2(sizes, head), torch.from_numpy(surface.counts(sizes_np, head_np)[0].copy()).to(dev)]
+        torch.cuda.synchronize()
+        diff = max(int((g.long() - want.long()).abs().max().item()) for g in got)
         exact = warm_fill_counts_np(sizes.double().cpu().numpy(), head.double().cpu().numpy())
-        return equal, diff, bool((got >= np.minimum(exact, 1 << 30)).all())
+        bound = all(bool((g.cpu().numpy() >= np.minimum(exact, 1 << 30)).all()) for g in got)
+        return all(torch.equal(g, want) for g in got), diff, bound
 
     mismatches, under, k2_err = [], [], 0
     for S, V, R in WARM_PARITY_SHAPES:
         for seed in PARITY_SEEDS:
-            sizes, head = random_surface(np.random.default_rng(seed * 101 + S), S, V, R)
-            equal, diff, bound = k2_parity(
-                torch.from_numpy(sizes.astype(np.float32)).to(dev), torch.from_numpy(head.astype(np.float32)).to(dev)
-            )
+            sizes, head = testing.warm_fill_surface(np.random.default_rng(seed * 101 + S), S, V, R)
+            equal, diff, bound = k2_parity(sizes, head)
             k2_err = max(k2_err, diff)
             if not equal:
                 mismatches.append([S, V, R, seed])
             if not bound:
                 under.append([S, V, R, seed])
-    emit({"phase": "kernel_parity", "kernel": "warm_fill_counts", "shapes": [list(s) for s in WARM_PARITY_SHAPES], "seeds": len(PARITY_SEEDS), "tolerance": "exact", "mismatches": mismatches, "upper_bound_violations": under, "max_abs_err": k2_err})
+    emit({"phase": "kernel_parity", "kernel": "warm_fill_counts", "shapes": [list(s) for s in WARM_PARITY_SHAPES], "seeds": len(PARITY_SEEDS), "paths": ["warm_fill_counts_device", "AdmissionSurface.counts"], "tolerance": "exact", "mismatches": mismatches, "upper_bound_violations": under, "max_abs_err": k2_err})
     check(not mismatches, f"K2 disagrees with its plain version at {mismatches}")
     check(not under, f"K2 under-counts the exact closed form at {under}")
 
@@ -304,8 +350,12 @@ def main() -> int:
             "unschedulable": got["unschedulable"],
             "phases_ms": {
                 k: getattr(s, f"{k}_seconds") * 1e3
-                for k in ("encode", "fill", "fill_device", "device", "mask", "assemble", "device_wait", "commit")
+                for k in (
+                    "encode", "fill", "fill_device", "fill_stage", "fill_enqueue", "fill_wait",
+                    "device", "mask", "assemble", "device_wait", "commit",
+                )
             },
+            "fill_device_ms_runs": [r[2].fill_device_seconds * 1e3 for r in runs],
         }
         emit(line)
         solve_lines[name] = line
@@ -314,19 +364,27 @@ def main() -> int:
         check(got["scheduled"] == len(pods) and got["unschedulable"] == 0, f"{name}: not every pod scheduled")
         return got
 
-    def plain_versions(k1: bool, k2_plain: bool):
-        """Swap the solver's kernel wrappers for their plain versions (on the
-        card); returns the undo."""
-        saved = (dense_module.bucket_cost_packed, fill_module.warm_fill_counts_device)
-        if k1:
-            dense_module.bucket_cost_packed = bucket_type_cost_packed
-        if k2_plain:
-            fill_module.warm_fill_counts_device = warm_fill_counts
+    def plain_admission_counts(sizes, head, solver):
+        """K2's plain version on the card, in place of the solve's round trip."""
+        t0 = time.perf_counter()
+        counts = warm_fill_counts(*(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (sizes, head)))
+        return counts.cpu().numpy(), (time.perf_counter() - t0, 0.0, 0.0)
 
-        def undo():
-            dense_module.bucket_cost_packed, fill_module.warm_fill_counts_device = saved
-
-        return undo
+    def plain_solve(pods, provider, provisioners, state_nodes=()):
+        """The solve with both kernels' plain versions on the card, swapped in
+        at the seams the solve calls (K1's wrapper, K2's round trip). Fails if
+        either kernel launched in it."""
+        saved = dense_module.bucket_cost_packed, fill_module.admission_counts
+        dense_module.bucket_cost_packed, fill_module.admission_counts = bucket_type_cost_packed, plain_admission_counts
+        bucket_cost.LAUNCHES = 0
+        warmfill.LAUNCHES = 0
+        try:
+            ms, results, _ = solve(pods, provider, provisioners, DenseSolver(min_batch=1), state_nodes)
+        finally:
+            dense_module.bucket_cost_packed, fill_module.admission_counts = saved
+        launches = {"bucket_type_cost": bucket_cost.LAUNCHES, "warm_fill_counts": warmfill.LAUNCHES}
+        check(not any(launches.values()), f"the plain versions' solve launched kernels: {launches}")
+        return ms, outcome(results, pods), launches
 
     # 4. the headline solve through K1; the warm-up run records K1's inputs
     # for the timing and parity at the main path's shapes
@@ -354,15 +412,10 @@ def main() -> int:
     check(equal, f"K1 disagrees with its plain version at the headline shape ({B}, {T}, {R})")
     max_err = max(max_err, diff)
 
-    # 5. the same solve with K1's plain version on the card: same placements
-    undo = plain_versions(k1=True, k2_plain=False)
-    try:
-        plain_ms, plain_results, _ = solve(pods, provider, provisioners, DenseSolver(min_batch=1))
-    finally:
-        undo()
-    plain_out = outcome(plain_results, pods)
+    # 5. the same solve with the plain versions on the card: same placements
+    plain_ms, plain_out, launches = plain_solve(pods, provider, provisioners)
     same = plain_out["nodes"] == dense_out["nodes"]
-    emit({"phase": "plain_solve", "config": "headline_10k_x_500", "wall_ms": plain_ms, "nodes": len(plain_out["nodes"]), "cost": plain_out["cost"], "placements_identical": same})
+    emit({"phase": "plain_solve", "config": "headline_10k_x_500", "wall_ms": plain_ms, "kernel_launches": launches, "nodes": len(plain_out["nodes"]), "cost": plain_out["cost"], "placements_identical": same})
     check(same, "K1's and its plain version's solves placed pods differently")
 
     # 6. the exact host loop on the same batch
@@ -372,7 +425,7 @@ def main() -> int:
     emit({"phase": "host_solve", "config": "headline_10k_x_500", "wall_ms": host_ms, "nodes": len(host_out["nodes"]), "cost": host_out["cost"], "scheduled": host_out["scheduled"], "dense_cost": dense_out["cost"], "cost_within_slack": within})
     check(host_out["scheduled"] == len(pods) and host_out["unschedulable"] == 0, "host loop left pods unscheduled")
     check(within, f"dense cost {dense_out['cost']} exceeds {HOST_COST_SLACK} x host cost {host_out['cost']}")
-    del host_results, plain_results
+    del host_results
 
     # 7. the selectors + taints configuration
     tainted = testing.make_provisioner(taints=[Taint(key="dedicated", value="batch", effect="NoSchedule")])
@@ -385,29 +438,35 @@ def main() -> int:
 
     # 8. the warm repack: every pod fits the existing nodes, so the fill
     # takes the batch through K2 and K1 never runs. The warm-up solve
-    # records K2's inputs.
+    # records K2's inputs, on the card and as the host arrays the solver
+    # staged them from.
     name, n_pods, seed, n_types, n_nodes = REPACK
     repack_pods = testing.build_workload(n_pods, seed=seed)
     repack_provider = FakeCloudProvider(instance_types(n_types))
     repack_nodes = testing.build_repack_state(n_nodes)
-    k2_captured = []
+    host_captured = []
+    admission_counts = fill_module.admission_counts
 
-    def k2_recording(sizes, head):
-        k2_captured.append([sizes.clone(), head.clone()])
-        return k2(sizes, head)
+    def recording(sizes, head, solver):
+        counts, parts = admission_counts(sizes, head, solver)
+        host_captured.append((sizes.copy(), head.copy(), counts.copy()))
+        return counts, parts
 
-    fill_module.warm_fill_counts_device = k2_recording
+    fill_module.admission_counts = recording
     try:
         solve(repack_pods, repack_provider, provisioners, DenseSolver(min_batch=1), repack_nodes)
     finally:
-        fill_module.warm_fill_counts_device = k2
-    check(len(k2_captured) == 1, f"the repack solve called K2 {len(k2_captured)} times, expected 1")
-    repack_inputs = k2_captured[0]
+        fill_module.admission_counts = admission_counts
+    check(len(host_captured) == 1, f"the repack solve computed the surface {len(host_captured)} times, expected 1")
+    sizes_np, head_np, solve_counts = host_captured[0]
+    repack_inputs = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (sizes_np, head_np)]
     S, V, R2 = repack_inputs[0].shape[0], repack_inputs[1].shape[0], repack_inputs[0].shape[1]
-    equal, diff, bound = k2_parity(*repack_inputs)
-    emit({"phase": "kernel_parity", "kernel": "warm_fill_counts", "shapes": [[S, V, R2]], "source": "repack solve inputs", "tolerance": "exact", "mismatches": [] if equal else [[S, V, R2]], "upper_bound_holds": bound, "max_abs_err": diff})
+    equal, diff, bound = k2_parity(sizes_np, head_np)
+    round_trip_equal = np.array_equal(solve_counts, warm_fill_counts(*repack_inputs).cpu().numpy())
+    emit({"phase": "kernel_parity", "kernel": "warm_fill_counts", "shapes": [[S, V, R2]], "source": "repack solve inputs", "tolerance": "exact", "mismatches": [] if equal else [[S, V, R2]], "upper_bound_holds": bound, "solve_round_trip_equal": round_trip_equal, "max_abs_err": diff})
     check(equal, f"K2 disagrees with its plain version at the repack shape ({S}, {V}, {R2})")
     check(bound, "K2 under-counts the exact closed form at the repack solve's inputs")
+    check(round_trip_equal, "the solve's round trip through K2 returned other counts than the plain version")
     k2_err = max(k2_err, diff)
 
     repack_out = timed_solves(name, repack_pods, repack_provider, provisioners, repack_nodes, kernels=("warm_fill_counts",))
@@ -416,16 +475,11 @@ def main() -> int:
     check(line["fill_pods_host"] == 0, f"{name}: {line['fill_pods_host']} pods took the host-loop fill")
     check(line["kernel_launches"]["bucket_type_cost"] == 0, f"{name}: K1 launched though the fill took every pod")
 
-    undo = plain_versions(k1=True, k2_plain=True)
-    try:
-        plain_ms, plain_results, _ = solve(repack_pods, repack_provider, provisioners, DenseSolver(min_batch=1), repack_nodes)
-    finally:
-        undo()
-    plain_out = outcome(plain_results, repack_pods)
+    plain_ms, plain_out, launches = plain_solve(repack_pods, repack_provider, provisioners, repack_nodes)
     same = plain_out["views"] == repack_out["views"] and plain_out["nodes"] == repack_out["nodes"]
-    emit({"phase": "plain_solve", "config": name, "wall_ms": plain_ms, "on_existing": plain_out["on_existing"], "nodes": len(plain_out["nodes"]), "placements_identical": same})
+    emit({"phase": "plain_solve", "config": name, "wall_ms": plain_ms, "kernel_launches": launches, "on_existing": plain_out["on_existing"], "nodes": len(plain_out["nodes"]), "placements_identical": same})
     check(same, f"{name}: K2's and its plain version's solves placed pods differently")
-    del plain_results, repack_pods
+    del repack_pods
 
     # 9. the headline batch on a warm cluster too small for it: K2 fills the
     # existing nodes, then K1 prices new nodes for the rest in the same solve
@@ -433,14 +487,9 @@ def main() -> int:
     warm_nodes = testing.build_repack_state(n_nodes)
     overflow_out = timed_solves(name, pods, provider, provisioners, warm_nodes, kernels=("bucket_type_cost", "warm_fill_counts"))
     check(overflow_out["on_existing"] > 0 and overflow_out["nodes"], f"{name}: the fill or the new-node solve placed nothing")
-    undo = plain_versions(k1=True, k2_plain=True)
-    try:
-        plain_ms, plain_results, _ = solve(pods, provider, provisioners, DenseSolver(min_batch=1), warm_nodes)
-    finally:
-        undo()
-    plain_out = outcome(plain_results, pods)
+    plain_ms, plain_out, launches = plain_solve(pods, provider, provisioners, warm_nodes)
     same = plain_out["views"] == overflow_out["views"] and plain_out["nodes"] == overflow_out["nodes"]
-    emit({"phase": "plain_solve", "config": name, "wall_ms": plain_ms, "on_existing": plain_out["on_existing"], "nodes": len(plain_out["nodes"]), "cost": plain_out["cost"], "placements_identical": same})
+    emit({"phase": "plain_solve", "config": name, "wall_ms": plain_ms, "kernel_launches": launches, "on_existing": plain_out["on_existing"], "nodes": len(plain_out["nodes"]), "cost": plain_out["cost"], "placements_identical": same})
     check(same, f"{name}: the kernels' and the plain versions' solves placed pods differently")
     host_ms, host_results, _ = solve(pods, provider, provisioners, None, warm_nodes)
     host_out = outcome(host_results, pods)
@@ -448,14 +497,40 @@ def main() -> int:
     emit({"phase": "host_solve", "config": name, "wall_ms": host_ms, "on_existing": host_out["on_existing"], "nodes": len(host_out["nodes"]), "cost": host_out["cost"], "scheduled": host_out["scheduled"], "dense_cost": overflow_out["cost"], "cost_within_slack": within})
     check(host_out["scheduled"] == len(pods) and host_out["unschedulable"] == 0, f"{name}: host loop left pods unscheduled")
     check(within, f"{name}: dense cost {overflow_out['cost']} exceeds {HOST_COST_SLACK} x host cost {host_out['cost']}")
-    del pods, host_results, plain_results
+    del pods, host_results
 
-    # 10. each kernel's time at its main path's shape beside its bound and
-    # its plain version
+    # 10. the launch floor: the device time of the smallest kernel PyTorch
+    # launches (a fill of one element), in this run, on this card
+    one = torch.zeros(1, device=dev)
+    launch_floor_ms, floor_why = profiled_device_ms(one.zero_, KERNEL_ITERS)
+    emit({"phase": "launch_floor", "op": "zero_() of a 1-element CUDA tensor", "device_ms": launch_floor_ms, "device_ms_missing": floor_why or None})
+    check(launch_floor_ms is not None, f"no launch floor: {floor_why}")
+
+    # 11. how each kernel's device time scales: K1 with the buckets (blocks)
+    # and the types (threads per block, then types per thread); K2 with the
+    # size classes and the nodes
+    shapes = k1_scaling_shapes(B, T)
+    inputs = [k1_problem(sB * 7 + sT, sB, sT, R, *kind) for sB, sT, *kind in shapes]
+    times, why = profiled_series([functools.partial(kernel, *i) for i in inputs], SCALING_ITERS, "bucket_cost_kernel")
+    runs = [{"shape": [sB, sT, R, *kind], "device_ms": ms} for (sB, sT, *kind), ms in zip(shapes, times)]
+    emit({"phase": "kernel_scaling", "kernel": "bucket_type_cost", "runs": runs, "launch_floor_ms": launch_floor_ms, "device_ms_missing": why or None})
+    inputs, bad = [], []
+    for sS, sV in K2_SCALING:
+        arrays = testing.warm_fill_surface(np.random.default_rng(sS * 7 + sV), sS, sV, R2)
+        inputs.append([torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays])
+        if not compare(k2, warm_fill_counts, inputs[-1])[0]:
+            bad.append([sS, sV, R2])
+    times, why = profiled_series([functools.partial(k2, *i) for i in inputs], SCALING_ITERS, "warm_fill_kernel")
+    runs = [{"shape": [sS, sV, R2], "device_ms": ms} for (sS, sV), ms in zip(K2_SCALING, times)]
+    emit({"phase": "kernel_scaling", "kernel": "warm_fill_counts", "runs": runs, "launch_floor_ms": launch_floor_ms, "mismatches": bad, "device_ms_missing": why or None})
+    check(not bad, f"K2 disagrees with its plain version at {bad}")
+
+    # 12. each kernel's time at its main path's shape beside its bound and
+    # its plain version; K2's device time through the solve's round trip
     kernel_ms = cuda_ms(lambda: kernel(*headline_inputs), KERNEL_ITERS)
     plain_ms_k = cuda_ms(lambda: bucket_type_cost_packed(*headline_inputs), PLAIN_ITERS)
     kernel_device_ms, kernel_why = profiled_device_ms(lambda: kernel(*headline_inputs), KERNEL_ITERS, "bucket_cost_kernel")
-    plain_device_ms, plain_why = profiled_device_ms(lambda: bucket_type_cost_packed(*headline_inputs), PLAIN_ITERS)
+    plain_device_ms, plain_why = profiled_total_ms(lambda: bucket_type_cost_packed(*headline_inputs), PLAIN_ITERS)
     in_bytes = sum(t.numel() * t.element_size() for t in headline_inputs)
     out_bytes = 3 * B * 4
     # per (b, t, r): divide, max, add, compare; per (b, t): ceil, max, 3 mul, 2 add, select
@@ -465,22 +540,18 @@ def main() -> int:
 
     k2_ms = cuda_ms(lambda: k2(*repack_inputs), KERNEL_ITERS)
     k2_plain_ms = cuda_ms(lambda: warm_fill_counts(*repack_inputs), PLAIN_ITERS)
-    k2_device_ms, k2_why = profiled_device_ms(lambda: k2(*repack_inputs), KERNEL_ITERS, "warm_fill_kernel")
-    k2_plain_device_ms, k2_plain_why = profiled_device_ms(lambda: warm_fill_counts(*repack_inputs), PLAIN_ITERS)
+    k2_device_ms, k2_why = profiled_device_ms(lambda: surface.counts(sizes_np, head_np), KERNEL_ITERS, "warm_fill_kernel")
+    trips = []
+    for _ in range(KERNEL_ITERS):
+        t0 = time.perf_counter()
+        surface.counts(sizes_np, head_np)
+        trips.append((time.perf_counter() - t0) * 1e3)
+    k2_plain_device_ms, k2_plain_why = profiled_total_ms(lambda: warm_fill_counts(*repack_inputs), PLAIN_ITERS)
     k2_bytes_ms = ((S + V) * R2 * 4 + S * V * 4) / H100_BYTES_PER_S * 1e3
     # per (s, v, r): compare, mul, add, select, mul, divide, min; per (s, v):
     # floor, max, min, select
     k2_ops_ms = S * V * (7 * R2 + 4) / H100_F32_OPS_PER_S * 1e3
 
-    # how K1's own device time scales with the buckets (rows, one warp each)
-    # and the types (the loop each lane runs)
-    scaling = []
-    for sB, sT in scaling_shapes(B, T):
-        stats, caps, prices, allowed = random_problem(np.random.default_rng(sB * 7 + sT), sB, sT, R)
-        inputs = [torch.from_numpy(a).to(dev) for a in (stats, caps, prices, allowed)]
-        ms, why = profiled_device_ms(lambda: kernel(*inputs), SCALING_ITERS, "bucket_cost_kernel")
-        scaling.append({"shape": [sB, sT, R], "device_ms": ms, "device_ms_missing": why or None})
-    emit({"phase": "kernel_scaling", "kernel": "bucket_type_cost", "runs": scaling})
     emit({
         "kernels": [
             {
@@ -499,12 +570,13 @@ def main() -> int:
                 "parity": True,
                 "shape": [B, T, R],
                 "device_ms": kernel_device_ms,
+                "launch_floor_ms": launch_floor_ms,
                 "plain_device_ms": plain_device_ms,
                 "device_ms_missing": kernel_why or plain_why or None,
                 "note": "ms and plain_ms are CUDA-event times per call of the wrapper, back to back; "
-                "device_ms is the kernel's own time in the profiler's trace. The bound is far below "
-                "both: launch latency and each warp's serial loop over the types set the kernel's time "
-                "(see the kernel_scaling phase)",
+                "device_ms is the kernel's own time in the profiler's trace, launch_floor_ms that of a "
+                "1-element fill. The bound is far below both: latency sets the kernel's time "
+                "(kernel_scaling phase)",
             },
             {
                 "name": "warm_fill_counts",
@@ -522,15 +594,19 @@ def main() -> int:
                 "parity": True,
                 "shape": [S, V, R2],
                 "device_ms": k2_device_ms,
+                "launch_floor_ms": launch_floor_ms,
                 "plain_device_ms": k2_plain_device_ms,
+                "round_trip_ms": statistics.median(trips),
                 "device_ms_missing": k2_why or k2_plain_why or None,
-                "note": "launches are those of the repack solve's 3 timed solves; the overflow solve's are in "
-                "its solve line. No single PyTorch call computes the surface",
+                "note": "ms and plain_ms per call on CUDA tensors (events); device_ms in the trace of the "
+                "solve's round trip from the repack's host arrays, round_trip_ms its host-clock median, "
+                "back to back. Launches are those of the repack solve's 3 timed solves; the overflow "
+                "solve's are in its solve line. No single PyTorch call computes the surface",
             },
         ]
     })
 
-    # 11. the card
+    # 13. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=30,

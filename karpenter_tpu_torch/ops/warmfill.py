@@ -21,12 +21,17 @@ path substitutes 1 for a zero size; the two differ only for sizes in
 jnp form. `warm_fill_counts_device` is the wrapper of the hand-written CUDA
 kernel (csrc/warm_fill.cu): it takes the plain version only for tensors that
 lie on the CPU; for CUDA tensors it launches the kernel or raises.
-`LAUNCHES` counts the kernel's launches.
+`AdmissionSurface` is the warm solve's round trip through the same kernel
+on a CUDA device: the inputs up, the launch and the counts back in the one
+call into the kernel's library (`_launch`) that the wrapper also makes.
+`LAUNCHES` counts the kernel's launches there.
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -84,8 +89,10 @@ def warm_fill_counts(sizes: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.warm_fill_launch.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+    lib.warm_fill_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.warm_fill_launch.restype = ci
+    lib.warm_fill_wait.argtypes = [vp]
+    lib.warm_fill_wait.restype = ci
 
 
 LIBRARY = KernelLibrary("warm_fill", _bind)
@@ -93,10 +100,27 @@ SOURCE = LIBRARY.source
 build = LIBRARY.build
 
 
+def _launch(device, S: int, V: int, R: int, sizes: int, head: int, out: int, staged=None, landed=None) -> int:
+    """The one call into the kernel's library, on `device`'s current stream:
+    sizes [S, R], head [V, R] and out [S, V] are device pointers; `staged`
+    (pinned host, sizes then head) is first copied up into them, which must
+    then be one buffer, and out is copied into `landed` (pinned host) after
+    the launch, each where given.
+    Counts the launch; returns the stream."""
+    global LAUNCHES
+    lib = LIBRARY.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.warm_fill_launch(staged, sizes, head, out, landed, S, V, R, stream)
+    if err != 0:
+        raise RuntimeError(f"warm_fill kernel launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return stream
+
+
 def warm_fill_counts_device(sizes: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """sizes [S, R] f32, head [V, R] f32 -> int32 [S, V] upper-bound counts,
     as `warm_fill_counts` computes them."""
-    global LAUNCHES
     tensors = (sizes, head)
     if all(t.device.type == "cpu" for t in tensors):
         return warm_fill_counts(sizes, head)
@@ -115,11 +139,64 @@ def warm_fill_counts_device(sizes: torch.Tensor, head: torch.Tensor) -> torch.Te
     out = torch.empty((S, V), dtype=torch.int32, device=device)
     if S == 0 or V == 0:
         return out
-    lib = LIBRARY.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.warm_fill_launch(sizes.data_ptr(), head.data_ptr(), out.data_ptr(), S, V, R, stream)
-    if err != 0:
-        raise RuntimeError(f"warm_fill kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    _launch(device, S, V, R, sizes.data_ptr(), head.data_ptr(), out.data_ptr())
     return out
+
+
+class AdmissionSurface:
+    """The warm solve's round trip through the kernel on one CUDA device,
+    with resident buffers: a pinned staging buffer for sizes and head, their
+    device copy, the device counts and a pinned landing buffer for them,
+    grown as problems grow.
+
+    `counts` stages both inputs as f32 into the pinned buffer (numpy only),
+    then makes the same one call into the kernel's library as
+    `warm_fill_counts_device`, here with the upload and the copy back
+    enqueued beside the launch, and one more call that waits for the
+    stream. Inside a solve the host's caches are cold, and each PyTorch call
+    costs tens of microseconds there; this path makes none per solve. The
+    array it returns is a view of the landing buffer, valid until the next
+    call: the caller reads it at once."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"AdmissionSurface runs on a CUDA device, got {self.device}")
+        self._staged = self._inputs = self._counts = self._landed = None
+
+    def _reserve(self, n_in: int, n_out: int) -> None:
+        if self._staged is None or self._staged.numel() < n_in:
+            self._staged = torch.empty((n_in,), dtype=torch.float32, pin_memory=True)
+            self._staged_np = self._staged.numpy()
+            self._inputs = torch.empty((n_in,), dtype=torch.float32, device=self.device)
+        if self._counts is None or self._counts.numel() < n_out:
+            self._counts = torch.empty((n_out,), dtype=torch.int32, device=self.device)
+            self._landed = torch.empty((n_out,), dtype=torch.int32, pin_memory=True)
+            self._landed_np = self._landed.numpy()
+
+    def counts(self, sizes: np.ndarray, head: np.ndarray) -> Tuple[np.ndarray, Tuple[float, float, float]]:
+        """sizes [S, R] and head [V, R] (host arrays, cast to f32) -> the
+        int32 [S, V] counts `warm_fill_counts` computes, and the host seconds
+        of the three parts: staging, the enqueue call, the wait."""
+        S, R = sizes.shape
+        V = head.shape[0]
+        if head.ndim != 2 or head.shape[1] != R or not 1 <= R <= MAX_R or S < 1 or V < 1:
+            raise ValueError(f"want sizes [S, R] and head [V, R] with S, V >= 1 and 1 <= R <= {MAX_R}, got {sizes.shape} and {head.shape}")
+        t0 = time.perf_counter()
+        n_in = (S + V) * R
+        self._reserve(n_in, S * V)
+        self._staged_np[: S * R] = sizes.ravel()
+        self._staged_np[S * R : n_in] = head.ravel()
+        inputs = self._inputs.data_ptr()
+        t1 = time.perf_counter()
+        stream = _launch(
+            self.device, S, V, R, inputs, inputs + S * R * 4, self._counts.data_ptr(),
+            staged=self._staged.data_ptr(), landed=self._landed.data_ptr(),
+        )
+        t2 = time.perf_counter()
+        with torch.cuda.device(self.device):
+            err = LIBRARY.load().warm_fill_wait(stream)
+        if err != 0:
+            raise RuntimeError(f"warm_fill round trip failed: CUDA error {err}")
+        t3 = time.perf_counter()
+        return self._landed_np[: S * V].reshape(S, V), (t1 - t0, t2 - t1, t3 - t2)

@@ -58,6 +58,7 @@ from ..device import resolve_device
 from ..ir.encode import DenseProblem, GroupKind, catalog_key, catalog_pin, encode_catalog, encode_problem, resource_vector
 from ..ops.bucket_cost import bucket_cost_packed, load_catalog
 from ..ops.feasibility import availability_counts
+from ..ops.warmfill import AdmissionSurface
 from ..scheduling.requirement import Requirement
 from ..scheduling.requirements import Requirements
 from ..utils import resources as res
@@ -106,6 +107,12 @@ class DenseSolveStats:
     fills_vectorized: int = 0
     fills_host: int = 0
     fill_device_seconds: float = 0.0
+    # fill_device_seconds in its three parts, host clock: staging the inputs
+    # in pinned memory, the call that enqueues the upload, the kernel and the
+    # copy back, and the wait for them
+    fill_stage_seconds: float = 0.0
+    fill_enqueue_seconds: float = 0.0
+    fill_wait_seconds: float = 0.0
     # per-pod routing of the fill stream: items offered to the vectorized
     # scan vs items a plan() fail-open sent through the host loop
     fill_pods_vectorized: int = 0
@@ -179,6 +186,9 @@ class DenseSolver:
         # alternation), evicted FIFO. Only per-batch data moves per solve.
         self._device_catalog: Dict[tuple, tuple] = {}
         self._catalogs_kept = 4
+        # the warm fill's admission-surface round trip on the card, with its
+        # buffers resident across solves (solver/warmfill.py:admission_counts)
+        self.admission_surface = AdmissionSurface(self.device) if self.device.type == "cuda" else None
         # host-side catalog encodings (type matrices + compat rows), same
         # lifetime story: batch-independent, rebuilt only when the template
         # set / type universe / domain axes change (ir/encode.py

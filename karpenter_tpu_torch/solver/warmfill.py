@@ -359,6 +359,26 @@ def plan(scheduler, problem: DenseProblem, buckets, extra_pods: Sequence = ()) -
     return WarmFillPlan(enc, specs, runs, sizes_arr, np.asarray(size_rows, dtype=np.int64), list(views), problem.P)
 
 
+def admission_counts(sizes: np.ndarray, head: np.ndarray, solver) -> Tuple[np.ndarray, Tuple[float, float, float]]:
+    """The [S, V] int32 admission surface of host sizes [S, R] and head
+    [V, R] (cast to f32) on the solver's device, and the host seconds of the
+    round trip's three parts: staging, enqueue, wait.
+
+    On a CUDA device it is the solver's resident AdmissionSurface: one
+    staged upload, the launch and the copy back enqueued in one call, then
+    one wait; the counts are a view of its landing buffer, valid until the
+    next call (execute reads them at once). On the CPU the kernel wrapper
+    takes its plain version."""
+    if solver.admission_surface is not None:
+        return solver.admission_surface.counts(sizes, head)
+    t0 = time.perf_counter()
+    sizes_t = torch.from_numpy(sizes.astype(np.float32))
+    head_t = torch.from_numpy(head.astype(np.float32))
+    t1 = time.perf_counter()
+    counts = warm_fill_counts_device(sizes_t, head_t).numpy()
+    return counts, (t1 - t0, time.perf_counter() - t1, 0.0)
+
+
 def _device_counts(plan_: WarmFillPlan, solver) -> Optional[np.ndarray]:
     """One [S, V] admission-surface launch on the solver's device; None when
     the surface exceeds the device bounds (the scan then computes exact rows
@@ -367,13 +387,13 @@ def _device_counts(plan_: WarmFillPlan, solver) -> Optional[np.ndarray]:
     V = len(plan_.views)
     if S == 0 or S > _DEVICE_MAX_SIZES or S * V > _DEVICE_MAX_CELLS:
         return None
-    t0 = time.perf_counter()
-    sizes = torch.from_numpy(plan_.sizes.astype(np.float32)).to(solver.device)
-    head = torch.from_numpy(plan_.enc.head0.astype(np.float32)).to(solver.device)
-    counts = warm_fill_counts_device(sizes, head).cpu().numpy()
-    dt = time.perf_counter() - t0
+    counts, (stage, enqueue, wait) = admission_counts(plan_.sizes, plan_.enc.head0, solver)
+    dt = stage + enqueue + wait
     solver.stats.device_seconds += dt
     solver.stats.fill_device_seconds += dt
+    solver.stats.fill_stage_seconds += stage
+    solver.stats.fill_enqueue_seconds += enqueue
+    solver.stats.fill_wait_seconds += wait
     return counts
 
 

@@ -462,3 +462,60 @@ def campaign_provisioners() -> List[Provisioner]:
         make_provisioner(name="default", weight=10),
         make_provisioner(name="dedicated", weight=1, taints=[Taint(key="dedicated", value="batch", effect="NoSchedule")]),
     ]
+
+
+# --- kernel inputs --------------------------------------------------------
+
+
+def bucket_cost_problem(rng: np.random.Generator, B: int, T: int, R: int, kind: str = "random"):
+    """Seeded inputs of the bucket -> instance-type cost kernel: (stats
+    [2, B, R], caps [T, R], prices [T], allowed [B, T]), numpy f32 / bool.
+
+    "random" is tests/test_pallas.py's generator. "ties" keeps its buckets
+    and draws a catalog of a few type families, each row scaled by a power
+    of two and priced in proportion to it: frac * price is equal within a
+    family, and repeated rows tie on the whole key, so the argmin rests on
+    its first-index rule. "infeasible" leaves about half of the buckets no
+    feasible type (nothing allowed, a pod larger than every type, or a
+    resource no type has), so their keys are all inf and t* must be 0.
+    "unrequested" is the headline solve's resource pattern: past the first
+    three resources (cpu, memory, pods) no bucket asks for anything and no
+    type offers it, so most sums are zero."""
+    sum_req = (rng.random((B, R)) * 20).astype(np.float32)
+    max_req = (sum_req * rng.random((B, R))).astype(np.float32)
+    caps = (rng.random((T, R)) * 16).astype(np.float32)
+    caps[rng.random((T, R)) < 0.1] = 0.0  # types lacking a resource entirely
+    prices = (rng.random((T,)) * 4 + 0.1).astype(np.float32)
+    allowed = rng.random((B, T)) > 0.3
+    if kind == "ties":
+        family = rng.integers(0, max(1, T // 16), size=T)
+        scale = np.float32(2.0) ** rng.integers(0, 4, size=T).astype(np.float32)
+        caps = caps[family] * scale[:, None]
+        prices = prices[family] * scale
+    elif kind == "infeasible":
+        dead = rng.random(B) < 0.5
+        how = rng.integers(0, 3, size=B)
+        allowed[dead & (how == 0)] = False
+        max_req[dead & (how == 1), 0] = caps[:, 0].max() * 2 + 1
+        caps[:, -1] = 0.0  # no type has the last resource ...
+        needs = dead & (how == 2)
+        sum_req[~needs, -1] = 0.0  # ... and only these buckets ask for it
+        max_req[~needs, -1] = 0.0
+        sum_req[needs, -1] += 1.0
+    elif kind == "unrequested":
+        sum_req[:, 3:] = 0.0
+        max_req[:, 3:] = 0.0
+        caps[:, 3:] = 0.0
+    elif kind != "random":
+        raise ValueError(f"unknown problem kind {kind!r}")
+    return np.stack([sum_req, max_req]), caps, prices, allowed
+
+
+def warm_fill_surface(rng: np.random.Generator, S: int, V: int, R: int):
+    """Seeded inputs of the warm-fill admission kernel (f64 sizes [S, R] and
+    head [V, R]): tests/test_warm_fill_vectorized.py's _random_surface."""
+    sizes = (rng.random((S, R)) * 4).astype(np.float64)
+    sizes[rng.random((S, R)) < 0.2] = 0.0  # size classes not requesting an axis
+    head = (rng.random((V, R)) * 32).astype(np.float64)
+    head[rng.random((V,)) < 0.1] = -1.0  # over-committed views
+    return sizes, head

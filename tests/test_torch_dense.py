@@ -105,6 +105,7 @@ def test_cold_solve_matches_reference(case):
 def _port_sources():
     yield from sorted((REPO / "karpenter_tpu_torch").rglob("*.py"))
     yield REPO / "chip_smoke.py"
+    yield REPO / "chip_sweep.py"
 
 
 def test_port_imports_neither_jax_nor_the_reference():
