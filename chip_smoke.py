@@ -18,18 +18,34 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     plain version;
   - warm_overflow_10k_x_500: the headline batch on a warm cluster of 300
     nodes that cannot hold it, so K1 runs after K2 in the same solve; also
-    solved with both plain versions and through the exact host loop.
+    solved with both plain versions and through the exact host loop;
+  - incremental_churn_300 and incremental_churn_2400: bench.py's
+    incremental churn (3 pod binds and 1 node refresh per pass, then a
+    50-pod batch; 2 warm-up passes, 12 measured) on 300 and on 2,400
+    standing nodes, through one persistent DenseSolver carrying the
+    incremental engine (solver/incremental.py) and the residency auditor on
+    every pass: each pass is a delta pass whose K2 launch reads the
+    engine's resident head buffer, rebased on the card by the torch rebase
+    (ops/rebase.py). The measured passes must all be delta passes with no
+    full encode, no audit divergence, no kernel build, the resident buffer
+    one of the engine's two and one K2 launch each; the same churn with
+    K2's plain version swapped in must place every pass identically and
+    launch no kernel, and a last pass must place as a fresh solver does.
 
-K2 is held against its plain version twice per input: through its wrapper
-on CUDA tensors and through the warm solve's round trip from host arrays
-(ops/warmfill.py:AdmissionSurface); both make the same one call into the
-kernel's library. Each solve checks that its kernels launched (counts
+K2 is held against its plain version three ways per input: through its
+wrapper on CUDA tensors, through the warm solve's round trip from host
+arrays (ops/warmfill.py:AdmissionSurface.counts) and through the round trip
+against a resident [Vp, R] head buffer (counts_resident, the incremental
+engine's path, which uploads the sizes only); all make the same one call
+into the kernel's library. The torch rebase and the auditor's row gather
+are held exactly against the numpy oracle (rebase_parity). Each solve checks that its kernels launched (counts
 zeroed just before the timed solves, read just after), that every pod was
 scheduled, and that the placements equal the plain versions' solve, in
 which neither kernel may launch. The warm solves report K2's round trip
 (fill_device) in its parts: staging, enqueue, wait.
 
-Then it measures, on the same card: the launch floor (the device time of
+The card's name and power limit are read first and printed in every line of
+the churn phases. Then it measures, on the same card: the launch floor (the device time of
 the smallest kernel PyTorch launches); how each kernel's device time
 scales with its shape (kernel_scaling); and each kernel's time at its main
 path's shape beside its bound. It prints one JSON object per phase.
@@ -52,6 +68,7 @@ import sys
 import threading
 import time
 
+import numpy as np
 import torch
 
 # (B, T, R[, kind]): test_pallas.py's shapes, then K1's edges: T past one
@@ -73,6 +90,16 @@ WARM_PARITY_SHAPES = [
 PARITY_SEEDS = range(8)
 K1_SCALING_B, K1_SCALING_T = (30, 2048), (32, 500, 1024, 2000)
 K2_SCALING = [(30, 2400), (300, 2400), (30, 20000)]
+# (views before, views after, dirty rows, R) of the rebase parity: row pads
+# Vp 128, 384 and 2432, 0 to 200 dirty rows
+REBASE_SHAPES = [
+    (3, 5, 2, 8), (120, 128, 8, 8), (128, 100, 9, 3), (300, 300, 4, 8), (300, 290, 40, 8), (380, 360, 100, 8),
+    (2400, 2400, 4, 8), (2400, 2410, 130, 8), (2420, 2432, 200, 8), (2432, 2400, 0, 8),
+]
+# (name, standing nodes): bench.py's run_incremental_churn(300, 50, 12) and
+# the same churn on BASELINE config 4's 2,400-node warm cluster
+CHURNS = [("incremental_churn_300", 300), ("incremental_churn_2400", 2400)]
+CHURN_PODS, CHURN_WARMUP, CHURN_PASSES, CHURN_AUDIT_SEED = 50, 2, 12, 7
 HEADLINE_PODS, HEADLINE_TYPES = 10_000, 500
 # (name, pods, workload seed, types, warm nodes): bench.py's repack config
 # (BASELINE config 4 at 16k)
@@ -232,6 +259,375 @@ def build_kernels(libraries):
     emit({"phase": "build_all", "wall_seconds": wall, "sources": len(libraries)})
 
 
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30,
+    )
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi unavailable"
+
+
+def plain_admission_counts(sizes, head, solver, head_dev=None):
+    """K2's plain version on the solver's device, in place of the solve's
+    round trip (solver/warmfill.py:admission_counts): on the first V rows of
+    the engine's resident head where the solve passes it, else on the host
+    head uploaded."""
+    from karpenter_tpu_torch.ops.warmfill import warm_fill_counts
+
+    t0 = time.perf_counter()
+    sizes_t = torch.from_numpy(sizes.astype(np.float32)).to(solver.device)
+    if head_dev is not None:
+        head_t = head_dev[: head.shape[0]]
+    else:
+        head_t = torch.from_numpy(head.astype(np.float32)).to(solver.device)
+    counts = warm_fill_counts(sizes_t, head_t)
+    return counts.cpu().numpy(), (time.perf_counter() - t0, 0.0, 0.0)
+
+
+def rebase_case(seed, v_old, v_new, d, R):
+    """Seeded rebase operands: a buffer with -1.0 pad rows, perm with -1
+    slots (padded with -1 to the buffer's rows), d sorted dirty rows and
+    their values, as the engine passes them. Also the oracle's idx and rows
+    padded as the JAX package pads them (pow2 from 8, pad slots at or past
+    Vp, all to be dropped); odd seeds scatter the pad slots among the real
+    ones."""
+    from karpenter_tpu_torch.ops.rebase import pad_views
+
+    rng = np.random.default_rng(seed * 131 + v_new)
+    vp = pad_views(max(v_old, v_new))
+    buf = np.full((vp, R), -1.0, np.float32)
+    buf[:v_old] = (rng.standard_normal((v_old, R)) * 16).astype(np.float32)
+    perm = np.full(vp, -1, np.int64)
+    perm[:v_new] = np.where(rng.random(v_new) < 0.8, rng.integers(0, v_old, v_new), -1)
+    dirty = np.sort(rng.choice(v_new, size=min(d, v_new), replace=False)).astype(np.int64)
+    rows = (rng.standard_normal((len(dirty), R)) * 16).astype(np.float32)
+    dp = max(8, 1 << max(len(dirty) - 1, 0).bit_length())
+    idx_p = np.concatenate([dirty, vp + rng.integers(0, 3, dp - len(dirty))])
+    rows_p = np.concatenate([rows, np.full((dp - len(dirty), R), -1.0, np.float32)])
+    if seed % 2:
+        order = rng.permutation(dp)
+        idx_p, rows_p = idx_p[order], rows_p[order]
+    return buf, perm, rows, dirty, idx_p, rows_p
+
+
+def rebase_parity(dev, card_name) -> None:
+    """The torch rebase and the auditor's gather on the card against the
+    numpy oracle, exact, into a spare buffer (never allocating its output);
+    the oracle is given the JAX package's padded operands."""
+    from karpenter_tpu_torch.ops.rebase import gather_rows, rebase_view_state, rebase_view_state_np
+
+    mismatches, err, pads = [], 0.0, set()
+    for v_old, v_new, d, R in REBASE_SHAPES:
+        for seed in PARITY_SEEDS:
+            buf, perm, rows, dirty, idx_p, rows_p = rebase_case(seed, v_old, v_new, d, R)
+            vp = buf.shape[0]
+            pads.add((vp, idx_p.shape[0]))
+            live = torch.from_numpy(buf).to(dev)
+            spare = torch.empty_like(live)
+            got = rebase_view_state(live, *(torch.from_numpy(a).to(dev) for a in (perm, rows, dirty)), out=spare)
+            want = rebase_view_state_np(buf, perm, rows_p, idx_p)
+            idx = np.sort(np.random.default_rng(seed).choice(vp, size=min(8, vp), replace=False))
+            back = gather_rows(got, torch.from_numpy(idx).to(dev))
+            got_np, back_np = got.cpu().numpy(), back.cpu().numpy()
+            err = max(err, float(np.abs(got_np - want).max()))
+            if got.data_ptr() != spare.data_ptr() or not np.array_equal(got_np, want) or not np.array_equal(back_np, want[idx]):
+                mismatches.append([v_old, v_new, d, R, seed])
+    emit({"phase": "rebase_parity", "shapes": [list(x) for x in REBASE_SHAPES], "seeds": len(PARITY_SEEDS), "oracle_pads_vp_dp": sorted(pads), "paths": ["rebase_view_state", "gather_rows"], "tolerance": "exact", "mismatches": mismatches, "max_abs_err": err, "card": card_name})
+    check(not mismatches, f"the torch rebase disagrees with its numpy oracle at {mismatches}")
+
+
+def k2_resident_parity(dev, surface, card_name) -> int:
+    """K2 from a resident [Vp, R] head buffer (AdmissionSurface.counts_resident,
+    only the sizes uploaded) against its plain version on head_dev[:V] and
+    against the staged round trip on the same f32 head, exact. Returns the
+    largest count difference."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.ops.rebase import pad_views
+    from karpenter_tpu_torch.ops.warmfill import warm_fill_counts
+
+    mismatches, err = [], 0
+    for S, V, R in WARM_PARITY_SHAPES:
+        for seed in PARITY_SEEDS:
+            sizes, head = testing.warm_fill_surface(np.random.default_rng(seed * 101 + S), S, V, R)
+            padded = np.full((pad_views(V), R), -1.0, np.float32)
+            padded[:V] = head.astype(np.float32)
+            head_dev = torch.from_numpy(padded).to(dev)
+            resident = surface.counts_resident(sizes, head_dev, V)[0].copy()
+            staged = surface.counts(sizes, padded[:V])[0].copy()
+            plain = warm_fill_counts(torch.from_numpy(sizes.astype(np.float32)).to(dev), head_dev[:V]).cpu().numpy()
+            err = max(err, int(np.abs(resident.astype(np.int64) - plain).max()), int(np.abs(staged.astype(np.int64) - plain).max()))
+            if not (np.array_equal(resident, plain) and np.array_equal(staged, plain)):
+                mismatches.append([S, V, R, seed])
+    emit({"phase": "kernel_parity", "kernel": "warm_fill_counts", "shapes": [list(x) for x in WARM_PARITY_SHAPES], "seeds": len(PARITY_SEEDS), "paths": ["AdmissionSurface.counts_resident", "AdmissionSurface.counts", "warm_fill_counts on head_dev[:V]"], "tolerance": "exact", "mismatches": mismatches, "max_abs_err": err, "card": card_name})
+    check(not mismatches, f"K2 on a resident head disagrees with its plain version at {mismatches}")
+    return err
+
+
+def churn_run(dev, nodes: int, plain: bool = False) -> dict:
+    """bench.py's run_incremental_churn(nodes, CHURN_PODS, CHURN_PASSES) on
+    the port, audited every pass: a standing cluster fed through the kube
+    store -> watch -> Cluster -> delta journal, one persistent DenseSolver
+    carrying the incremental engine and the residency auditor; CHURN_WARMUP
+    passes (the cold full encode, the first delta pass), CHURN_PASSES
+    measured ones, then a coda pass beside a fresh solver on the same
+    snapshot and batch. With plain=True K2's plain version stands in at the
+    solve's round trip. Counts are zeroed just before the measured window
+    and read per pass. Returns what the run saw."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.controllers.state.cluster import Cluster
+    from karpenter_tpu_torch.kube.cluster import KubeCluster
+    from karpenter_tpu_torch.ops import bucket_cost, warmfill
+    from karpenter_tpu_torch.scheduler import build_scheduler
+    from karpenter_tpu_torch.solver import DenseSolver, DenseSolveStats
+    from karpenter_tpu_torch.solver import incremental as incremental_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+    from karpenter_tpu_torch.solver.audit import ResidencyAuditor
+    from karpenter_tpu_torch.solver.incremental import PASS_DELTA, PASS_FULL, IncrementalEngine
+
+    provider = FakeCloudProvider(instance_types(100))
+    provisioners = [testing.make_provisioner()]
+    kube = KubeCluster()
+    testing.standing_cluster(kube, nodes)
+    cluster = Cluster(kube, None)
+    engine = IncrementalEngine(cluster.delta_journal, device=dev)
+    auditor = ResidencyAuditor(seed=CHURN_AUDIT_SEED)
+    solver = DenseSolver(min_batch=1, device=dev, incremental=engine, auditor=auditor)
+
+    # the rebase's device time per pass: CUDA events around the torch
+    # program the engine calls (its operands captured for timing it alone)
+    rebase = incremental_module.rebase_view_state
+    rebase_events, rebase_args = [], []
+
+    def timed_rebase(*args, **kwargs):
+        if dev.type != "cuda":
+            return rebase(*args, **kwargs)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = rebase(*args, **kwargs)
+        end.record()
+        rebase_events.append((start, end))
+        rebase_args[:] = [list(args), kwargs["out"]]
+        return out
+
+    def sig(results):
+        existing = [(v.node.name, tuple(p.name for p in v.pods)) for v in results.existing_nodes if v.pods]
+        return existing, sorted(tuple(sorted(p.name for p in n.pods)) for n in results.new_nodes)
+
+    def one_pass(run_solver, step):
+        pods = testing.churn_batch(step, CHURN_PODS)
+        run_solver.stats = DenseSolveStats()
+        scheduler = build_scheduler(provisioners, provider, pods, cluster=cluster, state_nodes=cluster.nodes_snapshot(), dense_solver=run_solver)
+        del rebase_events[:]
+        t0 = time.perf_counter()
+        results = scheduler.solve(pods)
+        sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        placed = sig(results)
+        check(sum(len(r) for _n, r in placed[0]) + sum(len(r) for r in placed[1]) == len(pods), f"churn on {nodes}: pass {step} left pods unscheduled")
+        st = run_solver.stats
+        return {
+            "step": step,
+            "wall_ms": wall,
+            "delta_apply_ms": st.delta_apply_seconds * 1e3,
+            "rebase_ms": st.rebase_seconds * 1e3,
+            "rebase_device_ms": sum(a.elapsed_time(b) for a, b in rebase_events) if rebase_events else None,
+            "audit_ms": st.audit_seconds * 1e3,
+            "full_encode_ms": st.full_encode_seconds * 1e3,
+            "encode_skipped": st.encode_skipped_passes,
+            "fills_vectorized": st.fills_vectorized,
+            "fill_ms": st.fill_seconds * 1e3,
+            "fill_device_ms": st.fill_device_seconds * 1e3,
+            "fill_stage_ms": st.fill_stage_seconds * 1e3,
+            "fill_enqueue_ms": st.fill_enqueue_seconds * 1e3,
+            "fill_wait_ms": st.fill_wait_seconds * 1e3,
+            "encode_ms": st.encode_seconds * 1e3,
+            "commit_ms": st.commit_seconds * 1e3,
+        }, placed
+
+    def read_launches():
+        got = {"bucket_type_cost": bucket_cost.LAUNCHES, "warm_fill_counts": warmfill.LAUNCHES}
+        bucket_cost.LAUNCHES = 0
+        warmfill.LAUNCHES = 0
+        return got
+
+    saved = fill_module.admission_counts, incremental_module.rebase_view_state
+    if plain:
+        fill_module.admission_counts = plain_admission_counts
+    incremental_module.rebase_view_state = timed_rebase
+    try:
+        sigs, records = [], []
+        read_launches()
+        cold, placed = one_pass(solver, 0)
+        sigs.append(placed)
+        testing.standing_churn(kube, 0, nodes)
+        _first, placed = one_pass(solver, 1)
+        sigs.append(placed)
+        check(engine.passes[PASS_DELTA] >= 1, f"churn on {nodes}: the warm-up never reached the delta path")
+        base = dict(engine.passes)
+        audits0 = auditor.audits
+        builds0 = {lib.name: lib.builds for lib in (bucket_cost.LIBRARY, warmfill.LIBRARY)}
+        buffers = {b.data_ptr() for b in engine.buffers}
+        # every K2 call of the window and the coda: whether it was given the
+        # engine's live resident buffer (nothing staged but the sizes); the
+        # coda's inputs are kept for timing K2 at the run's own shape
+        admission = fill_module.admission_counts
+        calls, captured = [], []
+
+        def watching(sizes, head, run_solver, head_dev=None):
+            calls.append(head_dev is not None and head_dev.data_ptr() == engine._resident.head_dev.data_ptr())
+            if head_dev is not None:
+                captured[:] = [(sizes.copy(), head.copy(), head_dev.clone())]
+            return admission(sizes, head, run_solver, head_dev)
+
+        fill_module.admission_counts = watching
+        warmup_launches = read_launches()
+        for step in range(CHURN_WARMUP, CHURN_PASSES + CHURN_WARMUP):
+            testing.standing_churn(kube, step, nodes)
+            before = warmfill.LAUNCHES
+            del calls[:]
+            record, placed = one_pass(solver, step)
+            record["k2_launches"] = warmfill.LAUNCHES - before
+            record["k2_calls_on_resident_head"] = sum(calls)
+            record["k2_calls_staged"] = len(calls) - sum(calls)
+            record["resident_buffer_ok"] = engine._resident.head_dev.data_ptr() in buffers and {b.data_ptr() for b in engine.buffers} == buffers
+            records.append(record)
+            sigs.append(placed)
+        launches = read_launches()
+        builds = {lib.name: lib.builds - builds0[lib.name] for lib in (bucket_cost.LIBRARY, warmfill.LIBRARY)}
+        window = {
+            "delta_passes": engine.passes[PASS_DELTA] - base[PASS_DELTA],
+            "full_passes": engine.passes[PASS_FULL] - base[PASS_FULL],
+            "audits": auditor.audits - audits0,
+            "divergences": dict(auditor.divergences),
+            "builds": builds,
+            "launches": launches,
+        }
+
+        # the coda: the next pass beside a fresh solver on the same snapshot
+        # and batch
+        step = CHURN_PASSES + CHURN_WARMUP
+        testing.standing_churn(kube, step, nodes)
+        del calls[:]
+        coda, placed = one_pass(solver, step)
+        check(calls == [True], f"churn on {nodes}: the coda's K2 calls on the resident head: {calls}")
+        fill_module.admission_counts = admission
+        fresh, fresh_placed = one_pass(DenseSolver(min_batch=1, device=dev), step)
+        sigs.append(placed)
+        coda_launches = read_launches()
+    finally:
+        fill_module.admission_counts, incremental_module.rebase_view_state = saved
+    return {
+        "cold": cold,
+        "records": records,
+        "window": window,
+        "coda": coda,
+        "fresh": fresh,
+        "coda_identical": placed == fresh_placed,
+        "sigs": sigs,
+        "launches_all": {k: warmup_launches[k] + launches[k] + coda_launches[k] for k in launches},
+        "k2_inputs": captured[0],
+        "rebase_args": rebase_args,
+        "views": nodes,
+        "vp": engine._resident.vp,
+        "engine_passes": dict(engine.passes),
+        "engine_invalidations": dict(engine.invalidations),
+    }
+
+
+def incremental_churn(dev, name: str, nodes: int, card_name) -> dict:
+    """One churn phase: the run through the kernels, its checks, the same
+    churn with K2's plain version, and K2 and the rebase timed at the run's
+    own shapes. Prints the phase line; returns it."""
+    from karpenter_tpu_torch.ops.rebase import rebase_view_state
+    from karpenter_tpu_torch.ops.warmfill import warm_fill_counts
+
+    run = churn_run(dev, nodes)
+    w, records = run["window"], run["records"]
+    plain = churn_run(dev, nodes, plain=True)
+    same = plain["sigs"] == run["sigs"]
+    med = lambda key: statistics.median(r[key] for r in records)  # noqa: E731
+    line = {
+        "phase": "incremental_churn",
+        "config": name,
+        "card": card_name,
+        "standing_nodes": nodes,
+        "vp": run["vp"],
+        "pods_per_pass": CHURN_PODS,
+        "passes": CHURN_PASSES,
+        "warmup_passes": CHURN_WARMUP,
+        "cold_full_encode_ms": run["cold"]["full_encode_ms"],
+        "cold_wall_ms": run["cold"]["wall_ms"],
+        "window": w,
+        "engine_passes": run["engine_passes"],
+        "engine_invalidations": run["engine_invalidations"],
+        "median_ms": {k: med(k) for k in ("wall_ms", "delta_apply_ms", "rebase_ms", "audit_ms", "fill_ms", "fill_device_ms", "fill_stage_ms", "fill_enqueue_ms", "fill_wait_ms", "encode_ms", "commit_ms")},
+        "median_rebase_device_ms": statistics.median(r["rebase_device_ms"] for r in records) if records[0]["rebase_device_ms"] is not None else None,
+        "per_pass": records,
+        "coda_wall_ms": run["coda"]["wall_ms"],
+        "coda_fresh_wall_ms": run["fresh"]["wall_ms"],
+        "coda_fresh_encode_ms": run["fresh"]["encode_ms"],
+        "coda_fresh_fill_ms": run["fresh"]["fill_ms"],
+        "coda_placements_identical": run["coda_identical"],
+        "plain_run": {"launches": plain["launches_all"], "coda_identical": plain["coda_identical"], "placements_identical": same, "median_wall_ms": statistics.median(r["wall_ms"] for r in plain["records"])},
+    }
+    check(w["delta_passes"] == CHURN_PASSES and w["full_passes"] == 0, f"{name}: {w['delta_passes']}/{CHURN_PASSES} delta passes, {w['full_passes']} full in the window")
+    check(sum(r["encode_skipped"] for r in records) == CHURN_PASSES, f"{name}: presolve skipped {sum(r['encode_skipped'] for r in records)}/{CHURN_PASSES} encodes")
+    check(max(r["full_encode_ms"] for r in records) == 0.0, f"{name}: full-encode time charged on a delta pass")
+    check(w["divergences"] == {} and w["audits"] >= CHURN_PASSES, f"{name}: the auditor found {w['divergences']} in {w['audits']} audits")
+    check(not any(w["builds"].values()), f"{name}: kernel builds inside the window: {w['builds']}")
+    check(all(r["resident_buffer_ok"] for r in records), f"{name}: the resident head left the engine's two buffers")
+    check(all(r["k2_launches"] == 1 for r in records), f"{name}: K2 launches per pass {[r['k2_launches'] for r in records]}")
+    for run_ in (run, plain):
+        calls = [(r["k2_calls_on_resident_head"], r["k2_calls_staged"]) for r in run_["records"]]
+        check(all(c == (1, 0) for c in calls), f"{name}: K2 calls per pass (on the resident head, staged) {calls}")
+    check(all(r["fills_vectorized"] == 1 for r in records), f"{name}: a pass left the vectorized fill")
+    check(run["coda_identical"], f"{name}: the incremental coda placed pods differently from a fresh solver")
+    check(not any(plain["launches_all"].values()), f"{name}: the plain run launched kernels: {plain['launches_all']}")
+    check(same and plain["coda_identical"], f"{name}: K2's plain version placed the churn differently")
+
+    # K2 at this run's own resident shape: the resident launch, its plain
+    # version on head_dev[:V] and the staged round trip, exact; then timed
+    sizes, head, head_dev = run["k2_inputs"]
+    V = head.shape[0]
+    S, R = sizes.shape
+    line["k2_shape"] = [S, V, R]
+    # as the kernels line counts it: each input read once, the counts written once
+    line["k2_bound_ms"] = max(((S + V) * R * 4 + S * V * 4) / H100_BYTES_PER_S, S * V * (7 * R + 4) / H100_F32_OPS_PER_S) * 1e3
+    if dev.type == "cuda":
+        from karpenter_tpu_torch.ops.warmfill import AdmissionSurface
+
+        surface = AdmissionSurface(dev)
+        resident = surface.counts_resident(sizes, head_dev, V)[0].copy()
+        staged = surface.counts(sizes, head)[0].copy()
+        plain_counts = warm_fill_counts(torch.from_numpy(sizes.astype(np.float32)).to(dev), head_dev[:V]).cpu().numpy()
+        equal = np.array_equal(resident, plain_counts) and np.array_equal(staged, plain_counts)
+        trips = {"resident": [], "staged": []}
+        for _ in range(KERNEL_ITERS):
+            for key, fn in (("resident", lambda: surface.counts_resident(sizes, head_dev, V)), ("staged", lambda: surface.counts(sizes, head))):
+                t0 = time.perf_counter()
+                fn()
+                trips[key].append((time.perf_counter() - t0) * 1e3)
+        line["k2_parity_exact"] = equal
+        line["k2_round_trip_ms"] = {k: statistics.median(v) for k, v in trips.items()}
+        line["k2_resident_device_ms"], why = profiled_device_ms(lambda: surface.counts_resident(sizes, head_dev, V), SCALING_ITERS, "warm_fill_kernel")
+        line["k2_resident_device_ms_missing"] = why or None
+        check(equal, f"{name}: K2 on the resident head disagrees with its plain version or the staged path")
+        args, spare = run["rebase_args"]
+        line["rebase_shape"] = {"vp": args[0].shape[0], "r": args[0].shape[1], "dirty": args[3].shape[0]}
+        line["rebase_event_ms"] = cuda_ms(lambda: rebase_view_state(*args, out=spare), KERNEL_ITERS)
+        line["rebase_bytes"] = sum(a.numel() * a.element_size() for a in args) + spare.numel() * spare.element_size()
+        line["rebase_bound_ms"] = line["rebase_bytes"] / H100_BYTES_PER_S * 1e3
+    emit(line)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -250,9 +646,9 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: the karpenter_tpu_torch package is not importable here: {exc}", file=sys.stderr)
         return 2
-    import numpy as np
 
     dev = torch.device("cuda")
+    card_name = card()
     kernel = bucket_cost.bucket_cost_packed
     k2 = warmfill.warm_fill_counts_device
     solve_lines = {}
@@ -305,6 +701,10 @@ def main() -> int:
     emit({"phase": "kernel_parity", "kernel": "warm_fill_counts", "shapes": [list(s) for s in WARM_PARITY_SHAPES], "seeds": len(PARITY_SEEDS), "paths": ["warm_fill_counts_device", "AdmissionSurface.counts"], "tolerance": "exact", "mismatches": mismatches, "upper_bound_violations": under, "max_abs_err": k2_err})
     check(not mismatches, f"K2 disagrees with its plain version at {mismatches}")
     check(not under, f"K2 under-counts the exact closed form at {under}")
+    # ... and from a resident head buffer, the incremental engine's path;
+    # then the torch rebase that keeps that buffer, against its oracle
+    k2_err = max(k2_err, k2_resident_parity(dev, surface, card_name))
+    rebase_parity(dev, card_name)
 
     def solve(pods, provider, provisioners, solver, state_nodes=()):
         if solver is not None:
@@ -363,12 +763,6 @@ def main() -> int:
             check(launches[k] >= SOLVE_TRIALS, f"{name}: {k} launched {launches[k]} times in {SOLVE_TRIALS} solves")
         check(got["scheduled"] == len(pods) and got["unschedulable"] == 0, f"{name}: not every pod scheduled")
         return got
-
-    def plain_admission_counts(sizes, head, solver):
-        """K2's plain version on the card, in place of the solve's round trip."""
-        t0 = time.perf_counter()
-        counts = warm_fill_counts(*(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (sizes, head)))
-        return counts.cpu().numpy(), (time.perf_counter() - t0, 0.0, 0.0)
 
     def plain_solve(pods, provider, provisioners, state_nodes=()):
         """The solve with both kernels' plain versions on the card, swapped in
@@ -447,8 +841,8 @@ def main() -> int:
     host_captured = []
     admission_counts = fill_module.admission_counts
 
-    def recording(sizes, head, solver):
-        counts, parts = admission_counts(sizes, head, solver)
+    def recording(sizes, head, solver, head_dev=None):
+        counts, parts = admission_counts(sizes, head, solver, head_dev)
         host_captured.append((sizes.copy(), head.copy(), counts.copy()))
         return counts, parts
 
@@ -499,14 +893,18 @@ def main() -> int:
     check(within, f"{name}: dense cost {overflow_out['cost']} exceeds {HOST_COST_SLACK} x host cost {host_out['cost']}")
     del pods, host_results
 
-    # 10. the launch floor: the device time of the smallest kernel PyTorch
+    # 10. the incremental churn on 300 and on 2,400 standing nodes: delta
+    # passes whose K2 launch reads the engine's resident head buffer
+    churn_lines = [incremental_churn(dev, name, nodes, card_name) for name, nodes in CHURNS]
+
+    # 11. the launch floor: the device time of the smallest kernel PyTorch
     # launches (a fill of one element), in this run, on this card
     one = torch.zeros(1, device=dev)
     launch_floor_ms, floor_why = profiled_device_ms(one.zero_, KERNEL_ITERS)
     emit({"phase": "launch_floor", "op": "zero_() of a 1-element CUDA tensor", "device_ms": launch_floor_ms, "device_ms_missing": floor_why or None})
     check(launch_floor_ms is not None, f"no launch floor: {floor_why}")
 
-    # 11. how each kernel's device time scales: K1 with the buckets (blocks)
+    # 12. how each kernel's device time scales: K1 with the buckets (blocks)
     # and the types (threads per block, then types per thread); K2 with the
     # size classes and the nodes
     shapes = k1_scaling_shapes(B, T)
@@ -525,7 +923,7 @@ def main() -> int:
     emit({"phase": "kernel_scaling", "kernel": "warm_fill_counts", "runs": runs, "launch_floor_ms": launch_floor_ms, "mismatches": bad, "device_ms_missing": why or None})
     check(not bad, f"K2 disagrees with its plain version at {bad}")
 
-    # 12. each kernel's time at its main path's shape beside its bound and
+    # 13. each kernel's time at its main path's shape beside its bound and
     # its plain version; K2's device time through the solve's round trip
     kernel_ms = cuda_ms(lambda: kernel(*headline_inputs), KERNEL_ITERS)
     plain_ms_k = cuda_ms(lambda: bucket_type_cost_packed(*headline_inputs), PLAIN_ITERS)
@@ -584,6 +982,7 @@ def main() -> int:
                 "source": "karpenter_tpu_torch/csrc/warm_fill.cu",
                 "replaces": "karpenter_tpu/ops/warmfill.py:89",
                 "launches": solve_lines[REPACK[0]]["kernel_launches"]["warm_fill_counts"],
+                "resident_launches": {c["config"]: c["window"]["launches"]["warm_fill_counts"] for c in churn_lines},
                 "max_abs_err": k2_err,
                 "ms": k2_ms,
                 "kernel_ms": k2_ms,
@@ -601,17 +1000,14 @@ def main() -> int:
                 "note": "ms and plain_ms per call on CUDA tensors (events); device_ms in the trace of the "
                 "solve's round trip from the repack's host arrays, round_trip_ms its host-clock median, "
                 "back to back. Launches are those of the repack solve's 3 timed solves; the overflow "
-                "solve's are in its solve line. No single PyTorch call computes the surface",
+                "solve's are in its solve line, resident_launches those of the churn phases' measured "
+                "passes against the engine's resident head. No single PyTorch call computes the surface",
             },
         ]
     })
 
-    # 13. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=30,
-    )
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi unavailable", flush=True)
+    # 14. the card
+    print(card_name, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}})
     return 0
 

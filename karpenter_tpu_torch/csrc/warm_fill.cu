@@ -18,9 +18,13 @@
 // kernel's time (chip_smoke.py measures the floor as the device time of the
 // smallest kernel PyTorch launches); what the solve waits on is the round
 // trip around it. warm_fill_launch below is the one entry point: it can
-// enqueue the upload of both inputs from pinned memory and the copy of the
+// enqueue the upload of the inputs from pinned memory and the copy of the
 // counts back in the same call as the launch, which is how the warm solve
-// calls it (ops/warmfill.py:AdmissionSurface).
+// calls it (ops/warmfill.py:AdmissionSurface). Under the incremental engine
+// (solver/incremental.py) head is the first V rows of the engine's resident
+// [Vp, R] buffer: only the sizes are staged and uploaded, and head never
+// crosses the bus. Those V rows are contiguous and the pad rows past them
+// are never read.
 //
 // Design: a 2-D grid of node tiles (kTile nodes, one thread each) by
 // size-class chunks (up to kMaxChunk classes). Each thread issues all its
@@ -186,21 +190,23 @@ int sm_count(int* sms) {
 
 // The kernel's one entry point, enqueued on `stream`: sizes [S, R] f32,
 // head [V, R] f32 and out [S, V] int32 are device pointers, contiguous.
-// When `staged` (pinned host, sizes then head, f32) is not null it is first
-// copied into sizes and head, which must then be one buffer (head follows
-// sizes); when `landed` (pinned host, [S, V] int32) is not null, out is
-// copied into it after the launch. Launches with the default geometry and
-// returns the first CUDA error; warm_fill_wait waits for the stream.
-extern "C" int warm_fill_launch(const void* staged, void* sizes, void* head, void* out, void* landed, int S, int V,
-                                int R, void* stream) {
+// When `staged` (pinned host, f32) is not null it is first copied up: the
+// sizes alone when `staged_head` is 0 (head is a device buffer the caller
+// owns, the engine's resident rows), or the sizes then the head when it is
+// 1, and then head must follow sizes in one buffer. When `landed` (pinned
+// host, [S, V] int32) is not null, out is copied into it after the launch.
+// Launches with the default geometry and returns the first CUDA error;
+// warm_fill_wait waits for the stream.
+extern "C" int warm_fill_launch(const void* staged, int staged_head, void* sizes, void* head, void* out, void* landed,
+                                int S, int V, int R, void* stream) {
     if (S <= 0 || V <= 0) return cudaSuccess;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     float* z = static_cast<float*>(sizes);
     float* h = static_cast<float*>(head);
     if (staged != nullptr) {
-        if (h != z + (size_t)S * R) return cudaErrorInvalidValue;
-        const cudaError_t err =
-            cudaMemcpyAsync(z, staged, (size_t)(S + V) * R * sizeof(float), cudaMemcpyHostToDevice, st);
+        if (staged_head && h != z + (size_t)S * R) return cudaErrorInvalidValue;
+        const size_t rows = staged_head ? (size_t)(S + V) : (size_t)S;
+        const cudaError_t err = cudaMemcpyAsync(z, staged, rows * R * sizeof(float), cudaMemcpyHostToDevice, st);
         if (err != cudaSuccess) return err;
     }
     int sms = 0;

@@ -379,6 +379,11 @@ class WarmViewEncoding:
     ct: List[Optional[str]]  # per-view capacity-type label
     hostname: List[str]
     taint_sig: List[tuple]  # content signature of the view's scheduling taints
+    # the incremental engine's resident [Vp, R] f32 headroom on the solver's
+    # device and its row pad Vp (solver/incremental.py), where it produced
+    # this encoding; rows [:V] equal f32(head0). Not part of the value.
+    head_dev: Optional[object] = field(default=None, compare=False, repr=False)  # torch.Tensor
+    head_vp: int = field(default=0, compare=False, repr=False)
 
 
 def encode_warm_views(views: Sequence) -> WarmViewEncoding:

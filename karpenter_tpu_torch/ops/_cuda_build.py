@@ -49,6 +49,8 @@ class KernelLibrary:
         self._bind = bind
         self._lock = threading.Lock()
         self._lib: Optional[ctypes.CDLL] = None
+        # nvcc runs in this process: a steady-state window must see none
+        self.builds = 0
 
     def build(self, verbose: bool = False) -> dict:
         """Compile the source when the library is missing or older than it.
@@ -67,6 +69,7 @@ class KernelLibrary:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {self.source.name} ({proc.returncode}):\n{proc.stderr}")
             os.replace(tmp, self.path)
+            self.builds += 1
         finally:
             tmp.unlink(missing_ok=True)
         return {"seconds": time.perf_counter() - t0, "built": True, "log": proc.stdout + proc.stderr}

@@ -24,7 +24,9 @@ lie on the CPU; for CUDA tensors it launches the kernel or raises.
 `AdmissionSurface` is the warm solve's round trip through the same kernel
 on a CUDA device: the inputs up, the launch and the counts back in the one
 call into the kernel's library (`_launch`) that the wrapper also makes.
-`LAUNCHES` counts the kernel's launches there.
+Under the incremental engine the head is already resident on the card
+(`AdmissionSurface.counts_resident`): only the sizes go up. `LAUNCHES`
+counts the kernel's launches there.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ._cuda_build import KernelLibrary
 
 # relative slack applied on the device so f32 rounding can only round the
@@ -89,7 +92,7 @@ def warm_fill_counts(sizes: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.warm_fill_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.warm_fill_launch.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.warm_fill_launch.restype = ci
     lib.warm_fill_wait.argtypes = [vp]
     lib.warm_fill_wait.restype = ci
@@ -100,18 +103,18 @@ SOURCE = LIBRARY.source
 build = LIBRARY.build
 
 
-def _launch(device, S: int, V: int, R: int, sizes: int, head: int, out: int, staged=None, landed=None) -> int:
+def _launch(device, S: int, V: int, R: int, sizes: int, head: int, out: int, staged=None, landed=None, staged_head=True) -> int:
     """The one call into the kernel's library, on `device`'s current stream:
     sizes [S, R], head [V, R] and out [S, V] are device pointers; `staged`
-    (pinned host, sizes then head) is first copied up into them, which must
-    then be one buffer, and out is copied into `landed` (pinned host) after
-    the launch, each where given.
+    (pinned host) is first copied up: sizes then head into one buffer, or
+    the sizes alone when `staged_head` is False; out is copied into `landed`
+    (pinned host) after the launch, each where given.
     Counts the launch; returns the stream."""
     global LAUNCHES
     lib = LIBRARY.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.warm_fill_launch(staged, sizes, head, out, landed, S, V, R, stream)
+        err = lib.warm_fill_launch(staged, int(staged_head), sizes, head, out, landed, S, V, R, stream)
     if err != 0:
         raise RuntimeError(f"warm_fill kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -154,12 +157,14 @@ class AdmissionSurface:
     `warm_fill_counts_device`, here with the upload and the copy back
     enqueued beside the launch, and one more call that waits for the
     stream. Inside a solve the host's caches are cold, and each PyTorch call
-    costs tens of microseconds there; this path makes none per solve. The
-    array it returns is a view of the landing buffer, valid until the next
-    call: the caller reads it at once."""
+    costs tens of microseconds there; this path makes none per solve.
+    `counts_resident` is the same round trip against a head that already
+    lies on the card: it stages and uploads the sizes only. The array either
+    returns is a view of the landing buffer, valid until the next call: the
+    caller reads it at once."""
 
     def __init__(self, device):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if self.device.type != "cuda":
             raise ValueError(f"AdmissionSurface runs on a CUDA device, got {self.device}")
         self._staged = self._inputs = self._counts = self._landed = None
@@ -187,11 +192,31 @@ class AdmissionSurface:
         self._reserve(n_in, S * V)
         self._staged_np[: S * R] = sizes.ravel()
         self._staged_np[S * R : n_in] = head.ravel()
-        inputs = self._inputs.data_ptr()
+        return self._trip(S, V, R, self._inputs.data_ptr() + S * R * 4, True, t0)
+
+    def counts_resident(self, sizes: np.ndarray, head: torch.Tensor, V: int) -> Tuple[np.ndarray, Tuple[float, float, float]]:
+        """sizes [S, R] (host array, cast to f32) and the first V rows of a
+        resident [Vp, R] f32 buffer on this device -> the int32 [S, V] counts
+        and the host seconds of staging, enqueue and wait, as `counts`. The
+        kernel reads the V rows in place: they are contiguous, and the pad
+        rows past them are never read."""
+        S, R = sizes.shape
+        if head.device != self.device or head.dtype != torch.float32 or not head.is_contiguous():
+            raise ValueError(f"want a contiguous float32 head on {self.device}, got {head.dtype} on {head.device}")
+        if head.dim() != 2 or head.shape[1] != R or not 1 <= V <= head.shape[0] or not 1 <= R <= MAX_R or S < 1:
+            raise ValueError(f"want sizes [S, R] and head [>= V, R] with S, V >= 1 and 1 <= R <= {MAX_R}, got {sizes.shape}, {tuple(head.shape)} and V={V}")
+        t0 = time.perf_counter()
+        self._reserve(S * R, S * V)
+        self._staged_np[: S * R] = sizes.ravel()
+        return self._trip(S, V, R, head.data_ptr(), False, t0)
+
+    def _trip(self, S: int, V: int, R: int, head: int, staged_head: bool, t0: float):
+        """The launch call (upload, kernel, copy back) and the wait, after
+        the staging that began at t0."""
         t1 = time.perf_counter()
         stream = _launch(
-            self.device, S, V, R, inputs, inputs + S * R * 4, self._counts.data_ptr(),
-            staged=self._staged.data_ptr(), landed=self._landed.data_ptr(),
+            self.device, S, V, R, self._inputs.data_ptr(), head, self._counts.data_ptr(),
+            staged=self._staged.data_ptr(), landed=self._landed.data_ptr(), staged_head=staged_head,
         )
         t2 = time.perf_counter()
         with torch.cuda.device(self.device):

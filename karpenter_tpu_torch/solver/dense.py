@@ -113,6 +113,20 @@ class DenseSolveStats:
     fill_stage_seconds: float = 0.0
     fill_enqueue_seconds: float = 0.0
     fill_wait_seconds: float = 0.0
+    # incremental engine (solver/incremental.py) assembly split: delta
+    # passes rebase the resident encoding in O(changes) (delta_apply); full
+    # passes rebuild it from scratch (full_encode — cold start, catalog
+    # change, journal gap, view-pad regrowth, audit heal, bulk churn).
+    # encode_skipped_passes counts the delta passes: solves whose warm-view
+    # encode never ran because the resident mirror stood in for it
+    delta_apply_seconds: float = 0.0
+    full_encode_seconds: float = 0.0
+    encode_skipped_passes: int = 0
+    # the host time of the device rebase inside delta_apply_seconds
+    rebase_seconds: float = 0.0
+    # residency auditor (solver/audit.py): time spent re-encoding the seeded
+    # row sample or full shadow and comparing it with the resident state
+    audit_seconds: float = 0.0
     # per-pod routing of the fill stream: items offered to the vectorized
     # scan vs items a plan() fail-open sent through the host loop
     fill_pods_vectorized: int = 0
@@ -166,11 +180,25 @@ class DenseSolver:
 
     `device` is where the dense surfaces live: "cuda" (the default) runs the
     hand-written kernel on the card, "cpu" runs the plain torch version and
-    is for tests. Asking for CUDA without a card raises."""
+    is for tests. Asking for CUDA without a card raises.
 
-    def __init__(self, min_batch: int = MIN_BATCH_DEFAULT, device="cuda"):
+    `incremental` is an IncrementalEngine (solver/incremental.py) on the
+    same device: it keeps the warm-view encoding and the device headroom
+    resident across passes and applies the cluster journal's delta instead
+    of re-encoding; None = fresh encode every pass. Simulation re-solves
+    always bypass it. `auditor` is a ResidencyAuditor (solver/audit.py)
+    that checks the engine's resident state each pass it is due."""
+
+    def __init__(self, min_batch: int = MIN_BATCH_DEFAULT, device="cuda", incremental=None, auditor=None):
         self.min_batch = min_batch
         self.device = resolve_device(device)
+        if incremental is not None and incremental.device != self.device:
+            raise ValueError(f"the incremental engine runs on {incremental.device}, the solver on {self.device}")
+        self.incremental = incremental
+        self.auditor = auditor
+        # the catalog's availability cube resident on the device, as (host
+        # avail array, [T, Z*C] f32 device tensor)
+        self._avail_cube_dev = None
         self.stats = DenseSolveStats()
         # per-solve memos (reset at each presolve; see _accepting_view_free)
         self._view_free_memo: Dict[int, Optional[np.ndarray]] = {}
@@ -226,6 +254,9 @@ class DenseSolver:
         zones = scheduler.topology.domains.get(lbl.LABEL_TOPOLOGY_ZONE, ())
         capacity_types = scheduler.topology.domains.get(lbl.LABEL_CAPACITY_TYPE, ())
         ckey = catalog_key(scheduler.node_templates, scheduler.instance_types, zones, capacity_types)
+        # the incremental engine keys resident-state validity on this same
+        # catalog key: a change voids its rows (invalidation 'catalog')
+        self._solve_ckey = ckey
         entry = self._catalog_encodings.get(ckey)
         if entry is None:
             catalog = encode_catalog(scheduler.node_templates, scheduler.instance_types, zones, capacity_types)
@@ -916,7 +947,48 @@ class DenseSolver:
         from . import warmfill
 
         fill_items = sum(len(b.pod_rows) for b in buckets) + len(extra_pods)
-        fill_plan = warmfill.plan(scheduler, problem, buckets, extra_pods=extra_pods)
+        enc = None
+        if self.incremental is not None and not scheduler.opts.simulation_mode:
+            # incremental engine (solver/incremental.py): advance the
+            # resident warm-view state by the cluster journal's delta — a
+            # delta pass hands back a byte-equal encoding with the O(cluster)
+            # encode skipped and the device headroom already resident; a
+            # full pass rebuilds it (attributed by reason). Simulation
+            # re-solves bypass: hypothetical views have no journal feed and
+            # must not clobber the real resident state.
+            from .incremental import PASS_DELTA, PASS_FULL
+
+            adv = self.incremental.advance(scheduler.existing_nodes, self._solve_ckey)
+            healed = None
+            if self.auditor is not None:
+                # the one point where the resident state, the views snapshot
+                # and the journal checkpoint all describe the same instant:
+                # audit BEFORE the pass's encoding shapes any placement
+                ta = time.perf_counter()
+                cached_cube = self._avail_cube_dev
+                healed = self.auditor.maybe_audit(
+                    self.incremental,
+                    scheduler.existing_nodes,
+                    cube_host=cached_cube[0] if cached_cube is not None else None,
+                    cube_dev=cached_cube[1] if cached_cube is not None else None,
+                )
+                self.stats.audit_seconds += time.perf_counter() - ta
+            if healed is not None:
+                # divergence found and healed (residency invalidated with
+                # reason 'audit'): the audited pass's encoding is suspect —
+                # discard it so the plan encodes afresh, and drop the cached
+                # availability cube when it was the stale artifact
+                if healed["cube_stale"]:
+                    self._avail_cube_dev = None
+            elif adv.kind == PASS_DELTA:
+                self.stats.delta_apply_seconds += adv.seconds
+                self.stats.rebase_seconds += adv.rebase_seconds
+                self.stats.encode_skipped_passes += 1
+                enc = adv.enc
+            elif adv.kind == PASS_FULL:
+                self.stats.full_encode_seconds += adv.seconds
+                enc = adv.enc
+        fill_plan = warmfill.plan(scheduler, problem, buckets, extra_pods=extra_pods, enc=enc)
         if fill_plan is not None:
             # commits rebind view.requests: the pre-fill freeness memo is
             # invalid from here on (same contract as the host loop)
@@ -1260,8 +1332,19 @@ class DenseSolver:
         if B == 0 or T == 0:
             return np.zeros((B, T), dtype=bool)
         pair = (zmask[:, :, None] & cmask[:, None, :]).reshape(B, Z * C).astype(np.float32)
-        cube = avail.reshape(T, Z * C).astype(np.float32)
-        mask = availability_counts(torch.from_numpy(pair).to(self.device), torch.from_numpy(cube).to(self.device))
+        cached = self._avail_cube_dev
+        if cached is not None and cached[0] is avail:
+            cube = cached[1]
+        else:
+            # the cube, a pure function of the catalog, stays resident: only
+            # the [B, Z*C] pair matrix moves per solve. Keyed by the IDENTITY
+            # of the catalog's avail array, held here so its id cannot be
+            # recycled; a catalog change swaps the array object and misses.
+            # The residency auditor holds the cached cube against its host
+            # array.
+            cube = torch.from_numpy(avail.reshape(T, Z * C).astype(np.float32)).to(self.device)
+            self._avail_cube_dev = (avail, cube)
+        mask = availability_counts(torch.from_numpy(pair).to(self.device), cube)
         return mask.cpu().numpy()
 
     def _catalog(self, caps_eff: np.ndarray, prices: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:

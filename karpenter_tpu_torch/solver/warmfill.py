@@ -142,9 +142,15 @@ class WarmFillPlan:
         self.P = P
 
 
-def plan(scheduler, problem: DenseProblem, buckets, extra_pods: Sequence = ()) -> Optional[WarmFillPlan]:
+def plan(scheduler, problem: DenseProblem, buckets, extra_pods: Sequence = (), enc: Optional[WarmViewEncoding] = None) -> Optional[WarmFillPlan]:
     """Build the vectorized-fill plan, or None when any item falls outside
-    the certified common case (the caller then runs the host loop)."""
+    the certified common case (the caller then runs the host loop).
+
+    `enc` is an optional precomputed encoding of scheduler.existing_nodes —
+    the incremental engine (solver/incremental.py) passes its resident
+    mirror, byte-equal to a fresh encode_warm_views(views) by the engine's
+    parity contract, so a delta pass skips the O(cluster) encode here. One
+    whose length does not match the views is not used."""
     if extra_pods:
         return None  # IR-inexpressible extras interleave by full adds
     views = scheduler.existing_nodes
@@ -158,7 +164,8 @@ def plan(scheduler, problem: DenseProblem, buckets, extra_pods: Sequence = ()) -
         if bucket.zone == "__infeasible__" or bucket.single_bin:
             return None
 
-    enc = encode_warm_views(views)
+    if enc is None or len(enc.hostname) != len(views):
+        enc = encode_warm_views(views)
     V = len(views)
     topology = scheduler.topology
     shared_inverse = topology.inverse_owner_index()
@@ -359,21 +366,27 @@ def plan(scheduler, problem: DenseProblem, buckets, extra_pods: Sequence = ()) -
     return WarmFillPlan(enc, specs, runs, sizes_arr, np.asarray(size_rows, dtype=np.int64), list(views), problem.P)
 
 
-def admission_counts(sizes: np.ndarray, head: np.ndarray, solver) -> Tuple[np.ndarray, Tuple[float, float, float]]:
+def admission_counts(sizes: np.ndarray, head: np.ndarray, solver, head_dev: Optional[torch.Tensor] = None) -> Tuple[np.ndarray, Tuple[float, float, float]]:
     """The [S, V] int32 admission surface of host sizes [S, R] and head
     [V, R] (cast to f32) on the solver's device, and the host seconds of the
     round trip's three parts: staging, enqueue, wait.
 
-    On a CUDA device it is the solver's resident AdmissionSurface: one
-    staged upload, the launch and the copy back enqueued in one call, then
-    one wait; the counts are a view of its landing buffer, valid until the
-    next call (execute reads them at once). On the CPU the kernel wrapper
-    takes its plain version."""
+    `head_dev` is the incremental engine's resident [Vp, R] f32 buffer,
+    whose first V rows equal f32(head): given, the kernel reads those rows
+    in place and only the sizes move. On a CUDA device it is the solver's
+    resident AdmissionSurface: one staged upload (both inputs, or the sizes
+    alone), the launch and the copy back enqueued in one call, then one
+    wait; the counts are a view of its landing buffer, valid until the next
+    call (execute reads them at once). On the CPU the kernel wrapper takes
+    its plain version, on head_dev[:V] where given."""
+    V = head.shape[0]
     if solver.admission_surface is not None:
+        if head_dev is not None:
+            return solver.admission_surface.counts_resident(sizes, head_dev, V)
         return solver.admission_surface.counts(sizes, head)
     t0 = time.perf_counter()
     sizes_t = torch.from_numpy(sizes.astype(np.float32))
-    head_t = torch.from_numpy(head.astype(np.float32))
+    head_t = head_dev[:V] if head_dev is not None else torch.from_numpy(head.astype(np.float32))
     t1 = time.perf_counter()
     counts = warm_fill_counts_device(sizes_t, head_t).numpy()
     return counts, (t1 - t0, time.perf_counter() - t1, 0.0)
@@ -387,7 +400,9 @@ def _device_counts(plan_: WarmFillPlan, solver) -> Optional[np.ndarray]:
     V = len(plan_.views)
     if S == 0 or S > _DEVICE_MAX_SIZES or S * V > _DEVICE_MAX_CELLS:
         return None
-    counts, (stage, enqueue, wait) = admission_counts(plan_.sizes, plan_.enc.head0, solver)
+    # the incremental engine's resident buffer (solver/incremental.py), when
+    # it produced the encoding: the kernel reads its first V rows in place
+    counts, (stage, enqueue, wait) = admission_counts(plan_.sizes, plan_.enc.head0, solver, plan_.enc.head_dev)
     dt = stage + enqueue + wait
     solver.stats.device_seconds += dt
     solver.stats.fill_device_seconds += dt

@@ -3,11 +3,13 @@
 The port's counterparts of the JAX package's test fixtures (tests/helpers.py
 make_pod / make_provisioner / make_node / make_state_node), of bench.py's
 builders (build_workload, build_selectors_taints_workload,
-build_spot_od_types, build_repack_state) and of the randomized warm-cluster
+build_spot_od_types, build_repack_state), of the randomized warm-cluster
 generators of its differential tests (tests/test_differential_campaign.py,
-tests/test_warm_fill_vectorized.py). They draw from numpy with the same
-seeds in the same order, so both packages build the same pods, catalogs and
-clusters: the tests and chip_smoke.py build the port's side from here.
+tests/test_warm_fill_vectorized.py) and of its seeded cluster churn
+(tests/test_incremental_parity.py's _Churn, bench.py's
+run_incremental_churn). They draw from numpy with the same seeds in the
+same order, so both packages build the same pods, catalogs and clusters:
+the tests and chip_smoke.py build the port's side from here.
 """
 
 from __future__ import annotations
@@ -519,3 +521,135 @@ def warm_fill_surface(rng: np.random.Generator, S: int, V: int, R: int):
     head = (rng.random((V, R)) * 32).astype(np.float64)
     head[rng.random((V,)) < 0.1] = -1.0  # over-committed views
     return sizes, head
+
+
+# --- seeded cluster churn, through the kube store -> watch -> Cluster feed ---
+
+
+def churn_node(name: str, rng: np.random.Generator) -> Node:
+    """tests/test_incremental_parity.py's _warm_node: a small fake-it-3 node
+    in a random zone."""
+    return make_node(
+        name=name,
+        labels={
+            PROVISIONER_NAME_LABEL: "default",
+            LABEL_INSTANCE_TYPE: "fake-it-3",
+            LABEL_CAPACITY_TYPE: "on-demand",
+            LABEL_TOPOLOGY_ZONE: ZONES[int(rng.integers(3))],
+        },
+        allocatable={"cpu": int(rng.integers(8, 33)), "memory": "64Gi", "pods": 110},
+    )
+
+
+class Churn:
+    """Randomized cluster churn through the real watch seam (the JAX
+    package's tests/test_incremental_parity.py:_Churn): every mutation goes
+    kube -> watch event -> Cluster handler -> delta journal, the feed the
+    incremental engine consumes. Binds, unbinds, node launches and node
+    terminations, drawn from one seed."""
+
+    def __init__(self, kube, seed: int, tag: str, min_nodes: int = 6):
+        self.kube = kube
+        self.rng = np.random.default_rng(seed)
+        self.tag = tag
+        self.min_nodes = min_nodes
+        self._n = 0
+        self._p = 0
+        self.bound: List[Pod] = []
+
+    def add_node(self) -> str:
+        name = f"{self.tag}-n{self._n:03d}"
+        self._n += 1
+        self.kube.create(churn_node(name, self.rng))
+        return name
+
+    def seed_nodes(self, count: int) -> None:
+        for _ in range(count):
+            self.add_node()
+
+    def drop_node(self) -> None:
+        nodes = self.kube.list_nodes()
+        if len(nodes) <= self.min_nodes:
+            return
+        self.kube.delete(nodes[int(self.rng.integers(len(nodes)))], grace=False)
+
+    def bind(self) -> None:
+        nodes = self.kube.list_nodes()
+        if not nodes:
+            return
+        node = nodes[int(self.rng.integers(len(nodes)))]
+        pod = make_pod(
+            name=f"{self.tag}-bp{self._p:04d}",
+            labels={"app": "warm"},
+            requests={"cpu": 0.25, "memory": "256Mi"},
+            node_name=node.name,
+            phase="Running",
+            unschedulable=False,
+        )
+        self._p += 1
+        self.kube.create(pod)
+        self.bound.append(pod)
+
+    def unbind(self) -> None:
+        if not self.bound:
+            return
+        pod = self.bound.pop(int(self.rng.integers(len(self.bound))))
+        self.kube.delete(pod, grace=False)
+
+    def step(self) -> None:
+        r = self.rng
+        for _ in range(int(r.integers(0, 3))):
+            self.bind()
+        if r.random() < 0.4:
+            self.add_node()
+        if r.random() < 0.3:
+            self.drop_node()
+        if r.random() < 0.3:
+            self.unbind()
+
+
+def standing_cluster(kube, node_count: int) -> None:
+    """bench.py's run_incremental_churn cluster: node_count 16-CPU / 32Gi
+    fake-it-15 on-demand nodes, round-robin over three zones (the node
+    shape of build_repack_state), created through the kube store."""
+    for i in range(node_count):
+        kube.create(
+            make_node(
+                name=f"churn-n{i:04d}",
+                labels={
+                    PROVISIONER_NAME_LABEL: "default",
+                    LABEL_INSTANCE_TYPE: "fake-it-15",
+                    LABEL_TOPOLOGY_ZONE: ZONES[i % 3],
+                    LABEL_CAPACITY_TYPE: "on-demand",
+                },
+                allocatable={"cpu": 16, "memory": "32Gi", "pods": 110},
+            )
+        )
+
+
+def standing_churn(kube, step: int, node_count: int) -> None:
+    """bench.py's per-pass churn: three pod binds and one node-status
+    refresh, at most 4 dirty node names per pass."""
+    for i in range(3):
+        node = f"churn-n{(step * 3 + i) % node_count:04d}"
+        kube.create(
+            make_pod(
+                name=f"churn-bp{step:03d}-{i}",
+                labels={"app": "standing"},
+                requests={"cpu": 0.25, "memory": "256Mi"},
+                node_name=node,
+                phase="Running",
+                unschedulable=False,
+            )
+        )
+    refreshed = kube.get_node(f"churn-n{(step * 7) % node_count:04d}")
+    if refreshed is not None:
+        kube.update(refreshed)
+
+
+def churn_batch(step: int, count: int) -> List[Pod]:
+    """bench.py's per-pass batch: `count` pending 0.5-CPU / 512Mi pods."""
+    return [
+        make_pod(name=f"churn-p{step:03d}-{i:03d}", labels={"app": "delta"}, requests={"cpu": 0.5, "memory": "512Mi"})
+        for i in range(count)
+    ]
