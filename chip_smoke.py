@@ -30,7 +30,23 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     full encode, no audit divergence, no kernel build, the resident buffer
     one of the engine's two and one K2 launch each; the same churn with
     K2's plain version swapped in must place every pass identically and
-    launch no kernel, and a last pass must place as a fresh solver does.
+    launch no kernel, and a last pass must place as a fresh solver does;
+  - the provisioning controller (controllers/provisioning/), routed by the
+    crossover it measures on the card first (crossover: K1's probe round
+    trip, and the exact host loop's seconds per pod beside the JAX
+    package's calibration): controller_round_overflow, the headline batch
+    created in a kube store with 300 standing nodes and provisioned by
+    ProvisionerController.provision() (a warm-up and 3 timed rounds, each
+    on a fresh cluster, split into get_pods / schedule / launch / bind;
+    K1 and K2 in every round; the same as the plain versions' round and as
+    a bare solve on the same snapshot); controller_ice_resolve, the
+    headline batch on an empty cluster with the fake provider refusing
+    every pool of the type a warm-up round launched most often, then of
+    every type it launched (the typed failures feed the re-solve; K1 in
+    every re-solve of the second case; no node on a refused pool; the same
+    as the plain versions' round); controller_loop, the reconciler and the
+    threaded batch loop on the real clock, 2,000 pods, stopped once every
+    pod is nominated.
 
 K2 is held against its plain version three ways per input: through its
 wrapper on CUDA tensors, through the warm solve's round trip from host
@@ -45,7 +61,7 @@ which neither kernel may launch. The warm solves report K2's round trip
 (fill_device) in its parts: staging, enqueue, wait.
 
 The card's name and power limit are read first and printed in every line of
-the churn phases. Then it measures, on the same card: the launch floor (the device time of
+the churn and controller phases. Then it measures, on the same card: the launch floor (the device time of
 the smallest kernel PyTorch launches); how each kernel's device time
 scales with its shape (kernel_scaling); and each kernel's time at its main
 path's shape beside its bound. It prints one JSON object per phase.
@@ -113,6 +129,20 @@ TRACE_ATTEMPTS = 3
 # the host loop may cost at most this much more than dense, as
 # tests/test_dense_solver.py:test_mixed_workload_cost_parity allows
 HOST_COST_SLACK = 1.3
+# the controller phases: (name, pods, standing nodes); the headline batch on
+# a busy cluster, on an empty one for the capacity-failure ladder, and a
+# smaller batch through the threaded loop
+CONTROLLER_OVERFLOW = ("controller_round_overflow", HEADLINE_PODS, 300)
+CONTROLLER_ICE = ("controller_ice_resolve", HEADLINE_PODS)
+CONTROLLER_LOOP = ("controller_loop", 2000, 30)
+CONTROLLER_TRIALS = 3
+# the loop's batch window (idle, max seconds), set through Config, and how
+# long the phase waits for every pod to be nominated
+LOOP_WINDOW = (0.5, 5.0)
+LOOP_TIMEOUT_S = 120.0
+EVENT_CAPACITY = 200_000
+CROSSOVER_TRIALS = 3
+HOST_RATE_PODS = (100, 300)
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 
@@ -369,6 +399,16 @@ def k2_resident_parity(dev, surface, card_name) -> int:
     return err
 
 
+def read_launches():
+    """Both kernels' launch counts since they were last read; zeroes them."""
+    from karpenter_tpu_torch.ops import bucket_cost, warmfill
+
+    got = {"bucket_type_cost": bucket_cost.LAUNCHES, "warm_fill_counts": warmfill.LAUNCHES}
+    bucket_cost.LAUNCHES = 0
+    warmfill.LAUNCHES = 0
+    return got
+
+
 def churn_run(dev, nodes: int, plain: bool = False) -> dict:
     """bench.py's run_incremental_churn(nodes, CHURN_PODS, CHURN_PASSES) on
     the port, audited every pass: a standing cluster fed through the kube
@@ -450,12 +490,6 @@ def churn_run(dev, nodes: int, plain: bool = False) -> dict:
             "encode_ms": st.encode_seconds * 1e3,
             "commit_ms": st.commit_seconds * 1e3,
         }, placed
-
-    def read_launches():
-        got = {"bucket_type_cost": bucket_cost.LAUNCHES, "warm_fill_counts": warmfill.LAUNCHES}
-        bucket_cost.LAUNCHES = 0
-        warmfill.LAUNCHES = 0
-        return got
 
     saved = fill_module.admission_counts, incremental_module.rebase_view_state
     if plain:
@@ -628,6 +662,533 @@ def incremental_churn(dev, name: str, nodes: int, card_name) -> dict:
     return line
 
 
+def crossover(dev, card_name) -> dict:
+    """The port's measure_dense_crossover on the card (CROSSOVER_TRIALS
+    trials of K1's wrapper at the probe shape, host arrays to host result,
+    after one warm-up call), and the exact host loop's seconds per pod on
+    this machine's host beside the JAX package's calibration. Routing takes
+    the measured min_batch; the host rate is printed, not used."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
+    from karpenter_tpu_torch.scheduler import build_scheduler
+    from karpenter_tpu_torch.solver import dense as dense_module
+
+    probe = dense_module.crossover_probe(dev)
+    times, outs = [], []
+
+    def timed_probe():
+        t0 = time.perf_counter()
+        outs.append(probe())
+        times.append(time.perf_counter() - t0)
+
+    min_batch = dense_module.measure_dense_crossover(trials=CROSSOVER_TRIALS, dispatch=timed_probe)
+    probe_inputs = [torch.ones((2, 8, 4)), torch.full((32, 4), 8.0), torch.ones(32), torch.ones((8, 32), dtype=torch.bool)]
+    want = bucket_type_cost_packed(*probe_inputs).numpy()
+    probe_equal = all(np.array_equal(o, want) for o in outs)
+
+    provider = FakeCloudProvider(instance_types(HEADLINE_TYPES))
+    provisioners = [testing.make_provisioner()]
+    host = []
+    for n in HOST_RATE_PODS:
+        pods = testing.build_workload(n)
+        build_ms, solve_ms = [], []
+        for _ in range(SOLVE_TRIALS):
+            t0 = time.perf_counter()
+            scheduler = build_scheduler(provisioners, provider, pods)
+            t1 = time.perf_counter()
+            results = scheduler.solve(pods)
+            t2 = time.perf_counter()
+            build_ms.append((t1 - t0) * 1e3)
+            solve_ms.append((t2 - t1) * 1e3)
+        check(not results.unschedulable, f"crossover: the host loop left {len(results.unschedulable)} of {n} pods unscheduled")
+        host.append({
+            "pods": n,
+            "build_ms": statistics.median(build_ms),
+            "solve_ms": statistics.median(solve_ms),
+            "solve_ms_runs": solve_ms,
+            "seconds_per_pod": statistics.median(solve_ms) / 1e3 / n,
+        })
+    round_trip = min(times[1:])
+    host_rate = statistics.median(h["seconds_per_pod"] for h in host)
+    line = {
+        "phase": "crossover",
+        "card": card_name,
+        "trials": CROSSOVER_TRIALS,
+        "dispatch_round_trip_ms": round_trip * 1e3,
+        "dispatch_ms_runs": [t * 1e3 for t in times],
+        "min_batch": min_batch,
+        "host_seconds_per_pod_reference": dense_module.HOST_SECONDS_PER_POD,
+        "host_loop": host,
+        "host_seconds_per_pod_measured": host_rate,
+        "crossover_at_measured_host_rate": round_trip / host_rate,
+        "floor": dense_module.CROSSOVER_FLOOR,
+        "ceiling": dense_module.CROSSOVER_CEILING,
+        "probe_equal_plain": probe_equal,
+        "note": "min_batch = dispatch_round_trip / host_seconds_per_pod_reference, clamped to [floor, ceiling]; "
+        "the host loop's rate on this host is printed beside it and does not change the routing",
+    }
+    emit(line)
+    check(probe_equal, "crossover: the probe's K1 result disagrees with its plain version")
+    check(dense_module.CROSSOVER_FLOOR <= min_batch <= dense_module.CROSSOVER_CEILING, f"crossover: min_batch {min_batch} outside its clamp")
+    return line
+
+
+def controller_env(dev, pods_n: int, standing: int, min_batch: int, tag: str, config=None):
+    """A fresh in-memory cluster from the same seeds: the kube store with
+    `standing` 16-CPU nodes (testing.standing_cluster), its cluster state,
+    FakeCloudProvider(instance_types(HEADLINE_TYPES)), the default
+    provisioner and a ProvisionerController (wait_for_cluster_sync, a
+    DenseSolver routed at `min_batch`). The batch, build_workload(pods_n)
+    named by `tag`, is returned to be created in the store."""
+    from types import SimpleNamespace
+
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.controllers.provisioning import ProvisionerController
+    from karpenter_tpu_torch.controllers.state.cluster import Cluster
+    from karpenter_tpu_torch.events import Recorder
+    from karpenter_tpu_torch.kube.cluster import KubeCluster
+    from karpenter_tpu_torch.solver import DenseSolver
+
+    kube = KubeCluster()
+    testing.standing_cluster(kube, standing)
+    provider = FakeCloudProvider(instance_types(HEADLINE_TYPES))
+    cluster = Cluster(kube, provider)
+    # every event of the round is kept: nominations are read back from it
+    recorder = Recorder(capacity=EVENT_CAPACITY)
+    solver = DenseSolver(min_batch=min_batch, device=dev)
+    controller = ProvisionerController(
+        kube, cluster, provider, config=config, recorder=recorder, dense_solver=solver, wait_for_cluster_sync=True
+    )
+    kube.create(testing.make_provisioner())
+    pods = testing.rename(testing.build_workload(pods_n), tag)
+    return SimpleNamespace(kube=kube, cluster=cluster, provider=provider, recorder=recorder, solver=solver, controller=controller, pods=pods)
+
+
+def create_pods(env) -> None:
+    for pod in env.pods:
+        env.kube.create(pod)
+
+
+def instrument(env, dev) -> dict:
+    """Time a controller round from outside, on its own instance: get_pods;
+    each schedule call (the solver's phases and both kernels' launches in
+    it); each launch_nodes call split into the node launches (to the last
+    create's return) and the nominations onto existing nodes after them."""
+    from karpenter_tpu_torch.ops import bucket_cost, warmfill
+    from karpenter_tpu_torch.solver import DenseSolveStats
+
+    ctrl, solver = env.controller, env.solver
+    rec = {"get_pods_ms": [], "schedule": [], "launch": []}
+    get_pods, schedule, launch_nodes, launch_one = ctrl.get_pods, ctrl.schedule, ctrl.launch_nodes, ctrl._launch_one
+    ends = []
+
+    def timed_get_pods():
+        t0 = time.perf_counter()
+        out = get_pods()
+        rec["get_pods_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_schedule(pods, state_nodes, opts=None, **kwargs):
+        solver.stats = DenseSolveStats()
+        before = (bucket_cost.LAUNCHES, warmfill.LAUNCHES)
+        t0 = time.perf_counter()
+        results = schedule(pods, state_nodes, opts, **kwargs)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {"bucket_type_cost": bucket_cost.LAUNCHES - before[0], "warm_fill_counts": warmfill.LAUNCHES - before[1]}
+        st = solver.stats
+        rec["schedule"].append({
+            "pods": len(pods),
+            "state_nodes": len(state_nodes),
+            "wall_ms": ms,
+            "new_node_pods": sum(len(n.pods) for n in results.new_nodes),
+            "on_existing": sum(len(v.pods) for v in results.existing_nodes),
+            "unschedulable": len(results.unschedulable),
+            "dense_batches": st.batches,
+            "pods_committed": st.pods_committed,
+            "pods_to_host": st.pods_to_host,
+            "launches": got,
+            "phases_ms": {k: getattr(st, f"{k}_seconds") * 1e3 for k in ("encode", "fill", "fill_device", "device", "mask", "assemble", "device_wait", "commit")},
+        })
+        return results
+
+    def timed_launch_one(vn, ice_failures=None):
+        try:
+            return launch_one(vn, ice_failures)
+        finally:
+            ends.append(time.perf_counter())
+
+    def timed_launch_nodes(results, ice_failures=None, **kwargs):
+        del ends[:]
+        t0 = time.perf_counter()
+        launched = launch_nodes(results, ice_failures=ice_failures, **kwargs)
+        t1 = time.perf_counter()
+        last = max(ends) if ends else t0
+        rec["launch"].append({
+            "launched": len(launched),
+            "create_calls": len(ends),
+            "ice_failed_pods": sum(len(vn.pods) for vn in ice_failures or ()),
+            "launch_ms": (last - t0) * 1e3,
+            "bind_ms": (t1 - last) * 1e3,
+        })
+        return launched
+
+    ctrl.get_pods, ctrl.schedule, ctrl.launch_nodes, ctrl._launch_one = timed_get_pods, timed_schedule, timed_launch_nodes, timed_launch_one
+    return rec
+
+
+def broken_placements(env, nominated) -> dict:
+    """The nodes whose bound and nominated pods together request more than
+    the node has, and the hostname anti-affinity and zonal self-affinity
+    cohorts of build_workload that the nominations break."""
+    from karpenter_tpu_torch.api import labels as lbl
+    from karpenter_tpu_torch.utils import resources as res
+
+    pods = {p.name: p for p in env.kube.list_pods()}
+    over, hosts, zones = [], {}, {}
+    for node in env.kube.list_nodes():
+        free = dict(env.cluster.get_state_node(node.name).available)
+        for name in nominated.get(node.name, ()):
+            free = res.subtract(free, res.pod_requests(pods[name]))
+            labels = pods[name].metadata.labels
+            if "anti" in labels:
+                hosts.setdefault(labels["anti"], []).append(node.name)
+            if "affinity" in labels:
+                zones.setdefault(labels["affinity"], set()).add(node.metadata.labels[lbl.LABEL_TOPOLOGY_ZONE])
+        if any(v < -1e-6 for v in free.values()):
+            over.append(node.name)
+    return {
+        "over_capacity": len(over),
+        "anti_affinity_shared": sorted(v for v, names in hosts.items() if len(names) != len(set(names))),
+        "affinity_split": sorted(v for v, found in zones.items() if len(found) > 1),
+    }
+
+
+def round_record(env) -> dict:
+    """What a round left in the cluster: each launched node's instance type,
+    zone, capacity type and nominated pods (up to the provider's node
+    names), the nominations onto standing nodes, the pods it parked, its
+    primary solve's unschedulable pods and the placements it broke
+    (broken_placements)."""
+    from karpenter_tpu_torch.api import labels as lbl
+
+    # a pod placed on an existing node is nominated twice per solve, by the
+    # scheduler and by the launch step, as in the JAX package
+    nominated = {}
+    for event in env.recorder.of("NominatePod"):
+        nominated.setdefault(event.message.split()[-1], set()).add(event.object_name)
+    live = env.provider.live_instances
+    launched, standing = [], []
+    for node in env.kube.list_nodes():
+        pods = tuple(sorted(nominated.get(node.name, ())))
+        labels = node.metadata.labels
+        if node.name in live:
+            launched.append((labels[lbl.LABEL_INSTANCE_TYPE], labels[lbl.LABEL_TOPOLOGY_ZONE], labels[lbl.LABEL_CAPACITY_TYPE], pods))
+        elif pods:
+            standing.append((node.name, pods))
+    results = env.controller.last_results
+    return {
+        "launched": sorted(launched),
+        "standing": sorted(standing),
+        "parked": sorted(name for _ns, name in env.controller._ice_backoff),
+        "unschedulable": sorted(p.name for p in results.unschedulable) if results is not None else None,
+        "broken": broken_placements(env, nominated),
+    }
+
+
+def run_round(dev, pods_n, standing, min_batch, tag, prepare=None, plain=False):
+    """One controller round on a fresh environment: `prepare(env)` runs
+    first (strict mode, quarantined pools), then the batch is created in
+    the store, the launch counts zeroed and provision() called, timed and
+    instrumented. With plain=True both kernels' plain versions stand in at
+    the seams the solve calls. Returns (env, record of the round)."""
+    from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+
+    env = controller_env(dev, pods_n, standing, min_batch, tag)
+    if prepare is not None:
+        prepare(env)
+    create_pods(env)
+    rec = instrument(env, dev)
+    saved = dense_module.bucket_cost_packed, fill_module.admission_counts
+    if plain:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = bucket_type_cost_packed, plain_admission_counts
+    try:
+        read_launches()
+        t0 = time.perf_counter()
+        env.controller.provision()
+        sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+    finally:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = saved
+    rec.update(wall_ms=wall, launches=launches, outcome=round_record(env))
+    return env, rec
+
+
+def round_summary(rec) -> dict:
+    first = rec["schedule"][0]
+    return {
+        "wall_ms": rec["wall_ms"],
+        "get_pods_ms": sum(rec["get_pods_ms"]),
+        "schedule_ms": sum(s["wall_ms"] for s in rec["schedule"]),
+        "launch_ms": sum(s["launch_ms"] for s in rec["launch"]),
+        "bind_ms": sum(s["bind_ms"] for s in rec["launch"]),
+        "schedule_calls": len(rec["schedule"]),
+        "phases_ms": first["phases_ms"],
+        "launches": rec["launches"],
+        "launches_per_solve": [s["launches"] for s in rec["schedule"]],
+        "nodes_launched": len(rec["outcome"]["launched"]),
+        "pods_on_launched_nodes": sum(len(n[3]) for n in rec["outcome"]["launched"]),
+        "pods_nominated_onto_standing": sum(len(n[1]) for n in rec["outcome"]["standing"]),
+        "unschedulable": len(rec["outcome"]["unschedulable"]),
+        "parked": len(rec["outcome"]["parked"]),
+        "broken": rec["outcome"]["broken"],
+        "pods_committed": first["pods_committed"],
+        "pods_to_host": first["pods_to_host"],
+    }
+
+
+def controller_round_overflow(dev, min_batch: int, card_name) -> dict:
+    """The headline batch on a busy cluster through the provisioning
+    controller: one warm-up round, CONTROLLER_TRIALS timed rounds (each on a
+    fresh environment from the same seeds, since a round launches nodes),
+    then the round with the plain versions, and the round's solve against a
+    bare build_scheduler(...).solve on the same snapshot."""
+    from karpenter_tpu_torch.scheduler import build_scheduler
+    from karpenter_tpu_torch.solver import DenseSolver
+
+    name, pods_n, standing = CONTROLLER_OVERFLOW
+    run_round(dev, pods_n, standing, min_batch, "ovf")
+    runs = [run_round(dev, pods_n, standing, min_batch, "ovf") for _ in range(CONTROLLER_TRIALS)]
+    _env, plain = run_round(dev, pods_n, standing, min_batch, "ovf", plain=True)
+
+    # the bare solve on a fresh environment's snapshot, then that
+    # environment's round
+    env = controller_env(dev, pods_n, standing, min_batch, "ovf")
+    create_pods(env)
+    ctrl = env.controller
+    pods = ctrl.get_pods()
+    bare = build_scheduler(
+        [p for p in env.kube.list_provisioners()], env.provider, pods, kube=env.kube, cluster=env.cluster,
+        state_nodes=env.cluster.nodes_snapshot(), daemonset_pods=ctrl.daemonset_pods(),
+        dense_solver=DenseSolver(min_batch=min_batch, device=dev),
+    ).solve(pods)
+    round_results = ctrl.provision()
+    bare_equal = outcome(bare, pods) == outcome(round_results, pods)
+
+    summaries = [round_summary(rec) for _env, rec in runs]
+    first = runs[0][1]["outcome"]
+    same_runs = all(rec["outcome"] == first for _env, rec in runs)
+    same_plain = plain["outcome"] == first
+    line = {
+        "phase": "controller_round",
+        "config": name,
+        "card": card_name,
+        "pods": pods_n,
+        "standing_nodes": standing,
+        "types": HEADLINE_TYPES,
+        "min_batch": min_batch,
+        "wall_ms": statistics.median(s["wall_ms"] for s in summaries),
+        "wall_ms_runs": [s["wall_ms"] for s in summaries],
+        "split_ms": {k: statistics.median(s[k] for s in summaries) for k in ("get_pods_ms", "schedule_ms", "launch_ms", "bind_ms")},
+        "rounds": summaries,
+        "kernel_launches": {k: [s["launches"][k] for s in summaries] for k in ("bucket_type_cost", "warm_fill_counts")},
+        "plain_run": {"launches": plain["launches"], "wall_ms": plain["wall_ms"], "placements_identical": same_plain},
+        "runs_identical": same_runs,
+        "bare_solve_identical": bare_equal,
+    }
+    emit(line)
+    for i, s in enumerate(summaries):
+        check(s["launches"]["bucket_type_cost"] >= 1 and s["launches"]["warm_fill_counts"] >= 1, f"{name}: round {i} launched {s['launches']}")
+        check(s["unschedulable"] == 0 and s["parked"] == 0, f"{name}: round {i} left {s['unschedulable']} unschedulable, {s['parked']} parked")
+        placed = s["pods_on_launched_nodes"] + s["pods_nominated_onto_standing"]
+        check(placed == pods_n, f"{name}: round {i} nominated {placed} of {pods_n} pods")
+        check(not any(s["broken"].values()), f"{name}: round {i} broke placements: {s['broken']}")
+    check(same_runs, f"{name}: the timed rounds placed pods differently")
+    check(not any(plain["launches"].values()), f"{name}: the plain versions' round launched kernels: {plain['launches']}")
+    check(same_plain, f"{name}: the kernels' and the plain versions' rounds placed pods differently")
+    check(bare_equal, f"{name}: the round's solve differs from a bare build_scheduler(...).solve on the same snapshot")
+    return line
+
+
+def controller_ice_resolve(dev, min_batch: int, card_name) -> dict:
+    """The capacity-failure ladder on the card: the headline batch on an
+    empty cluster. A warm-up round shows which instance types the round
+    launches; then the round runs with the fake provider in strict mode,
+    once with every pool of the type launched most often refused and once
+    with every pool of every type the warm-up launched refused. The typed
+    failures feed the re-solves, which count the pods the round already
+    nominated (on the nodes it launched, in their free resources and in the
+    topology domains), so no node ends the round over its capacity and
+    build_workload's anti-affinity and self-affinity cohorts stay whole.
+    Where those pods include a required anti-affinity term, the dense path
+    routes the whole re-solve to the host loop, as it does for any batch
+    beside such pods; with every launched type refused, the first launch
+    step places nothing, and the first re-solve runs dense through K1.
+    Each round is held against the same round with the plain versions. The
+    nodes launch one at a time here, so that both runs' re-solves see them
+    in one order: the fake provider names nodes in the order its create
+    calls arrive, and a solve walks the nodes in that order."""
+    from karpenter_tpu_torch.api import labels as lbl
+
+    name, pods_n = CONTROLLER_ICE
+    env, _rec = run_round(dev, pods_n, 0, min_batch, "ice")
+    counts = {}
+    for node in env.kube.list_nodes():
+        it = node.metadata.labels[lbl.LABEL_INSTANCE_TYPE]
+        counts[it] = counts.get(it, 0) + 1
+    by_count = sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))
+    catalog = {t.name(): t for t in env.provider.instance_types_list}
+    cases = {"most_launched_type": [by_count[0][0]], "every_launched_type": sorted(counts)}
+    line = {
+        "phase": "controller_ice",
+        "config": name,
+        "card": card_name,
+        "pods": pods_n,
+        "types": HEADLINE_TYPES,
+        "min_batch": min_batch,
+        "warmup_launches_by_type": dict(by_count),
+        "runs": {},
+        "kernel_launches": {},
+    }
+    checks = []
+    for case, refused in cases.items():
+        pools = {(t, o.zone, o.capacity_type) for t in refused for o in catalog[t].offerings()}
+
+        def strict(env):
+            env.provider.allow_insufficient_capacity = False
+            env.provider.insufficient_capacity_pools = set(pools)
+            # one create at a time: the fake provider names nodes in the
+            # order its create calls arrive, and the re-solve's warm fill
+            # walks the nodes in the order they reached the cluster, so
+            # parallel launches would make the two runs' re-solves differ
+            env.controller.LAUNCH_WORKERS = 1
+
+        _env, rec = run_round(dev, pods_n, 0, min_batch, "ice", prepare=strict)
+        _env, plain = run_round(dev, pods_n, 0, min_batch, "ice", prepare=strict, plain=True)
+        resolves = rec["schedule"][1:]
+        fed = [launch["ice_failed_pods"] for launch in rec["launch"]]
+        on_quarantine = [n for n in rec["outcome"]["launched"] if tuple(n[:3]) in pools]
+        line["runs"][case] = {
+            "refused_types": refused,
+            "refused_pools": len(pools),
+            "round": round_summary(rec),
+            "ice_failed_pods_per_launch": fed,
+            "retry_batches": [s["pods"] for s in resolves],
+            "resolve_wall_ms": [s["wall_ms"] for s in resolves],
+            "resolve_phases_ms": [s["phases_ms"] for s in resolves],
+            "resolve_launches": [s["launches"] for s in resolves],
+            "resolve_dense_batches": [s["dense_batches"] for s in resolves],
+            "resolve_pods_to_host": [s["pods_to_host"] for s in resolves],
+            "resolve_state_nodes": [s["state_nodes"] for s in resolves],
+            "resolve_on_existing": [s["on_existing"] for s in resolves],
+            "resolve_new_node_pods": [s["new_node_pods"] for s in resolves],
+            "parked": len(rec["outcome"]["parked"]),
+            "nodes_on_refused_pools": len(on_quarantine),
+            "plain_run": {"launches": plain["launches"], "placements_identical": plain["outcome"] == rec["outcome"]},
+        }
+        line["kernel_launches"][case] = rec["launches"]
+        checks += [
+            (resolves, f"{case}: no typed failure fed a re-solve"),
+            ([s["pods"] for s in resolves] == fed[: len(resolves)], f"{case}: re-solve batches {[s['pods'] for s in resolves]} are not the failed launches' pods {fed}"),
+            (bool(resolves) and resolves[0]["pods"] >= min_batch, f"{case}: the first re-solve's batch stays below min_batch {min_batch}"),
+            (not on_quarantine, f"{case}: nodes launched on refused pools: {on_quarantine[:3]}"),
+            (not any(plain["launches"].values()), f"{case}: the plain versions' round launched kernels: {plain['launches']}"),
+            (plain["outcome"] == rec["outcome"], f"{case}: the kernels' and the plain versions' rounds placed pods differently"),
+            (not any(rec["outcome"]["broken"].values()), f"{case}: the round broke placements: {rec['outcome']['broken']}"),
+            (
+                all(s["launches"]["bucket_type_cost"] >= 1 for s in resolves if s["dense_batches"] and s["new_node_pods"]),
+                f"{case}: K1 did not launch in a re-solve that ran dense: {[s['launches'] for s in resolves]}",
+            ),
+        ]
+        if case == "every_launched_type":
+            # nothing of the round is placed yet, so no nominated
+            # anti-affinity pod sends the first re-solve to the host loop
+            checks.append((
+                resolves[0]["dense_batches"] >= 1 and resolves[0]["launches"]["bucket_type_cost"] >= 1,
+                f"{case}: the first re-solve did not run dense through K1: {resolves[0]}",
+            ))
+    line["kernel_launches"] = {
+        k: sum(v[k] for v in line["kernel_launches"].values()) for k in ("bucket_type_cost", "warm_fill_counts")
+    }
+    emit(line)
+    for cond, what in checks:
+        check(bool(cond), f"{name}: {what}")
+    return line
+
+
+def controller_loop(dev, min_batch: int, card_name) -> dict:
+    """The threaded path on the real clock: ProvisioningReconciler and the
+    batch loop started, then the batch created in the store (each pod event
+    pulls the batcher trigger); the window closes after LOOP_WINDOW's idle
+    time and the loop runs the round. Stopped once every pod is nominated."""
+    from karpenter_tpu_torch.config import Config
+    from karpenter_tpu_torch.controllers.provisioning import ProvisioningReconciler
+
+    name, pods_n, standing = CONTROLLER_LOOP
+    idle, longest = LOOP_WINDOW
+    env = controller_env(dev, pods_n, standing, min_batch, "loop", config=Config(batch_max_duration=longest, batch_idle_duration=idle))
+    rounds = []
+    provision = env.controller.provision
+
+    def counted_provision():
+        t0 = time.perf_counter()
+        try:
+            return provision()
+        finally:
+            rounds.append((t0, time.perf_counter()))
+
+    env.controller.provision = counted_provision
+    reconciler = ProvisioningReconciler(env.kube, env.controller)
+    names = {p.name for p in env.pods}
+    read_launches()
+    env.controller.start()
+    t0 = time.perf_counter()
+    try:
+        create_pods(env)
+        created = time.perf_counter()
+        deadline = created + LOOP_TIMEOUT_S
+        nominated = set()
+        while time.perf_counter() < deadline and env.controller.error is None:
+            nominated = {e.object_name for e in env.recorder.of("NominatePod")}
+            if names <= nominated and rounds:
+                break
+            time.sleep(0.02)
+        done = time.perf_counter()
+    finally:
+        reconciler.detach()
+        env.controller.stop()  # re-raises the error that ended the loop, if any
+    launches = read_launches()
+    line = {
+        "phase": "controller_loop",
+        "config": name,
+        "card": card_name,
+        "pods": pods_n,
+        "standing_nodes": standing,
+        "min_batch": min_batch,
+        "batch_idle_s": idle,
+        "batch_max_s": longest,
+        "create_ms": (created - t0) * 1e3,
+        "pods_to_last_nomination_ms": (done - t0) * 1e3,
+        "rounds": len(rounds),
+        "round_ms": [(b - a) * 1e3 for a, b in rounds],
+        "window_close_after_last_create_ms": (rounds[0][0] - created) * 1e3 if rounds else None,
+        "nominated": len(nominated & names),
+        "nodes_launched": len(env.provider.live_instances),
+        "kernel_launches": launches,
+        "error": None if env.controller.error is None else repr(env.controller.error),
+    }
+    emit(line)
+    check(env.controller.error is None, f"{name}: the loop stopped on {env.controller.error!r}")
+    check(names <= nominated, f"{name}: {len(names - nominated)} of {pods_n} pods never nominated within {LOOP_TIMEOUT_S} s")
+    check(launches["bucket_type_cost"] >= 1 and launches["warm_fill_counts"] >= 1, f"{name}: the loop's rounds launched {launches}")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -722,10 +1283,9 @@ def main() -> int:
         the state nodes, so every solve starts from the same cluster."""
         solver = DenseSolver(min_batch=1)
         solve(pods, provider, provisioners, solver, state_nodes)
-        bucket_cost.LAUNCHES = 0
-        warmfill.LAUNCHES = 0
+        read_launches()
         runs = [solve(pods, provider, provisioners, solver, state_nodes) for _ in range(SOLVE_TRIALS)]
-        launches = {"bucket_type_cost": bucket_cost.LAUNCHES, "warm_fill_counts": warmfill.LAUNCHES}
+        launches = read_launches()
         ms, results, s = runs[-1]
         got = outcome(results, pods)
         line = {
@@ -770,13 +1330,12 @@ def main() -> int:
         either kernel launched in it."""
         saved = dense_module.bucket_cost_packed, fill_module.admission_counts
         dense_module.bucket_cost_packed, fill_module.admission_counts = bucket_type_cost_packed, plain_admission_counts
-        bucket_cost.LAUNCHES = 0
-        warmfill.LAUNCHES = 0
+        read_launches()
         try:
             ms, results, _ = solve(pods, provider, provisioners, DenseSolver(min_batch=1), state_nodes)
         finally:
             dense_module.bucket_cost_packed, fill_module.admission_counts = saved
-        launches = {"bucket_type_cost": bucket_cost.LAUNCHES, "warm_fill_counts": warmfill.LAUNCHES}
+        launches = read_launches()
         check(not any(launches.values()), f"the plain versions' solve launched kernels: {launches}")
         return ms, outcome(results, pods), launches
 
@@ -897,14 +1456,29 @@ def main() -> int:
     # passes whose K2 launch reads the engine's resident head buffer
     churn_lines = [incremental_churn(dev, name, nodes, card_name) for name, nodes in CHURNS]
 
-    # 11. the launch floor: the device time of the smallest kernel PyTorch
+    # 11. the provisioning controller, routed by the crossover measured here:
+    # the headline batch on a busy cluster, the capacity-failure ladder and
+    # the threaded batch loop
+    min_batch = crossover(dev, card_name)["min_batch"]
+    controller_lines = [
+        controller_round_overflow(dev, min_batch, card_name),
+        controller_ice_resolve(dev, min_batch, card_name),
+        controller_loop(dev, min_batch, card_name),
+    ]
+
+    def controller_launches(kernel_name):
+        """Each controller phase's launches of one kernel (per timed round
+        where a phase times several)."""
+        return {line["config"]: line["kernel_launches"][kernel_name] for line in controller_lines}
+
+    # 12. the launch floor: the device time of the smallest kernel PyTorch
     # launches (a fill of one element), in this run, on this card
     one = torch.zeros(1, device=dev)
     launch_floor_ms, floor_why = profiled_device_ms(one.zero_, KERNEL_ITERS)
     emit({"phase": "launch_floor", "op": "zero_() of a 1-element CUDA tensor", "device_ms": launch_floor_ms, "device_ms_missing": floor_why or None})
     check(launch_floor_ms is not None, f"no launch floor: {floor_why}")
 
-    # 12. how each kernel's device time scales: K1 with the buckets (blocks)
+    # 13. how each kernel's device time scales: K1 with the buckets (blocks)
     # and the types (threads per block, then types per thread); K2 with the
     # size classes and the nodes
     shapes = k1_scaling_shapes(B, T)
@@ -923,7 +1497,7 @@ def main() -> int:
     emit({"phase": "kernel_scaling", "kernel": "warm_fill_counts", "runs": runs, "launch_floor_ms": launch_floor_ms, "mismatches": bad, "device_ms_missing": why or None})
     check(not bad, f"K2 disagrees with its plain version at {bad}")
 
-    # 13. each kernel's time at its main path's shape beside its bound and
+    # 14. each kernel's time at its main path's shape beside its bound and
     # its plain version; K2's device time through the solve's round trip
     kernel_ms = cuda_ms(lambda: kernel(*headline_inputs), KERNEL_ITERS)
     plain_ms_k = cuda_ms(lambda: bucket_type_cost_packed(*headline_inputs), PLAIN_ITERS)
@@ -958,6 +1532,7 @@ def main() -> int:
                 "source": "karpenter_tpu_torch/csrc/bucket_cost.cu",
                 "replaces": "karpenter_tpu/ops/pallas_kernels.py:35",
                 "launches": solve_lines["headline_10k_x_500"]["kernel_launches"]["bucket_type_cost"],
+                "controller_launches": controller_launches("bucket_type_cost"),
                 "max_abs_err": max_err,
                 "ms": kernel_ms,
                 "kernel_ms": kernel_ms,
@@ -983,6 +1558,7 @@ def main() -> int:
                 "replaces": "karpenter_tpu/ops/warmfill.py:89",
                 "launches": solve_lines[REPACK[0]]["kernel_launches"]["warm_fill_counts"],
                 "resident_launches": {c["config"]: c["window"]["launches"]["warm_fill_counts"] for c in churn_lines},
+                "controller_launches": controller_launches("warm_fill_counts"),
                 "max_abs_err": k2_err,
                 "ms": k2_ms,
                 "kernel_ms": k2_ms,
@@ -1006,7 +1582,7 @@ def main() -> int:
         ]
     })
 
-    # 14. the card
+    # 15. the card
     print(card_name, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}})
     return 0

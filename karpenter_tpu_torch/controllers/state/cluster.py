@@ -15,7 +15,9 @@ incremental solve engine (solver/incremental.py).
 
 The port's copy of karpenter_tpu/controllers/state/cluster.py: the lock is a
 plain threading.RLock; the lock-order witness and the guarded-by
-annotations of the reference are left out.
+annotations of the reference are left out. Counting a pod on a node is
+StateNode.add_pod, so the provisioner can count the pods a round nominated
+on a snapshot.
 """
 
 from __future__ import annotations
@@ -66,6 +68,23 @@ class StateNode:
 
     def pod_count(self) -> int:
         return len(self.pod_requests)
+
+    def add_pod(self, pod: Pod) -> None:
+        """Count the pod's requests, limits, host ports and volumes on this
+        node; a pod already counted here is left as it is."""
+        key = _pod_key(pod)
+        if key in self.pod_requests:
+            return
+        requests = res.pod_requests(pod)
+        limits = res.pod_limits(pod)
+        self.pod_requests[key] = requests
+        self.pod_limits[key] = limits
+        self.available = res.subtract(self.available, requests)
+        if podutils.is_owned_by_daemonset(pod):
+            self.daemonset_requested = res.merge(self.daemonset_requested, requests)
+            self.daemonset_limits = res.merge(self.daemonset_limits, limits)
+        self.host_port_usage.add(pod)
+        self.volume_usage.add(pod)
 
     def snapshot(self) -> "StateNode":
         """Deep-enough copy for a scheduling pass (provisioner.go:139-143):
@@ -155,7 +174,7 @@ class Cluster:
         # re-apply pod bindings we know about
         for key, node_name in self._bindings.items():
             if node_name == node.name and key in self._pods:
-                self._apply_pod(state, self._pods[key])
+                state.add_pod(self._pods[key])
         if existing is None:
             self._last_node_creation = self.clock.now()
         self._nodes[node.name] = state
@@ -258,21 +277,8 @@ class Cluster:
             if node is not None:
                 self._update_node(node)
         elif key not in state.pod_requests:
-            self._apply_pod(state, pod)
+            state.add_pod(pod)
         self._bump_epoch()
-
-    def _apply_pod(self, state: StateNode, pod: Pod) -> None:
-        key = _pod_key(pod)
-        requests = res.pod_requests(pod)
-        limits = res.pod_limits(pod)
-        state.pod_requests[key] = requests
-        state.pod_limits[key] = limits
-        state.available = res.subtract(state.available, requests)
-        if podutils.is_owned_by_daemonset(pod):
-            state.daemonset_requested = res.merge(state.daemonset_requested, requests)
-            state.daemonset_limits = res.merge(state.daemonset_limits, limits)
-        state.host_port_usage.add(pod)
-        state.volume_usage.add(pod)
 
     def _remove_pod(self, pod: Pod) -> None:
         key = _pod_key(pod)

@@ -1,0 +1,57 @@
+"""Event recording: the typed recorder (pkg/events).
+
+The port's copy of karpenter_tpu/events.py, cut to the events the
+provisioning round records. The TTL-deduped recorder and the
+disruption/interruption events come with the controllers that record them
+(ROADMAP A9, A14b)."""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Deque, List
+
+# retained events per recorder: a long-lived runtime records on every
+# provisioning/termination/interruption action, so an unbounded list is a
+# slow leak — the ring keeps the newest window, like the apiserver's event
+# TTL keeps only recent history
+DEFAULT_EVENT_CAPACITY = 1000
+
+
+@dataclass
+class Event:
+    kind: str
+    reason: str
+    message: str
+    object_name: str
+    timestamp: float = field(default_factory=time.time)
+
+
+class Recorder:
+    """Typed event surface (pkg/events/recorder.go:24-41). Events live in a
+    bounded ring: appending past capacity evicts the oldest."""
+
+    def __init__(self, capacity: int = DEFAULT_EVENT_CAPACITY):
+        self.capacity = capacity
+        self.events: Deque[Event] = deque(maxlen=capacity)
+        self._lock = threading.Lock()
+
+    def _record(self, kind: str, reason: str, message: str, name: str) -> None:
+        with self._lock:
+            self.events.append(Event(kind, reason, message, name))
+
+    def nominate_pod(self, pod, node) -> None:
+        self._record("Pod", "NominatePod", f"Pod should schedule on {node.name}", pod.name)
+
+    def pod_failed_to_schedule(self, pod, err) -> None:
+        self._record("Pod", "FailedScheduling", f"Failed to schedule pod, {err}", pod.name)
+
+    def launching_node(self, node, reason: str) -> None:
+        self._record("Node", "LaunchingNode", reason, node.name)
+
+    def of(self, reason: str) -> List[Event]:
+        with self._lock:
+            return [e for e in self.events if e.reason == reason]
+

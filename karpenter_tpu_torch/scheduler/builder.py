@@ -134,6 +134,7 @@ def build_scheduler(
     opts: Optional[SchedulerOptions] = None,
     recorder=None,
     dense_solver=None,
+    nominated: Sequence[tuple] = (),
 ) -> Scheduler:
     provisioners = order_by_weight(list(provisioners))
     node_templates = [NodeTemplate.from_provisioner(p) for p in provisioners]
@@ -141,7 +142,7 @@ def build_scheduler(
         p.name: apply_kubelet_max_pods(p, cloud_provider.get_instance_types(p)) for p in provisioners
     }
     domains = compute_domains(provisioners, instance_types)
-    topology = Topology(kube=kube, cluster=cluster, domains=domains, pods=list(pods))
+    topology = Topology(kube=kube, cluster=cluster, domains=domains, pods=list(pods), nominated=nominated)
     overhead = {t.provisioner_name: daemonset_overhead(daemonset_pods, t) for t in node_templates}
     return Scheduler(
         node_templates=node_templates,

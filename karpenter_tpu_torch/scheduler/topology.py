@@ -7,6 +7,10 @@ group, and post-placement recording.
 
 The `kube` client may be None (pure solver benchmarks); then no existing-pod
 counting happens. The `cluster` provides `for_pods_with_anti_affinity`.
+`nominated` holds (node name, pods) pairs that count as bound to that node
+although they are not yet: the pods a provisioning round placed before its
+capacity-failure re-solve (the port's addition; the JAX package counts bound
+pods only).
 """
 
 from __future__ import annotations
@@ -23,9 +27,17 @@ from .topologygroup import MAX_INT32, TopologyGroup, TopologyType
 
 
 class Topology:
-    def __init__(self, kube=None, cluster=None, domains: Optional[Dict[str, Set[str]]] = None, pods: Iterable[Pod] = ()):
+    def __init__(
+        self,
+        kube=None,
+        cluster=None,
+        domains: Optional[Dict[str, Set[str]]] = None,
+        pods: Iterable[Pod] = (),
+        nominated: Sequence[tuple] = (),
+    ):
         self.kube = kube
         self.cluster = cluster
+        self.nominated = [(pod, name) for name, placed in nominated for pod in placed]
         self.domains: Dict[str, Set[str]] = {k: set(v) for k, v in (domains or {}).items()}
         self.topologies: Dict[tuple, TopologyGroup] = {}
         self.inverse_topologies: Dict[tuple, TopologyGroup] = {}
@@ -128,6 +140,10 @@ class Topology:
     # -- inverse anti-affinity ----------------------------------------------
 
     def _update_inverse_affinities(self) -> None:
+        for pod, name in self.nominated:
+            if podutils.has_required_pod_anti_affinity(pod) and pod.uid not in self.excluded_pods:
+                node = self.kube.get_node(name) if self.kube is not None else None
+                self._update_inverse_anti_affinity(pod, node.metadata.labels if node is not None else None)
         if self.cluster is None:
             return
 
@@ -169,24 +185,29 @@ class Topology:
             return
         for namespace in group.namespaces:
             for p in self.kube.list_pods(namespace=namespace):
-                if group.selector is not None and not group.selector.matches(p.metadata.labels):
-                    continue
-                if _ignored_for_topology(p):
-                    continue
-                if p.uid in self.excluded_pods:
-                    continue
-                node = self.kube.get_node(p.spec.node_name)
-                if node is None:
-                    continue
-                domain = node.metadata.labels.get(group.key)
-                if domain is None and group.key == lbl.LABEL_HOSTNAME:
-                    # node may not carry the hostname label yet; fall back to name
-                    domain = node.name
-                if domain is None:
-                    continue
-                if not group.node_filter.matches_node(node):
-                    continue
-                group.record(domain)
+                if not _ignored_for_topology(p):
+                    self._count_pod(group, p, p.spec.node_name)
+        for p, name in self.nominated:
+            if p.namespace in group.namespaces and not (podutils.is_terminal(p) or podutils.is_terminating(p)):
+                self._count_pod(group, p, name)
+
+    def _count_pod(self, group: TopologyGroup, p: Pod, node_name: Optional[str]) -> None:
+        if group.selector is not None and not group.selector.matches(p.metadata.labels):
+            return
+        if p.uid in self.excluded_pods:
+            return
+        node = self.kube.get_node(node_name)
+        if node is None:
+            return
+        domain = node.metadata.labels.get(group.key)
+        if domain is None and group.key == lbl.LABEL_HOSTNAME:
+            # node may not carry the hostname label yet; fall back to name
+            domain = node.name
+        if domain is None:
+            return
+        if not group.node_filter.matches_node(node):
+            return
+        group.record(domain)
 
     # -- solve-time interface -------------------------------------------------
 

@@ -66,6 +66,71 @@ from ..utils.options import DENSE_MIN_BATCH_DEFAULT as MIN_BATCH_DEFAULT
 
 log = logging.getLogger("karpenter_tpu_torch.solver")
 
+# Host-loop throughput calibration for the measured crossover: the JAX
+# package's value (the exact loop at about 4k pods per second on its
+# reference sweep). Unlike the dispatch round trip it does not depend on the
+# device; chip_smoke.py's crossover phase prints this port's host loop
+# beside it.
+HOST_SECONDS_PER_POD = 2.5e-4
+CROSSOVER_FLOOR = 64
+CROSSOVER_CEILING = 2048
+
+
+def crossover_probe(device="cuda"):
+    """The dispatch that measure_dense_crossover times by default: the
+    bucket -> type cost kernel's wrapper (ops/bucket_cost.py) at the JAX
+    package's probe shape (stats [2, 8, 4], caps [32, 4] of 8.0, prices
+    [32], allowed [8, 32] all true), from host arrays to the host result."""
+    dev = resolve_device(device)
+    stats = np.ones((2, 8, 4), np.float32)
+    caps = np.full((32, 4), 8.0, np.float32)
+    prices = np.ones((32,), np.float32)
+    allowed = np.ones((8, 32), bool)
+
+    def dispatch():
+        inputs = [torch.from_numpy(a).to(dev) for a in (stats, caps, prices, allowed)]
+        return bucket_cost_packed(*inputs).cpu().numpy()
+
+    return dispatch
+
+
+def measure_dense_crossover(
+    trials: int = 3,
+    dispatch=None,
+    host_seconds_per_pod: float = HOST_SECONDS_PER_POD,
+    device="cuda",
+) -> int:
+    """Measure the device dispatch round trip and derive the batch size
+    below which the exact host loop is the faster scheduler.
+
+    The dense path's fixed cost is its dispatch round trip, not compute, so
+    a crossover constant measured on one deployment is wrong on another.
+    This times `dispatch` (by default crossover_probe(device): the kernel
+    the solver dispatches; one warm-up call first, which may also build the
+    kernel, then the minimum over `trials` calls) and returns round_trip /
+    host_seconds_per_pod clamped to [CROSSOVER_FLOOR, CROSSOVER_CEILING].
+    The caller passes the result to DenseSolver as `min_batch`. A
+    measurement that fails raises: no default stands in for a device that
+    does not answer. `dispatch` is injectable so tests can simulate slow
+    and fast links."""
+    if dispatch is None:
+        dispatch = crossover_probe(device)
+    dispatch()  # build + warm-up, excluded from the measurement
+    round_trip = min(_timed(dispatch) for _ in range(max(1, trials)))
+    crossover = int(round_trip / host_seconds_per_pod)
+    measured = max(CROSSOVER_FLOOR, min(CROSSOVER_CEILING, crossover))
+    log.info(
+        "measured dense routing crossover: dispatch rt %.3f ms -> min_batch %d (default %d)",
+        round_trip * 1000, measured, MIN_BATCH_DEFAULT,
+    )
+    return measured
+
+
+def _timed(fn) -> float:
+    start = time.perf_counter()
+    fn()
+    return time.perf_counter() - start
+
 
 def _preview_type_cost(bucket_stats: np.ndarray, caps: np.ndarray, prices: np.ndarray, allowed: np.ndarray):
     """Host preview of ops/feasibility.py:bucket_type_cost — same formula,

@@ -5,9 +5,10 @@ make_pod / make_provisioner / make_node / make_state_node), of bench.py's
 builders (build_workload, build_selectors_taints_workload,
 build_spot_od_types, build_repack_state), of the randomized warm-cluster
 generators of its differential tests (tests/test_differential_campaign.py,
-tests/test_warm_fill_vectorized.py) and of its seeded cluster churn
+tests/test_warm_fill_vectorized.py), of its seeded cluster churn
 (tests/test_incremental_parity.py's _Churn, bench.py's
-run_incremental_churn). They draw from numpy with the same seeds in the
+run_incremental_churn) and of its provisioning test environment
+(tests/env.py's Environment). They draw from numpy with the same seeds in the
 same order, so both packages build the same pods, catalogs and clusters:
 the tests and chip_smoke.py build the port's side from here.
 """
@@ -23,6 +24,7 @@ from .api.labels import (
     LABEL_CAPACITY_TYPE,
     LABEL_HOSTNAME,
     LABEL_INSTANCE_TYPE,
+    LABEL_NODE_INITIALIZED,
     LABEL_TOPOLOGY_ZONE,
     PROVISIONER_NAME_LABEL,
 )
@@ -57,9 +59,15 @@ from .api.objects import (
     PersistentVolumeClaimVolumeSource,
 )
 from .api.provisioner import Budget, Consolidation, Disruption, Limits, Provisioner, ProvisionerSpec
-from .cloudprovider.fake import Offering, instance_type
+from .cloudprovider.fake import FakeCloudProvider, Offering, instance_type
+from .config import Config
+from .controllers.provisioning import ProvisionerController, ProvisioningReconciler
+from .controllers.state.cluster import Cluster
+from .events import Recorder
+from .kube.cluster import KubeCluster
 from .scheduling.hostports import HostPortUsage
 from .scheduling.volumelimits import VolumeCount, VolumeLimits
+from .utils.clock import FakeClock
 from .utils.quantity import parse_quantity
 
 _counter = itertools.count(1)
@@ -653,3 +661,61 @@ def churn_batch(step: int, count: int) -> List[Pod]:
         make_pod(name=f"churn-p{step:03d}-{i:03d}", labels={"app": "delta"}, requests={"cpu": 0.5, "memory": "512Mi"})
         for i in range(count)
     ]
+
+
+class Environment:
+    """The port's counterpart of the JAX package's tests/env.py: the
+    in-memory kube API, cluster state, fake cloud provider and provisioning
+    controllers, with deterministic drive helpers. The constructor and the
+    helpers are the reference's; rounds run synchronously, on a FakeClock
+    unless another clock is given."""
+
+    def __init__(self, instance_types=None, dense_solver=None, clock=None):
+        self.clock = clock or FakeClock()
+        self.kube = KubeCluster(clock=self.clock)
+        self.provider = FakeCloudProvider(instance_types)
+        self.cluster = Cluster(self.kube, self.provider, clock=self.clock)
+        self.config = Config()
+        self.recorder = Recorder()
+        self.provisioner_controller = ProvisionerController(
+            self.kube,
+            self.cluster,
+            self.provider,
+            config=self.config,
+            recorder=self.recorder,
+            dense_solver=dense_solver,
+            wait_for_cluster_sync=False,  # synchronous rounds are always synced
+            clock=self.clock,
+        )
+        self.reconciler = ProvisioningReconciler(self.kube, self.provisioner_controller)
+
+    def provision(self):
+        """Run one deterministic provisioning round."""
+        return self.provisioner_controller.trigger_and_wait()
+
+    def bind_nominated(self) -> int:
+        """Simulate the cluster scheduler: bind each pod that was nominated
+        onto a launched node to that node. Returns the number of bindings."""
+        if self.provisioner_controller.last_results is None:
+            return 0
+        bound = 0
+        launched_nodes = {n.name: n for n in self.kube.list_nodes()}
+        for event in self.recorder.of("NominatePod"):
+            node_name = event.message.split()[-1]
+            pod = next((p for p in self.kube.list_pods() if p.name == event.object_name), None)
+            if pod is None or pod.spec.node_name:
+                continue
+            if node_name in launched_nodes:
+                self.kube.bind_pod(pod, node_name)
+                bound += 1
+        return bound
+
+    def node_for(self, pod_name: str):
+        pod = next((p for p in self.kube.list_pods() if p.name == pod_name), None)
+        if pod is None or not pod.spec.node_name:
+            return None
+        return self.kube.get_node(pod.spec.node_name)
+
+    def mark_initialized(self, node) -> None:
+        node.metadata.labels[LABEL_NODE_INITIALIZED] = "true"
+        self.kube.update(node)
