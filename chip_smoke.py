@@ -46,7 +46,19 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     every re-solve of the second case; no node on a refused pool; the same
     as the plain versions' round); controller_loop, the reconciler and the
     threaded batch loop on the real clock, 2,000 pods, stopped once every
-    pod is nominated.
+    pod is nominated;
+  - consolidation through the disruption orchestrator
+    (controllers/disruption/, controllers/consolidation/, with the node and
+    termination controllers), at the same routing: consolidation_delete,
+    2,000 standing 16-CPU nodes each running 72 ReplicaSet-owned pods
+    (144,000 pods), where each pass's what-if fills one node's pods onto
+    the other 1,999 (K2) and the orchestrator deletes and drains it;
+    consolidation_replace, 300 full nodes and one 64-CPU node running 72
+    pods, whose what-if finds no slot (K2) and prices one cheaper node (K1),
+    which the orchestrator launches, waits on and drains onto. A stand-in
+    for the ReplicaSet controller recreates each evicted pod, and a
+    provisioning round places them. A warm-up and 3 timed passes each,
+    held against the same passes with the plain versions.
 
 K2 is held against its plain version three ways per input: through its
 wrapper on CUDA tensors, through the warm solve's round trip from host
@@ -143,6 +155,16 @@ LOOP_TIMEOUT_S = 120.0
 EVENT_CAPACITY = 200_000
 CROSSOVER_TRIALS = 3
 HOST_RATE_PODS = (100, 300)
+# the consolidation phases: (name, standing nodes, pods on each); the
+# replace cell's standing nodes are full and it adds one larger node (its
+# type, its pods). Pods of 0.1 CPU / 128Mi, ReplicaSet-owned and running;
+# nodes of 16 CPU / 32Gi / 110 pods (build_repack_state's fake-it-15)
+CONSOLIDATION_DELETE = ("consolidation_delete", 2000, 72)
+CONSOLIDATION_REPLACE = ("consolidation_replace", 300, 110, "fake-it-63", 72)
+CONSOLIDATION_PASSES = 3
+CONSOLIDATION_POD = {"cpu": 0.1, "memory": "128Mi"}
+NODE_ALLOCATABLE = {"cpu": 16, "memory": "32Gi", "pods": 110}
+BIG_ALLOCATABLE = {"cpu": 64, "memory": "128Gi", "pods": 110}
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 
@@ -1189,6 +1211,473 @@ def controller_loop(dev, min_batch: int, card_name) -> dict:
     return line
 
 
+def replicaset_stand_in(kube) -> list:
+    """The in-memory store runs no ReplicaSet controller. This stands in for
+    one on the store's watch: a ReplicaSet-owned pod that is deleted (an
+    eviction by the drain) is created again at once, unbound and pending,
+    under a new name, as a ReplicaSet recreates an evicted pod. Returns the
+    list the new pods' names are appended to."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.kube.cluster import DELETED
+
+    created = []
+
+    def on_pod(event):
+        pod = event.obj
+        if event.type != DELETED or not any(ref.kind == "ReplicaSet" for ref in pod.metadata.owner_references):
+            return
+        name = f"rs-{len(created):06d}"
+        created.append(name)
+        kube.create(testing.owned_pod(name=name, labels=dict(pod.metadata.labels), requests=dict(pod.spec.containers[0].resources.requests)))
+
+    kube.watch("Pod", on_pod, replay=False)
+    return created
+
+
+class GcPauses:
+    """The interpreter's garbage-collection pauses, from gc.callbacks while
+    installed: `ms` accumulates every collection's time, `full` counts the
+    generation-2 (whole-heap) collections."""
+
+    def __init__(self):
+        self.ms, self.full, self._t0 = 0.0, 0, None
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self.full += info["generation"] == 2
+            self._t0 = None
+
+
+def disruption_env(dev, min_batch: int):
+    """testing.DisruptionEnv on the card: the consolidation-enabled default
+    provisioner, FakeCloudProvider(instance_types(HEADLINE_TYPES)), a
+    DenseSolver routed at `min_batch` in its provisioning controller (which
+    the what-ifs call), the orchestrator with consolidation as a source and
+    the termination controller draining, and the ReplicaSet stand-in."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.cloudprovider.fake import instance_types
+    from karpenter_tpu_torch.solver import DenseSolver
+
+    env = testing.DisruptionEnv(
+        provisioners=[testing.make_provisioner(consolidation_enabled=True)],
+        instance_types_list=instance_types(HEADLINE_TYPES),
+    )
+    env.provisioner_controller.dense_solver = DenseSolver(min_batch=min_batch, device=dev)
+    env.recreated = replicaset_stand_in(env.kube)
+    env.catalog = {it.name(): it for it in env.provider.instance_types_list}
+    return env
+
+
+def capture_kernel_calls(captures: list) -> None:
+    """Wrap the solve's two kernel seams, solver/dense.py's
+    bucket_cost_packed (K1) and solver/warmfill.py's admission_counts (K2),
+    so that each call appends its operands and its output to `captures`
+    for hold_kernel_calls. K1's are the card tensors it was given and the
+    card tensor it returned, kept as they are (the launch stays
+    asynchronous and nothing writes them again); K2's are the host arrays
+    its round trip uploads, the first V rows of the resident head copied
+    on the card where the solve passes one, and a copy of the counts (they
+    are a view of the round trip's landing buffer). The caller puts the
+    seams back."""
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+
+    k1, k2 = dense_module.bucket_cost_packed, fill_module.admission_counts
+
+    def captured_k1(stats, caps, prices, allowed):
+        out = k1(stats, caps, prices, allowed)
+        captures.append(("bucket_type_cost", (stats, caps, prices, allowed), out))
+        return out
+
+    def captured_k2(sizes, head, solver, head_dev=None):
+        counts, seconds = k2(sizes, head, solver, head_dev)
+        head_rows = None if head_dev is None else head_dev[: head.shape[0]].clone()
+        captures.append(("warm_fill_counts", (sizes.copy(), head.copy(), head_rows), counts.copy()))
+        return counts, seconds
+
+    dense_module.bucket_cost_packed, fill_module.admission_counts = captured_k1, captured_k2
+
+
+def hold_kernel_calls(calls, dev) -> list:
+    """Each captured kernel call against its plain version on the same
+    operands on the card, bit for bit: K1's plain version on the very
+    tensors the kernel read; K2's on the resident head's rows where the
+    solve passed them, else on the host head uploaded as f32 (the values
+    the round trip stages), with the sizes uploaded the same way."""
+    from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
+    from karpenter_tpu_torch.ops.warmfill import warm_fill_counts
+
+    held = []
+    for kernel, operands, out in calls:
+        if kernel == "bucket_type_cost":
+            got = out
+            want = bucket_type_cost_packed(*operands)
+            shape = [operands[1].shape[0], *operands[0].shape[1:]]  # T, B, R
+        else:
+            sizes, head, head_rows = operands
+            got = torch.from_numpy(out).to(dev)
+            sizes_t = torch.from_numpy(sizes.astype(np.float32)).to(dev)
+            head_t = head_rows if head_rows is not None else torch.from_numpy(head.astype(np.float32)).to(dev)
+            want = warm_fill_counts(sizes_t, head_t)
+            shape = [sizes.shape[0], *head.shape]  # S, V, R
+        same_shape = got.shape == want.shape
+        err = float((got.long() - want.long()).abs().max()) if same_shape and got.numel() else 0.0
+        held.append({
+            "kernel": kernel,
+            "shape": [int(x) for x in shape],
+            "identical": same_shape and bool(torch.equal(got, want)),
+            "max_abs_err": err,
+        })
+    return held
+
+
+def instrument_disruption(env, dev, pauses: GcPauses, captures: list) -> dict:
+    """Time each schedule call of a pass (the what-ifs, in simulation mode,
+    and the provisioning round's solve), with the solver's phases, both
+    kernels' launches and the garbage-collection pauses in it, and each
+    drain (termination.reconcile). Each schedule call's record takes the
+    kernel calls captured in it (`captures`, filled by
+    capture_kernel_calls), to be held after the pass."""
+    from karpenter_tpu_torch.ops import bucket_cost, warmfill
+    from karpenter_tpu_torch.solver import DenseSolveStats
+
+    ctrl, termination = env.provisioner_controller, env.termination_controller
+    solver = ctrl.dense_solver
+    rec = {"schedule": [], "drain_ms": [], "proposed": []}
+    schedule, drain, propose = ctrl.schedule, termination.reconcile, env.consolidation.propose
+
+    def timed_schedule(pods, state_nodes, opts=None, **kwargs):
+        solver.stats = DenseSolveStats()
+        before = (bucket_cost.LAUNCHES, warmfill.LAUNCHES)
+        gc_before = pauses.ms
+        n0 = len(captures)
+        t0 = time.perf_counter()
+        results = schedule(pods, state_nodes, opts, **kwargs)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        calls = captures[n0:]
+        del captures[n0:]
+        st = solver.stats
+        rec["schedule"].append({
+            "what_if": bool(opts is not None and opts.simulation_mode),
+            "gc_ms": pauses.ms - gc_before,
+            "pods": len(pods),
+            "state_nodes": len(state_nodes),
+            "wall_ms": ms,
+            "on_existing": sum(len(v.pods) for v in results.existing_nodes),
+            "new_node_pods": sum(len(n.pods) for n in results.new_nodes),
+            "unschedulable": len(results.unschedulable),
+            "dense_batches": st.batches,
+            "pods_to_host": st.pods_to_host,
+            "launches": {"bucket_type_cost": bucket_cost.LAUNCHES - before[0], "warm_fill_counts": warmfill.LAUNCHES - before[1]},
+            "phases_ms": {k: getattr(st, f"{k}_seconds") * 1e3 for k in ("encode", "fill", "fill_device", "device", "mask", "assemble", "device_wait", "commit")},
+            "calls": calls,
+        })
+        return results
+
+    def timed_drain(node):
+        t0 = time.perf_counter()
+        try:
+            return drain(node)
+        finally:
+            rec["drain_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def recorded_propose(*args, **kwargs):
+        commands = propose(*args, **kwargs)
+        rec["proposed"].extend(commands)
+        return commands
+
+    ctrl.schedule, termination.reconcile, env.consolidation.propose = timed_schedule, timed_drain, recorded_propose
+    return rec
+
+
+def cluster_price(env) -> float:
+    """$/hour of the cluster's nodes, by their instance types' prices."""
+    from karpenter_tpu_torch.api import labels as lbl
+
+    return sum(env.catalog[n.metadata.labels[lbl.LABEL_INSTANCE_TYPE]].price() for n in env.kube.list_nodes())
+
+
+def over_capacity(env) -> list:
+    """Nodes whose bound pods request more than the node allocates, pod
+    slots included."""
+    from karpenter_tpu_torch.utils import resources as res
+
+    used = {}
+    for pod in env.kube.list_pods():
+        if pod.spec.node_name:
+            used[pod.spec.node_name] = res.merge(used.get(pod.spec.node_name, {}), res.pod_requests(pod))
+    return sorted(
+        node.name for node in env.kube.list_nodes()
+        if any(v > node.status.allocatable.get(k, 0.0) + 1e-6 for k, v in used.get(node.name, {}).items())
+    )
+
+
+def disruption_pass(env, dev, rec, replace: bool, pauses: GcPauses) -> dict:
+    """One orchestrator pass on the fake clock, stepped past the nomination
+    TTL first: reconcile() (a delete: the what-if, the command, validation,
+    the drain; a replace: the what-if and the replacement's launch, then
+    the node controller initializes it, then a second reconcile() drains
+    the candidate), the termination controller's sweep, one provisioning
+    round for the pods the ReplicaSet stand-in recreated, and the binding
+    of its nominations."""
+    from karpenter_tpu_torch.api import labels as lbl
+
+    env.recorder.reset()
+    env.clock.step(env.cluster.nomination_ttl + 1)
+    for key in rec:
+        del rec[key][:]
+    nodes_before = {n.name for n in env.kube.list_nodes()}
+    price_before = cluster_price(env)
+    recreated_before = len(env.recreated)
+    gc_start = (pauses.ms, pauses.full)
+    read_launches()
+    t0 = time.perf_counter()
+    env.disruption.reconcile()
+    sync(dev)
+    reconcile_ms = [(time.perf_counter() - t0) * 1e3]
+    init_ms = None
+    if replace:
+        t0 = time.perf_counter()
+        env.node_controller.reconcile_all()
+        init_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        env.disruption.reconcile()
+        sync(dev)
+        reconcile_ms.append((time.perf_counter() - t0) * 1e3)
+    pass_launches = read_launches()
+    pass_gc_ms = pauses.ms - gc_start[0]
+    t0 = time.perf_counter()
+    env.termination_controller.reconcile_all()
+    sweep_ms = (time.perf_counter() - t0) * 1e3
+    recreated = env.recreated[recreated_before:]
+    gc_round = pauses.ms
+    t0 = time.perf_counter()
+    env.provisioner_controller.provision()
+    sync(dev)
+    round_ms = (time.perf_counter() - t0) * 1e3
+    round_gc_ms = pauses.ms - gc_round
+    round_launches = read_launches()
+    nominated = {}
+    for event in env.recorder.of("NominatePod"):
+        nominated[event.object_name] = event.message.split()[-1]
+    bound = env.bind_nominated()
+    nodes_after = {n.name: n for n in env.kube.list_nodes()}
+    launched = sorted(set(nodes_after) - nodes_before)
+    commands = [
+        {
+            "method": c.method,
+            "nodes": c.node_names(),
+            "replacement_types": [vn.instance_type_options[0].name() for vn in c.replacements],
+            "outcome": c.outcome,
+        }
+        for c in rec["proposed"]
+    ]
+    for s in rec["schedule"]:
+        s["held"] = hold_kernel_calls(s.pop("calls"), dev)
+    what_ifs = [s for s in rec["schedule"] if s["what_if"]]
+    rounds = [s for s in rec["schedule"] if not s["what_if"]]
+    return {
+        "wall_ms": sum(reconcile_ms) + (init_ms or 0.0),
+        "reconcile_ms": reconcile_ms,
+        "initialize_ms": init_ms,
+        "drain_ms": list(rec["drain_ms"]),
+        "sweep_ms": sweep_ms,
+        "round_ms": round_ms,
+        "what_ifs": what_ifs,
+        "rounds": rounds,
+        "pass_launches": pass_launches,
+        "round_launches": round_launches,
+        "gc_ms": {"pass": pass_gc_ms, "round": round_gc_ms, "full_collections": pauses.full - gc_start[1]},
+        "price_before": price_before,
+        "price_after": cluster_price(env),
+        "outcome": {
+            "commands": commands,
+            "deleted": sorted(nodes_before - set(nodes_after)),
+            "launched": [
+                (name, nodes_after[name].metadata.labels[lbl.LABEL_INSTANCE_TYPE], nodes_after[name].metadata.labels[lbl.LABEL_TOPOLOGY_ZONE], nodes_after[name].metadata.labels[lbl.LABEL_CAPACITY_TYPE])
+                for name in launched
+            ],
+            "recreated": len(recreated),
+            "placements": sorted((name, nominated.get(name)) for name in recreated),
+        },
+        "bound": bound,
+        "unnominated": sorted(name for name in recreated if name not in nominated),
+        "over_capacity": over_capacity(env),
+    }
+
+
+def disruption_phase_runs(dev, min_batch: int, build, replace: bool, plain: bool = False) -> list:
+    """A warm-up pass and CONSOLIDATION_PASSES timed passes, on one cluster
+    (`build(env)` once) or, for the replace cell, on a fresh cluster each;
+    the set-up's garbage is collected before the first pass on it, so a
+    pass's collections are its own. With plain=True both kernels' plain
+    versions stand in at the seams the solve calls; else each kernel call
+    is captured and held against its plain version after its pass.
+    Returns the passes' records, the warm-up's first."""
+    import gc
+
+    from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+
+    saved = dense_module.bucket_cost_packed, fill_module.admission_counts
+    captures = []
+    if plain:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = bucket_type_cost_packed, plain_admission_counts
+    else:
+        capture_kernel_calls(captures)
+    runs, env = [], None
+    pauses = GcPauses()
+    gc.callbacks.append(pauses)
+    try:
+        for i in range(1 + CONSOLIDATION_PASSES):
+            setup_s = None
+            if env is None or replace:
+                env = None
+                gc.collect()
+                env = disruption_env(dev, min_batch)
+                t0 = time.perf_counter()
+                build(env)
+                setup_s = time.perf_counter() - t0
+                rec = instrument_disruption(env, dev, pauses, captures)
+                gc.collect()
+            runs.append(dict(disruption_pass(env, dev, rec, replace, pauses), setup_s=setup_s, pods_in_store=len(env.kube.list_pods())))
+    finally:
+        gc.callbacks.remove(pauses)
+        dense_module.bucket_cost_packed, fill_module.admission_counts = saved
+    return runs
+
+
+def disruption_phase(dev, min_batch: int, card_name, name: str, build, replace: bool, shape: dict) -> dict:
+    """Run a consolidation cell with the kernels and again with their plain
+    versions, print its line and check it: every pass takes its action
+    (DELETE, or REPLACE by a cheaper type), every what-if runs dense with
+    the expected kernels (K2, and K1 for a replacement), every recreated
+    pod is nominated and bound, no node ends over its capacity or pod
+    slots, every kernel call of every pass (what-if and round) equals its
+    plain version on its own operands bit for bit, and the plain versions'
+    run takes the same actions and placements while launching no kernel."""
+    runs = disruption_phase_runs(dev, min_batch, build, replace)
+    plain = disruption_phase_runs(dev, min_batch, build, replace, plain=True)
+    timed = runs[1:]
+    expect_k1 = 1 if replace else 0
+    what_if_launches = {k: sum(w["launches"][k] for r in timed for w in r["what_ifs"]) for k in ("bucket_type_cost", "warm_fill_counts")}
+    holds = {}
+    for where in ("what_ifs", "rounds"):
+        for kernel in ("bucket_type_cost", "warm_fill_counts"):
+            held = [h for r in runs for s in r[where] for h in s["held"] if h["kernel"] == kernel]
+            holds[f"{where[:-1]}/{kernel}"] = {
+                "calls": len(held),
+                "identical": sum(h["identical"] for h in held),
+                "max_abs_err": max((h["max_abs_err"] for h in held), default=0.0),
+                "shapes": sorted({tuple(h["shape"]) for h in held}),
+            }
+    round_launches = {k: sum(r["round_launches"][k] for r in timed) for k in ("bucket_type_cost", "warm_fill_counts")}
+    line = {
+        "phase": "disruption",
+        "config": name,
+        "card": card_name,
+        "min_batch": min_batch,
+        "types": HEADLINE_TYPES,
+        **shape,
+        "passes": len(timed),
+        "wall_ms": statistics.median(r["wall_ms"] for r in timed),
+        "wall_ms_runs": [r["wall_ms"] for r in timed],
+        "what_if_ms": statistics.median(w["wall_ms"] for r in timed for w in r["what_ifs"]),
+        "what_if_ms_runs": [[w["wall_ms"] for w in r["what_ifs"]] for r in timed],
+        "what_if_phases_ms": [r["what_ifs"][0]["phases_ms"] for r in timed if r["what_ifs"]],
+        "what_if_gc_ms_runs": [[w["gc_ms"] for w in r["what_ifs"]] for r in timed],
+        "gc_ms_runs": [r["gc_ms"] for r in timed],
+        "drain_ms": statistics.median(sum(r["drain_ms"]) for r in timed),
+        "drain_ms_runs": [r["drain_ms"] for r in timed],
+        "round_ms": statistics.median(r["round_ms"] for r in timed),
+        "round_ms_runs": [r["round_ms"] for r in timed],
+        "round_phases_ms": [r["rounds"][0]["phases_ms"] for r in timed if r["rounds"]],
+        "reconcile_ms_runs": [r["reconcile_ms"] for r in timed],
+        "initialize_ms_runs": [r["initialize_ms"] for r in timed],
+        "setup_s_runs": [r["setup_s"] for r in runs],
+        "kernel_launches": {"what_if": what_if_launches, "round": round_launches},
+        "kernel_holds": holds,
+        "launches_per_pass": [{"what_if": [w["launches"] for w in r["what_ifs"]], "round": r["round_launches"]} for r in timed],
+        "what_if_pods": [[(w["pods"], w["state_nodes"], w["pods_to_host"], w["dense_batches"]) for w in r["what_ifs"]] for r in timed],
+        "actions": [r["outcome"]["commands"] for r in timed],
+        "launched": [r["outcome"]["launched"] for r in timed],
+        "deleted": [r["outcome"]["deleted"] for r in timed],
+        "price_per_hour": [(r["price_before"], r["price_after"]) for r in runs],
+        "recreated": [r["outcome"]["recreated"] for r in timed],
+        "bound": [r["bound"] for r in timed],
+        "plain_run": {
+            "launches": [r["pass_launches"] for r in plain] + [r["round_launches"] for r in plain],
+            "wall_ms_runs": [r["wall_ms"] for r in plain[1:]],
+            "outcomes_identical": [r["outcome"] for r in plain] == [r["outcome"] for r in runs],
+        },
+    }
+    emit(line)
+    action = "replace" if replace else "delete"
+    for i, r in enumerate(runs):
+        tag = f"{name}: pass {i} ({'warm-up' if i == 0 else 'timed'})"
+        cmds = r["outcome"]["commands"]
+        check(len(cmds) == 1 and cmds[0]["method"] == "consolidation" and cmds[0]["outcome"] == "disrupted", f"{tag}: commands {cmds}")
+        check(bool(cmds[0]["replacement_types"]) == replace, f"{tag}: expected a {action}, got {cmds[0]}")
+        check(len(r["outcome"]["deleted"]) == 1 and r["outcome"]["deleted"] == cmds[0]["nodes"], f"{tag}: deleted {r['outcome']['deleted']}")
+        check(len(r["outcome"]["launched"]) == (1 if replace else 0), f"{tag}: launched {r['outcome']['launched']}")
+        check(len(r["what_ifs"]) == 1, f"{tag}: {len(r['what_ifs'])} what-ifs, expected 1")
+        for w in r["what_ifs"]:
+            check(w["pods"] >= min_batch and w["dense_batches"] >= 1 and w["pods_to_host"] == 0, f"{tag}: the what-if did not run dense: {w}")
+            check(w["launches"] == {"bucket_type_cost": expect_k1, "warm_fill_counts": 1}, f"{tag}: the what-if launched {w['launches']}")
+        check(len(r["rounds"]) == 1 and r["rounds"][0]["pods_to_host"] == 0 and r["rounds"][0]["unschedulable"] == 0, f"{tag}: the round {r['rounds']}")
+        check(r["round_launches"] == {"bucket_type_cost": 0, "warm_fill_counts": 1}, f"{tag}: the round launched {r['round_launches']}")
+        for s in r["what_ifs"] + r["rounds"]:
+            for kernel in ("bucket_type_cost", "warm_fill_counts"):
+                held = [h for h in s["held"] if h["kernel"] == kernel]
+                check(len(held) == s["launches"][kernel], f"{tag}: {len(held)} {kernel} calls held for {s['launches'][kernel]} launches")
+                check(all(h["identical"] for h in held), f"{tag}: {kernel} differs from its plain version on its own operands: {held}")
+        check(r["outcome"]["recreated"] > 0 and not r["unnominated"] and r["bound"] == r["outcome"]["recreated"], f"{tag}: {len(r['unnominated'])} recreated pods not nominated, {r['bound']} bound")
+        check(not r["over_capacity"], f"{tag}: nodes over capacity: {r['over_capacity'][:5]}")
+        check(r["price_after"] < r["price_before"], f"{tag}: $/hour {r['price_before']} -> {r['price_after']}")
+    for i, r in enumerate(plain):
+        check(not any(r["pass_launches"].values()) and not any(r["round_launches"].values()), f"{name}: the plain versions' pass {i} launched kernels")
+    check(line["plain_run"]["outcomes_identical"], f"{name}: the kernels' and the plain versions' passes took other actions or placements")
+    return line
+
+
+def consolidation_delete(dev, min_batch: int, card_name) -> dict:
+    """Scale-down of a large, half-idle cluster through the orchestrator:
+    CONSOLIDATION_DELETE's standing nodes, each running its pods; each pass
+    deletes one node, whose pods the what-if fills onto the others (K2)."""
+    from karpenter_tpu_torch import testing
+
+    name, nodes, pods = CONSOLIDATION_DELETE
+
+    def build(env):
+        prov = env.kube.list_provisioners()[0]
+        testing.consolidation_cluster(env.kube, prov, "del", nodes, "fake-it-15", NODE_ALLOCATABLE, pods, CONSOLIDATION_POD)
+
+    return disruption_phase(dev, min_batch, card_name, name, build, False, {"nodes": nodes, "pods_per_node": pods, "pods": nodes * pods})
+
+
+def consolidation_replace(dev, min_batch: int, card_name) -> dict:
+    """Right-sizing an oversized node, on a fresh cluster each pass:
+    CONSOLIDATION_REPLACE's full standing nodes and one larger node running
+    fewer pods; its what-if finds no slot on the full nodes (K2) and needs
+    one new, cheaper node (K1)."""
+    from karpenter_tpu_torch import testing
+
+    name, nodes, pods, big_type, big_pods = CONSOLIDATION_REPLACE
+
+    def build(env):
+        prov = env.kube.list_provisioners()[0]
+        testing.consolidation_cluster(env.kube, prov, "full", nodes, "fake-it-15", NODE_ALLOCATABLE, pods, CONSOLIDATION_POD)
+        testing.consolidation_cluster(env.kube, prov, "big", 1, big_type, BIG_ALLOCATABLE, big_pods, CONSOLIDATION_POD)
+
+    shape = {"nodes": nodes, "pods_per_node": pods, "oversized_type": big_type, "oversized_pods": big_pods, "pods": nodes * pods + big_pods}
+    return disruption_phase(dev, min_batch, card_name, name, build, True, shape)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1471,14 +1960,30 @@ def main() -> int:
         where a phase times several)."""
         return {line["config"]: line["kernel_launches"][kernel_name] for line in controller_lines}
 
-    # 12. the launch floor: the device time of the smallest kernel PyTorch
+    # 12. consolidation through the disruption orchestrator, at the same
+    # routing: a scale-down by DELETE (K2 in each what-if) and a right-size
+    # by REPLACE (K2, then K1 in each what-if)
+    disruption_lines = [
+        consolidation_delete(dev, min_batch, card_name),
+        consolidation_replace(dev, min_batch, card_name),
+    ]
+
+    def disruption_launches(kernel_name):
+        """Each consolidation phase's launches of one kernel over its timed
+        passes, in the what-ifs and in the provisioning rounds."""
+        return {
+            line["config"]: {part: line["kernel_launches"][part][kernel_name] for part in ("what_if", "round")}
+            for line in disruption_lines
+        }
+
+    # 13. the launch floor: the device time of the smallest kernel PyTorch
     # launches (a fill of one element), in this run, on this card
     one = torch.zeros(1, device=dev)
     launch_floor_ms, floor_why = profiled_device_ms(one.zero_, KERNEL_ITERS)
     emit({"phase": "launch_floor", "op": "zero_() of a 1-element CUDA tensor", "device_ms": launch_floor_ms, "device_ms_missing": floor_why or None})
     check(launch_floor_ms is not None, f"no launch floor: {floor_why}")
 
-    # 13. how each kernel's device time scales: K1 with the buckets (blocks)
+    # 14. how each kernel's device time scales: K1 with the buckets (blocks)
     # and the types (threads per block, then types per thread); K2 with the
     # size classes and the nodes
     shapes = k1_scaling_shapes(B, T)
@@ -1497,7 +2002,7 @@ def main() -> int:
     emit({"phase": "kernel_scaling", "kernel": "warm_fill_counts", "runs": runs, "launch_floor_ms": launch_floor_ms, "mismatches": bad, "device_ms_missing": why or None})
     check(not bad, f"K2 disagrees with its plain version at {bad}")
 
-    # 14. each kernel's time at its main path's shape beside its bound and
+    # 15. each kernel's time at its main path's shape beside its bound and
     # its plain version; K2's device time through the solve's round trip
     kernel_ms = cuda_ms(lambda: kernel(*headline_inputs), KERNEL_ITERS)
     plain_ms_k = cuda_ms(lambda: bucket_type_cost_packed(*headline_inputs), PLAIN_ITERS)
@@ -1533,6 +2038,7 @@ def main() -> int:
                 "replaces": "karpenter_tpu/ops/pallas_kernels.py:35",
                 "launches": solve_lines["headline_10k_x_500"]["kernel_launches"]["bucket_type_cost"],
                 "controller_launches": controller_launches("bucket_type_cost"),
+                "disruption_launches": disruption_launches("bucket_type_cost"),
                 "max_abs_err": max_err,
                 "ms": kernel_ms,
                 "kernel_ms": kernel_ms,
@@ -1559,6 +2065,7 @@ def main() -> int:
                 "launches": solve_lines[REPACK[0]]["kernel_launches"]["warm_fill_counts"],
                 "resident_launches": {c["config"]: c["window"]["launches"]["warm_fill_counts"] for c in churn_lines},
                 "controller_launches": controller_launches("warm_fill_counts"),
+                "disruption_launches": disruption_launches("warm_fill_counts"),
                 "max_abs_err": k2_err,
                 "ms": k2_ms,
                 "kernel_ms": k2_ms,
@@ -1582,7 +2089,7 @@ def main() -> int:
         ]
     })
 
-    # 15. the card
+    # 16. the card
     print(card_name, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}})
     return 0

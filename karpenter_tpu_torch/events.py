@@ -1,9 +1,9 @@
 """Event recording: the typed recorder (pkg/events).
 
 The port's copy of karpenter_tpu/events.py, cut to the events the
-provisioning round records. The TTL-deduped recorder and the
-disruption/interruption events come with the controllers that record them
-(ROADMAP A9, A14b)."""
+provisioning, disruption, consolidation, node and termination controllers
+record. The TTL-deduped recorder and the interruption events come with the
+controllers that use them (ROADMAP A9, A15)."""
 
 from __future__ import annotations
 
@@ -45,13 +45,34 @@ class Recorder:
     def nominate_pod(self, pod, node) -> None:
         self._record("Pod", "NominatePod", f"Pod should schedule on {node.name}", pod.name)
 
+    def evict_pod(self, pod) -> None:
+        self._record("Pod", "EvictPod", "Evicted pod", pod.name)
+
     def pod_failed_to_schedule(self, pod, err) -> None:
         self._record("Pod", "FailedScheduling", f"Failed to schedule pod, {err}", pod.name)
+
+    def node_failed_to_drain(self, node, err) -> None:
+        self._record("Node", "FailedDraining", f"Failed to drain node, {err}", node.name)
+
+    def terminating_node(self, node, reason: str) -> None:
+        self._record("Node", "TerminatingNode", reason, node.name)
 
     def launching_node(self, node, reason: str) -> None:
         self._record("Node", "LaunchingNode", reason, node.name)
 
+    def waiting_on_readiness(self, node) -> None:
+        self._record("Node", "WaitingOnReadiness", "Waiting on readiness to continue consolidation", node.name)
+
+    def eviction_blocked(self, pod, reason: str) -> None:
+        """A queued eviction that cannot proceed (do-not-disrupt veto):
+        surfaced instead of silently retrying forever."""
+        self._record("Pod", "EvictionBlocked", f"Eviction blocked, {reason}", pod.name)
+
     def of(self, reason: str) -> List[Event]:
         with self._lock:
             return [e for e in self.events if e.reason == reason]
+
+    def reset(self) -> None:
+        with self._lock:
+            self.events.clear()
 

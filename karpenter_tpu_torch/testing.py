@@ -7,10 +7,12 @@ build_spot_od_types, build_repack_state), of the randomized warm-cluster
 generators of its differential tests (tests/test_differential_campaign.py,
 tests/test_warm_fill_vectorized.py), of its seeded cluster churn
 (tests/test_incremental_parity.py's _Churn, bench.py's
-run_incremental_churn) and of its provisioning test environment
-(tests/env.py's Environment). They draw from numpy with the same seeds in the
-same order, so both packages build the same pods, catalogs and clusters:
-the tests and chip_smoke.py build the port's side from here.
+run_incremental_churn) and of its controller test environments
+(tests/env.py's Environment, tests/test_deprovisioning.py's DeprovEnv and
+owned_pod, tests/test_disruption.py's DisruptionEnv). They draw from numpy
+with the same seeds in the same order, so both packages build the same
+pods, catalogs and clusters: the tests and chip_smoke.py build the port's
+side from here.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from .api.labels import (
     LABEL_NODE_INITIALIZED,
     LABEL_TOPOLOGY_ZONE,
     PROVISIONER_NAME_LABEL,
+    TERMINATION_FINALIZER,
 )
 from .api.objects import (
     OP_IN,
@@ -42,6 +45,7 @@ from .api.objects import (
     NodeSpec,
     NodeStatus,
     ObjectMeta,
+    OwnerReference,
     Pod,
     PodAffinity,
     PodAffinityTerm,
@@ -61,8 +65,13 @@ from .api.objects import (
 from .api.provisioner import Budget, Consolidation, Disruption, Limits, Provisioner, ProvisionerSpec
 from .cloudprovider.fake import FakeCloudProvider, Offering, instance_type
 from .config import Config
+from .controllers.consolidation import ConsolidationController
+from .controllers.counter import CounterController
+from .controllers.disruption import DisruptionController
+from .controllers.node import NodeController
 from .controllers.provisioning import ProvisionerController, ProvisioningReconciler
 from .controllers.state.cluster import Cluster
+from .controllers.termination import TerminationController
 from .events import Recorder
 from .kube.cluster import KubeCluster
 from .scheduling.hostports import HostPortUsage
@@ -635,6 +644,34 @@ def standing_cluster(kube, node_count: int) -> None:
         )
 
 
+def consolidation_cluster(kube, provisioner, prefix: str, node_count: int, type_name: str, allocatable, pods_per_node: int, requests) -> None:
+    """`node_count` nodes of `provisioner` labelled as the fake provider labels
+    its launches of `type_name` (on-demand, round-robin over three zones),
+    Ready and already initialized (the initialized label, the termination
+    finalizer and the provisioner owner reference the node controller would
+    add), each running `pods_per_node` ReplicaSet-owned pods of `requests`
+    bound to it, created through the kube store."""
+    for i in range(node_count):
+        name = f"{prefix}-n{i:04d}"
+        node = make_node(
+            name=name,
+            labels={
+                PROVISIONER_NAME_LABEL: provisioner.name,
+                LABEL_INSTANCE_TYPE: type_name,
+                LABEL_TOPOLOGY_ZONE: ZONES[i % 3],
+                LABEL_CAPACITY_TYPE: "on-demand",
+                LABEL_HOSTNAME: name,
+                LABEL_NODE_INITIALIZED: "true",
+            },
+            allocatable=allocatable,
+        )
+        node.metadata.finalizers.append(TERMINATION_FINALIZER)
+        node.metadata.owner_references.append(OwnerReference(kind="Provisioner", name=provisioner.name, uid=provisioner.metadata.uid))
+        kube.create(node)
+        for j in range(pods_per_node):
+            kube.create(owned_pod(name=f"{prefix}-p{i:04d}-{j:03d}", requests=requests, node_name=name, phase="Running", unschedulable=False))
+
+
 def standing_churn(kube, step: int, node_count: int) -> None:
     """bench.py's per-pass churn: three pod binds and one node-status
     refresh, at most 4 dirty node names per pass."""
@@ -700,9 +737,12 @@ class Environment:
             return 0
         bound = 0
         launched_nodes = {n.name: n for n in self.kube.list_nodes()}
+        pods = {}
+        for pod in self.kube.list_pods():
+            pods.setdefault(pod.name, pod)  # the first of a name, as a scan finds it
         for event in self.recorder.of("NominatePod"):
             node_name = event.message.split()[-1]
-            pod = next((p for p in self.kube.list_pods() if p.name == event.object_name), None)
+            pod = pods.get(event.object_name)
             if pod is None or pod.spec.node_name:
                 continue
             if node_name in launched_nodes:
@@ -719,3 +759,76 @@ class Environment:
     def mark_initialized(self, node) -> None:
         node.metadata.labels[LABEL_NODE_INITIALIZED] = "true"
         self.kube.update(node)
+
+
+def owned_pod(**kwargs) -> Pod:
+    """make_pod, owned by a ReplicaSet (something would recreate it), so a
+    voluntary disruption may evict it."""
+    pod = make_pod(**kwargs)
+    pod.metadata.owner_references.append(OwnerReference(kind="ReplicaSet", name="rs"))
+    return pod
+
+
+class _LifecycleEnv(Environment):
+    """The Environment with its provisioners created, and the reference
+    rigs' drive helper. Its subclasses add the controllers."""
+
+    def __init__(self, provisioners=None, instance_types_list=None):
+        super().__init__(instance_types=instance_types_list)
+        for prov in provisioners or [make_provisioner()]:
+            self.kube.create(prov)
+
+    def launch_node_with_pods(self, *pods):
+        """Create the pods, provision, bind the nominations, initialize the
+        nodes, then let the nomination TTLs lapse (consolidation skips
+        nominated nodes). Returns the store's nodes."""
+        for pod in pods:
+            self.kube.create(pod)
+        self.provision()
+        self.bind_nominated()
+        self.node_controller.reconcile_all()
+        self.clock.step(self.cluster.nomination_ttl + 1)
+        return self.kube.list_nodes()
+
+
+class DeprovEnv(_LifecycleEnv):
+    """The counterpart of tests/test_deprovisioning.py's DeprovEnv: the node,
+    termination, counter and (standalone) consolidation controllers."""
+
+    def __init__(self, provisioners=None, instance_types_list=None):
+        super().__init__(provisioners, instance_types_list)
+        self.node_controller = NodeController(self.kube, self.cluster, self.provider, clock=self.clock)
+        self.termination_controller = TerminationController(self.kube, self.provider, self.recorder, clock=self.clock)
+        self.counter_controller = CounterController(self.kube, self.cluster)
+        self.consolidation = ConsolidationController(
+            self.kube, self.cluster, self.provider, self.provisioner_controller, self.recorder, clock=self.clock
+        )
+
+
+class DisruptionEnv(_LifecycleEnv):
+    """The counterpart of tests/test_disruption.py's DisruptionEnv: the node
+    controller delegates disruption (it stamps emptiness but never deletes),
+    and every voluntary disruption flows through the DisruptionController,
+    with consolidation as one of its sources and the termination controller
+    draining what it deletes."""
+
+    def __init__(self, provisioners=None, instance_types_list=None):
+        super().__init__(provisioners, instance_types_list)
+        self.node_controller = NodeController(
+            self.kube, self.cluster, self.provider, clock=self.clock, delegate_disruption=True
+        )
+        self.termination_controller = TerminationController(self.kube, self.provider, self.recorder, clock=self.clock)
+        self.consolidation = ConsolidationController(
+            self.kube, self.cluster, self.provider, self.provisioner_controller, self.recorder, clock=self.clock
+        )
+        self.disruption = DisruptionController(
+            self.kube, self.cluster, self.provider, self.provisioner_controller,
+            consolidation=self.consolidation, termination=self.termination_controller,
+            recorder=self.recorder, clock=self.clock,
+        )
+
+    def tick(self):
+        """One deterministic runtime tick: lifecycle -> disruption -> drain."""
+        self.node_controller.reconcile_all()
+        self.disruption.reconcile()
+        self.termination_controller.reconcile_all()
