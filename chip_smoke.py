@@ -58,7 +58,18 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     which the orchestrator launches, waits on and drains onto. A stand-in
     for the ReplicaSet controller recreates each evicted pod, and a
     provisioning round places them. A warm-up and 3 timed passes each,
-    held against the same passes with the plain versions.
+    held against the same passes with the plain versions;
+  - a spot reclaim wave through the interruption controller
+    (controllers/interruption/) over the simulated cloud
+    (cloudprovider/simulated/), at the same routing:
+    interruption_reclaim_wave, 10,000 ReplicaSet-owned pods provisioned
+    onto a spot-only fleet, then spot notices for the first 8 populated
+    nodes; each notice quarantines its pool and re-solves the victim's pods
+    with the victim excluded (K2 onto the standing nodes, K1 for the
+    replacements, the quarantined pools zeros in K1's `allowed`), launches
+    the replacement and drains the victim; then one provisioning round for
+    the recreated pods, the cloud's reclaim and the gc sweep. A warm-up and
+    3 timed waves on fresh fleets, held against 4 with the plain versions.
 
 K2 is held against its plain version three ways per input: through its
 wrapper on CUDA tensors, through the warm solve's round trip from host
@@ -165,6 +176,13 @@ CONSOLIDATION_PASSES = 3
 CONSOLIDATION_POD = {"cpu": 0.1, "memory": "128Mi"}
 NODE_ALLOCATABLE = {"cpu": 16, "memory": "32Gi", "pods": 110}
 BIG_ALLOCATABLE = {"cpu": 64, "memory": "128Gi", "pods": 110}
+# the interruption cell: the repo's spot_reclaim_wave scenario
+# (karpenter_tpu/scenarios/campaign.py, SpotReclaimWave: the first populated
+# nodes in store order, a fraction 0.6 of them, at most 8) on a spot-only
+# fleet that took the headline's 10,000-pod batch; EC2's 2-minute warning
+WAVE = ("interruption_reclaim_wave", HEADLINE_PODS)
+WAVE_FRACTION, WAVE_MAX_VICTIMS = 0.6, 8
+WAVE_RUNS = 3
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 
@@ -1215,7 +1233,8 @@ def replicaset_stand_in(kube) -> list:
     """The in-memory store runs no ReplicaSet controller. This stands in for
     one on the store's watch: a ReplicaSet-owned pod that is deleted (an
     eviction by the drain) is created again at once, unbound and pending,
-    under a new name, as a ReplicaSet recreates an evicted pod. Returns the
+    under a new name, with its labels, requests and spread constraints, as
+    a ReplicaSet recreates an evicted pod from its template. Returns the
     list the new pods' names are appended to."""
     from karpenter_tpu_torch import testing
     from karpenter_tpu_torch.kube.cluster import DELETED
@@ -1228,7 +1247,10 @@ def replicaset_stand_in(kube) -> list:
             return
         name = f"rs-{len(created):06d}"
         created.append(name)
-        kube.create(testing.owned_pod(name=name, labels=dict(pod.metadata.labels), requests=dict(pod.spec.containers[0].resources.requests)))
+        kube.create(testing.owned_pod(
+            name=name, labels=dict(pod.metadata.labels), requests=dict(pod.spec.containers[0].resources.requests),
+            topology_spread_constraints=list(pod.spec.topology_spread_constraints),
+        ))
 
     kube.watch("Pod", on_pod, replay=False)
     return created
@@ -1678,6 +1700,428 @@ def consolidation_replace(dev, min_batch: int, card_name) -> dict:
     return disruption_phase(dev, min_batch, card_name, name, build, True, shape)
 
 
+def wave_env(dev, min_batch: int):
+    """testing.SimulatedEnv on the card, with the fleet a reclaim wave hits:
+    the spot-only provisioner on CloudBackend's default catalog, WAVE's pods
+    (testing.reclaim_wave_workload) provisioned by one round through a
+    DenseSolver routed at `min_batch`, every node Ready, every nomination
+    bound, the node controller run; then the ReplicaSet stand-in. Nodes
+    launch one at a time, so every run's store holds the fleet in one order
+    (the wave's victims are the first populated nodes in store order) and
+    every run's re-solves see the same nodes. The event ring keeps every
+    event: nominations are read back from it."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.api.objects import NodeCondition
+    from karpenter_tpu_torch.solver import DenseSolver
+
+    env = testing.SimulatedEnv(event_capacity=EVENT_CAPACITY)
+    env.provisioner_controller.dense_solver = DenseSolver(min_batch=min_batch, device=dev)
+    env.provisioner_controller.LAUNCH_WORKERS = 1
+    env.kube.create(testing.spot_provisioner())
+    for pod in testing.rename(testing.reclaim_wave_workload(WAVE[1]), "wave"):
+        env.kube.create(pod)
+    env.provision()
+    for node in env.kube.list_nodes():
+        node.status.conditions = [NodeCondition(type="Ready", status="True")]
+        env.kube.update(node)
+    env.bind_nominated()
+    env.node_controller.reconcile_all()
+    env.recreated = replicaset_stand_in(env.kube)
+    return env
+
+
+def pool_of(node) -> tuple:
+    from karpenter_tpu_torch.api import labels as lbl
+
+    labels = node.metadata.labels
+    return (labels[lbl.LABEL_INSTANCE_TYPE], labels[lbl.LABEL_TOPOLOGY_ZONE], labels[lbl.LABEL_CAPACITY_TYPE])
+
+
+def instrument_wave(env, dev, captures: list) -> dict:
+    """Time each notice's proactive re-solve (the schedule call in
+    simulation mode, with the solver's phases, both kernels' launches and
+    the kernel calls captured in it), its replacement launch and its drain
+    handoff; record each dense solve's catalog (the quarantined offerings
+    it encoded) and, for each device solve, the buckets, the pair matrix
+    and the availability cube K1's `allowed` was built from."""
+    from karpenter_tpu_torch.ops import bucket_cost, warmfill
+    from karpenter_tpu_torch.solver import DenseSolveStats
+    from karpenter_tpu_torch.solver import dense as dense_module
+
+    ctrl, interruption, provider = env.provisioner_controller, env.interruption, env.provider
+    solver = ctrl.dense_solver
+    rec = {"notices": [], "problems": [], "device_solves": []}
+    schedule, launch, handoff = ctrl.schedule, ctrl.launch_nodes, interruption._hand_off_to_termination
+    encode, stack, mask = dense_module.encode_problem, solver._stack_dedicated_buckets, dense_module.availability_counts
+
+    def timed_schedule(pods, state_nodes, opts=None, **kwargs):
+        if opts is None or not opts.simulation_mode:
+            return schedule(pods, state_nodes, opts, **kwargs)
+        solver.stats = DenseSolveStats()
+        before = (bucket_cost.LAUNCHES, warmfill.LAUNCHES)
+        n0, p0, d0 = len(captures), len(rec["problems"]), len(rec["device_solves"])
+        quarantined = sorted(provider.unavailable.snapshot())
+        t0 = time.perf_counter()
+        results = schedule(pods, state_nodes, opts, **kwargs)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        st = solver.stats
+        calls = captures[n0:]
+        del captures[n0:]
+        rec["notices"].append({
+            "pods": len(pods),
+            "state_nodes": len(state_nodes),
+            "route": "dense" if st.batches else "host",
+            "resolve_ms": ms,
+            "on_existing": sum(len(v.pods) for v in results.existing_nodes),
+            "new_node_pods": sum(len(n.pods) for n in results.new_nodes),
+            "unschedulable": len(results.unschedulable),
+            "dense_batches": st.batches,
+            "pods_to_host": st.pods_to_host,
+            "launches": {"bucket_type_cost": bucket_cost.LAUNCHES - before[0], "warm_fill_counts": warmfill.LAUNCHES - before[1]},
+            "phases_ms": {k: getattr(st, f"{k}_seconds") * 1e3 for k in ("encode", "fill", "fill_device", "device", "mask", "assemble", "device_wait", "commit")},
+            "quarantined": quarantined,
+            "problems": rec["problems"][p0:],
+            "device_solves": rec["device_solves"][d0:],
+            "calls": calls,
+        })
+        return results
+
+    def timed_launch(results, *args, **kwargs):
+        t0 = time.perf_counter()
+        names = launch(results, *args, **kwargs)
+        notice = rec["notices"][-1] if rec["notices"] else None
+        if notice is not None and "launch_ms" not in notice:
+            notice["launch_ms"] = (time.perf_counter() - t0) * 1e3
+            notice["replacements"] = [pool_of(env.kube.get_node(name)) for name in names]
+            notice["quarantined_at_launch"] = sorted(provider.unavailable.snapshot())
+        return names
+
+    def timed_handoff(node):
+        t0 = time.perf_counter()
+        try:
+            return handoff(node)
+        finally:
+            if rec["notices"]:
+                rec["notices"][-1]["handoff_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def recorded_encode(*args, **kwargs):
+        problem = encode(*args, **kwargs)
+        rec["problems"].append(problem)
+        return problem
+
+    def recorded_stack(problem, buckets):
+        stacked = stack(problem, buckets)
+        rec["device_solves"].append({"problem": problem, "buckets": stacked})
+        return stacked
+
+    def recorded_mask(pair, cube):
+        out = mask(pair, cube)
+        if rec["device_solves"]:
+            rec["device_solves"][-1].update(pair=pair, cube=cube)
+        return out
+
+    def restore():
+        dense_module.encode_problem, dense_module.availability_counts = encode, mask
+
+    ctrl.schedule, ctrl.launch_nodes, interruption._hand_off_to_termination = timed_schedule, timed_launch, timed_handoff
+    solver._stack_dedicated_buckets = recorded_stack
+    dense_module.encode_problem, dense_module.availability_counts = recorded_encode, recorded_mask
+    rec["restore"] = restore
+    return rec
+
+
+def allowed_cleared(solve, k1_allowed, dev) -> dict:
+    """K1's `allowed` of one device solve against the same solve with the
+    quarantined offerings restored: availability_counts (the plain version,
+    the solve's own) on the captured pair matrix against the captured cube
+    and against the cube of every offering of the solve's types, each
+    ANDed with the buckets' compatibility rows. Returns the entries the
+    quarantine cleared and whether the rebuilt `allowed` equals the one K1
+    was given."""
+    from karpenter_tpu_torch.ops.feasibility import availability_counts
+
+    problem, buckets = solve["problem"], solve["buckets"]
+    zi = {z: i for i, z in enumerate(problem.zones)}
+    ci = {c: i for i, c in enumerate(problem.capacity_types)}
+    restored = np.zeros(problem.avail.shape, dtype=bool)
+    for t, it in enumerate(problem.instance_types):
+        for o in it.offerings():
+            restored[t, zi[o.zone], ci[o.capacity_type]] = True
+    cube_r = torch.from_numpy(restored.reshape(problem.T, -1).astype(np.float32)).to(dev)
+    compat = np.zeros((len(buckets), problem.T), dtype=bool)
+    for b, bucket in enumerate(buckets):
+        if bucket.zone != "__infeasible__":
+            compat[b] = bucket.compat_row if bucket.compat_row is not None else problem.compat[bucket.group_index]
+    with_quarantine = compat & availability_counts(solve["pair"], solve["cube"]).cpu().numpy()
+    without = compat & availability_counts(solve["pair"], cube_r).cpu().numpy()
+    return {
+        "cleared": int((without & ~with_quarantine).sum()),
+        "allowed_rebuilt": bool(np.array_equal(with_quarantine, k1_allowed.cpu().numpy())),
+        "shape": [len(buckets), problem.T],
+    }
+
+
+def wave_run(dev, min_batch: int, plain: bool = False) -> dict:
+    """One reclaim wave on a fresh fleet. Timed: the poll_once() calls
+    until every notice is handled and deleted. Then converge: termination
+    until the victims are gone, one provisioning round for the pods the
+    ReplicaSet stand-in recreated and the binding of its nominations; the
+    clock past the deadlines, the cloud's reclaim, one gc sweep. With
+    plain=True both kernels' plain versions stand in at the seams the solve
+    calls; else each kernel call is captured and held against its plain
+    version on its own operands after the run."""
+    import gc
+
+    from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
+    from karpenter_tpu_torch.solver import DenseSolveStats
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+
+    saved = dense_module.bucket_cost_packed, fill_module.admission_counts
+    captures = []
+    if plain:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = bucket_type_cost_packed, plain_admission_counts
+    else:
+        capture_kernel_calls(captures)
+    rec = None
+    try:
+        t0 = time.perf_counter()
+        env = wave_env(dev, min_batch)
+        setup_s = time.perf_counter() - t0
+        kube, backend, provider = env.kube, env.backend, env.provider
+        fleet = kube.list_nodes()
+        populated = [n for n in fleet if kube.pods_on_node(n.name)]
+        victims = populated[: max(1, min(WAVE_MAX_VICTIMS, int(len(populated) * WAVE_FRACTION)))]
+        victim_pods = [len(kube.pods_on_node(v.name)) for v in victims]
+        rec = instrument_wave(env, dev, captures)
+        gc.collect()
+        deadlines = [backend.interrupt_spot_instance(env.instance_id(v)) for v in victims]
+        handled_before = env.interruption.actions_performed.value(action="cordon_and_drain")
+        del captures[:]
+        read_launches()
+        polls = 0
+        t0 = time.perf_counter()
+        while backend.notifications.depth() and polls < 10:
+            env.interruption.poll_once()
+            polls += 1
+        sync(dev)
+        wave_ms = (time.perf_counter() - t0) * 1e3
+        wave_launches = read_launches()
+        handled = env.interruption.actions_performed.value(action="cordon_and_drain") - handled_before
+        t0 = time.perf_counter()
+        drain_passes = 0
+        while any(kube.get_node(v.name) is not None for v in victims) and drain_passes < 4:
+            env.termination_controller.reconcile_all()
+            drain_passes += 1
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        drained = len(env.recreated)
+        quarantined = set(provider.unavailable.snapshot())
+        before = {n.name for n in kube.list_nodes()}
+        n0 = len(captures)
+        round_stats = env.provisioner_controller.dense_solver.stats = DenseSolveStats()
+        t0 = time.perf_counter()
+        results = env.provision()
+        sync(dev)
+        round_ms = (time.perf_counter() - t0) * 1e3
+        round_launches = read_launches()
+        round_calls = captures[n0:]
+        post_drain = [pool_of(n) for n in kube.list_nodes() if n.name not in before]
+        bound = env.bind_nominated()
+        pending = sum(1 for p in kube.list_pods() if not p.spec.node_name)
+        env.clock.step(max(deadlines) - env.clock.now() + 1.0)
+        reclaimed = backend.reclaim_due_instances()
+        swept = env.gc.reconcile()
+        live = {i.instance_id for i in backend.list_instances()}
+        nodes = {n.name: n for n in kube.list_nodes()}
+        dead_nodes = sorted(name for name, n in nodes.items() if env.instance_id(n) not in live)
+        unbound = sum(1 for p in kube.list_pods() if p.spec.node_name not in nodes)
+        over = over_capacity(env)
+        depth = backend.notifications.depth()
+    finally:
+        if rec is not None:
+            rec["restore"]()
+        dense_module.bucket_cost_packed, fill_module.admission_counts = saved
+    notices = rec["notices"]
+    for notice, pods in zip(notices, victim_pods):
+        notice["victim_pods"] = pods
+        problems = notice.pop("problems")
+        types = [{it.name() for it in p.instance_types} for p in problems]
+        notice["masked_offerings"] = [p.masked_offerings for p in problems]
+        notice["quarantined_in_catalog"] = [sum(1 for q in notice["quarantined"] if q[0] in names) for names in types]
+        solves = [s for s in notice.pop("device_solves") if "pair" in s]
+        k1_calls = [c for c in notice["calls"] if c[0] == "bucket_type_cost"]
+        notice["k1_allowed"] = [allowed_cleared(s, c[1][3], dev) for s, c in zip(solves, k1_calls)] if not plain else []
+        notice["k1_allowed_cleared"] = sum(a["cleared"] for a in notice["k1_allowed"])
+        notice["held"] = hold_kernel_calls(notice.pop("calls"), dev) if not plain else []
+    return {
+        "setup_s": setup_s,
+        "fleet": len(fleet),
+        "populated": len(populated),
+        "fleet_types": sorted({pool_of(n)[0] for n in fleet}),
+        "victims": [pool_of(v) for v in victims],
+        "handled": handled,
+        "polls": polls,
+        "wave_ms": wave_ms,
+        "wave_launches": wave_launches,
+        "notices": notices,
+        "drain_ms": drain_ms,
+        "drain_passes": drain_passes,
+        "drained_pods": drained,
+        "round_ms": round_ms,
+        "round_launches": round_launches,
+        "round_held": hold_kernel_calls(round_calls, dev) if not plain else [],
+        "round_phases_ms": {k: getattr(round_stats, f"{k}_seconds") * 1e3 for k in ("encode", "fill", "fill_device", "device", "mask", "assemble", "device_wait", "commit")},
+        "round": {
+            "on_existing": sum(len(v.pods) for v in results.existing_nodes),
+            "new_node_pods": sum(len(n.pods) for n in results.new_nodes),
+            "unschedulable": len(results.unschedulable),
+            "route": "dense" if round_stats.batches else "host",
+            "node_guard_failopens": round_stats.node_guard_failopens,
+        },
+        "quarantined_pools": sorted(quarantined),
+        "post_drain_launches": post_drain,
+        "post_drain_on_quarantined": sorted(p for p in post_drain if p in quarantined),
+        "bound_after_round": bound,
+        "pending_after_round": pending,
+        "reclaimed": reclaimed,
+        "gc": swept,
+        "dead_nodes": dead_nodes,
+        "unbound_pods": unbound,
+        "over_capacity": over,
+        "queue_depth": depth,
+        "pods": len(kube.list_pods()),
+    }
+
+
+def wave_outcome(run) -> dict:
+    """What two runs of the wave must agree on: the victims, each
+    replacement's (type, zone, capacity type) in order, the pods each
+    notice placed on standing nodes, and the post-drain round's launches."""
+    return {
+        "victims": run["victims"],
+        "replacements": [n.get("replacements", []) for n in run["notices"]],
+        "on_existing": [n["on_existing"] for n in run["notices"]],
+        "post_drain_launches": run["post_drain_launches"],
+        "pending_after_round": run["pending_after_round"],
+    }
+
+
+def interruption_reclaim_wave(dev, min_batch: int, card_name) -> dict:
+    """A spot reclaim wave through the interruption controller: a warm-up
+    and WAVE_RUNS timed waves on fresh fleets, then the same with both
+    kernels' plain versions. Prints the `interruption` line and checks it."""
+    name, pods_n = WAVE
+    runs = [wave_run(dev, min_batch) for _ in range(1 + WAVE_RUNS)]
+    plain = [wave_run(dev, min_batch, plain=True) for _ in range(1 + WAVE_RUNS)]
+    timed = runs[1:]
+    last = timed[-1]
+
+    def notice_line(n):
+        return {
+            "pods": n["pods"],
+            "victim_pods": n["victim_pods"],
+            "state_nodes": n["state_nodes"],
+            "route": n["route"],
+            "resolve_ms": n["resolve_ms"],
+            "launch_ms": n.get("launch_ms"),
+            "handoff_ms": n.get("handoff_ms"),
+            "phases_ms": n["phases_ms"],
+            "launches": n["launches"],
+            "on_existing": n["on_existing"],
+            "new_node_pods": n["new_node_pods"],
+            "pods_to_host": n["pods_to_host"],
+            "replacements": n.get("replacements", []),
+            "masked_offerings": n["masked_offerings"],
+            "quarantined_in_catalog": n["quarantined_in_catalog"],
+            "k1_allowed_cleared": n["k1_allowed_cleared"],
+        }
+
+    holds = {}
+    for kernel in ("bucket_type_cost", "warm_fill_counts"):
+        held = [h for r in runs for n in r["notices"] for h in n["held"] if h["kernel"] == kernel]
+        held += [h for r in runs for h in r["round_held"] if h["kernel"] == kernel]
+        holds[kernel] = {
+            "calls": len(held),
+            "identical": sum(h["identical"] for h in held),
+            "max_abs_err": max((h["max_abs_err"] for h in held), default=0.0),
+            "shapes": sorted({tuple(h["shape"]) for h in held}),
+        }
+    line = {
+        "phase": "interruption",
+        "config": name,
+        "card": card_name,
+        "min_batch": min_batch,
+        "pods": pods_n,
+        "fleet_nodes": last["fleet"],
+        "populated_nodes": last["populated"],
+        "victims": last["victims"],
+        "warning_s": 120.0,
+        "runs": len(timed),
+        "wave_ms": statistics.median(r["wave_ms"] for r in timed),
+        "wave_ms_runs": [r["wave_ms"] for r in timed],
+        "polls": [r["polls"] for r in timed],
+        "notices": [notice_line(n) for n in last["notices"]],
+        "resolve_ms_runs": [[n["resolve_ms"] for n in r["notices"]] for r in timed],
+        "converge_ms": statistics.median(r["drain_ms"] + r["round_ms"] for r in timed),
+        "converge_ms_runs": [{"drain": r["drain_ms"], "round": r["round_ms"]} for r in timed],
+        "round_phases_ms": last["round_phases_ms"],
+        "round": last["round"],
+        "drained_pods": last["drained_pods"],
+        "post_drain_launches": last["post_drain_launches"],
+        "pending_after_round": last["pending_after_round"],
+        "quarantined_pools": last["quarantined_pools"],
+        "gc": last["gc"],
+        "reclaimed": last["reclaimed"],
+        "setup_s_runs": [r["setup_s"] for r in runs],
+        "kernel_launches": {
+            "wave": {k: sum(r["wave_launches"][k] for r in timed) for k in ("bucket_type_cost", "warm_fill_counts")},
+            "round": {k: sum(r["round_launches"][k] for r in timed) for k in ("bucket_type_cost", "warm_fill_counts")},
+        },
+        "kernel_holds": holds,
+        "plain_run": {
+            "launches": [r["wave_launches"] for r in plain] + [r["round_launches"] for r in plain],
+            "wave_ms_runs": [r["wave_ms"] for r in plain[1:]],
+            "outcomes_identical": [wave_outcome(r) for r in plain] == [wave_outcome(r) for r in runs],
+        },
+    }
+    emit(line)
+    for i, r in enumerate(runs + plain):
+        tag = f"{name}: run {i}"
+        check(len(r["victims"]) == WAVE_MAX_VICTIMS and r["handled"] == WAVE_MAX_VICTIMS, f"{tag}: {r['handled']} of {len(r['victims'])} notices handled")
+        check(len(r["notices"]) == WAVE_MAX_VICTIMS, f"{tag}: {len(r['notices'])} re-solves for {WAVE_MAX_VICTIMS} notices")
+        check(r["queue_depth"] == 0, f"{tag}: {r['queue_depth']} messages left on the queue")
+        for j, n in enumerate(r["notices"]):
+            at_launch = set(map(tuple, n.get("quarantined_at_launch", [])))
+            check(not [p for p in n.get("replacements", []) if p in at_launch], f"{tag}: notice {j} launched on a quarantined pool: {n.get('replacements')}")
+            if n["route"] == "dense":
+                check(n["masked_offerings"] == n["quarantined_in_catalog"], f"{tag}: notice {j} encoded {n['masked_offerings']} masked offerings for {n['quarantined_in_catalog']} quarantined pools in its catalog")
+        check(not r["post_drain_on_quarantined"], f"{tag}: post-drain launches on quarantined pools: {r['post_drain_on_quarantined']}")
+        check(r["pending_after_round"] == 0 and r["unbound_pods"] == 0, f"{tag}: {r['pending_after_round']} pods pending, {r['unbound_pods']} on gone nodes")
+        check(not r["dead_nodes"], f"{tag}: nodes on dead instances: {r['dead_nodes'][:5]}")
+        check(r["gc"] == {"orphans": [], "ghosts": []}, f"{tag}: gc collected {r['gc']}")
+        check(not r["over_capacity"], f"{tag}: nodes over capacity: {r['over_capacity'][:5]}")
+    for i, r in enumerate(runs):
+        tag = f"{name}: run {i}"
+        dense = [n for n in r["notices"] if n["route"] == "dense"]
+        check(any(n["launches"]["warm_fill_counts"] for n in dense), f"{tag}: no dense re-solve through K2")
+        check(any(n["launches"]["bucket_type_cost"] for n in dense), f"{tag}: no dense re-solve through K1")
+        check(sum(n["launches"]["bucket_type_cost"] for n in r["notices"]) == r["wave_launches"]["bucket_type_cost"], f"{tag}: K1 launched outside the re-solves")
+        for n in r["notices"]:
+            for kernel in ("bucket_type_cost", "warm_fill_counts"):
+                held = [h for h in n["held"] if h["kernel"] == kernel]
+                check(len(held) == n["launches"][kernel], f"{tag}: {len(held)} {kernel} calls held for {n['launches'][kernel]} launches")
+                check(all(h["identical"] for h in held), f"{tag}: {kernel} differs from its plain version on its own operands: {held}")
+            check(all(a["allowed_rebuilt"] for a in n["k1_allowed"]), f"{tag}: K1's allowed could not be rebuilt from the captured mask")
+        for kernel in ("bucket_type_cost", "warm_fill_counts"):
+            held = [h for h in r["round_held"] if h["kernel"] == kernel]
+            check(len(held) == r["round_launches"][kernel] and all(h["identical"] for h in held), f"{tag}: the round's {kernel} calls {held}")
+    for i, r in enumerate(plain):
+        check(not any(r["wave_launches"].values()) and not any(r["round_launches"].values()), f"{name}: the plain versions' run {i} launched kernels")
+    check(line["plain_run"]["outcomes_identical"], f"{name}: the kernels' and the plain versions' waves differ in outcome")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1976,6 +2420,17 @@ def main() -> int:
             for line in disruption_lines
         }
 
+    # 12b. a spot reclaim wave through the interruption controller, at the
+    # same routing: each notice's proactive re-solve (K2 onto the standing
+    # nodes, K1 for the replacements) with the reclaimed pools quarantined,
+    # the drain, the post-drain round and the gc sweep
+    wave_line = interruption_reclaim_wave(dev, min_batch, card_name)
+
+    def interruption_launches(kernel_name):
+        """The wave's launches of one kernel over its timed runs, in the
+        re-solves and in the post-drain rounds."""
+        return {part: wave_line["kernel_launches"][part][kernel_name] for part in ("wave", "round")}
+
     # 13. the launch floor: the device time of the smallest kernel PyTorch
     # launches (a fill of one element), in this run, on this card
     one = torch.zeros(1, device=dev)
@@ -2039,6 +2494,7 @@ def main() -> int:
                 "launches": solve_lines["headline_10k_x_500"]["kernel_launches"]["bucket_type_cost"],
                 "controller_launches": controller_launches("bucket_type_cost"),
                 "disruption_launches": disruption_launches("bucket_type_cost"),
+                "interruption_launches": interruption_launches("bucket_type_cost"),
                 "max_abs_err": max_err,
                 "ms": kernel_ms,
                 "kernel_ms": kernel_ms,
@@ -2066,6 +2522,7 @@ def main() -> int:
                 "resident_launches": {c["config"]: c["window"]["launches"]["warm_fill_counts"] for c in churn_lines},
                 "controller_launches": controller_launches("warm_fill_counts"),
                 "disruption_launches": disruption_launches("warm_fill_counts"),
+                "interruption_launches": interruption_launches("warm_fill_counts"),
                 "max_abs_err": k2_err,
                 "ms": k2_ms,
                 "kernel_ms": k2_ms,

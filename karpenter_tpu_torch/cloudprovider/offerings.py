@@ -103,3 +103,9 @@ class UnavailableOfferings:
                 self._version += 1
             self._pools.clear()
 
+
+
+def count_insufficient_capacity(pools) -> None:
+    """Record ICE observations for `pools`. The reference counts them per
+    pool in a registry counter; the port has no registry yet (ROADMAP A8),
+    so this is a no-op kept for its callers."""

@@ -1,9 +1,6 @@
-"""Event recording: the typed recorder (pkg/events).
+"""Event recording: typed recorder + dedupe decorator (pkg/events).
 
-The port's copy of karpenter_tpu/events.py, cut to the events the
-provisioning, disruption, consolidation, node and termination controllers
-record. The TTL-deduped recorder and the interruption events come with the
-controllers that use them (ROADMAP A9, A15)."""
+The port's copy of karpenter_tpu/events.py."""
 
 from __future__ import annotations
 
@@ -11,7 +8,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, List
+from typing import Deque, List, Tuple
 
 # retained events per recorder: a long-lived runtime records on every
 # provisioning/termination/interruption action, so an unbounded list is a
@@ -65,8 +62,27 @@ class Recorder:
 
     def eviction_blocked(self, pod, reason: str) -> None:
         """A queued eviction that cannot proceed (do-not-disrupt veto):
-        surfaced instead of silently retrying forever."""
+        surfaced instead of silently retrying forever; identical repeats
+        dedupe through DedupeRecorder's TTL window."""
         self._record("Pod", "EvictionBlocked", f"Eviction blocked, {reason}", pod.name)
+
+    # interruption-subsystem events (controllers/interruption); identical
+    # notices dedupe through DedupeRecorder's TTL window
+    def node_interrupted(self, node, kind: str, message: str) -> None:
+        reasons = {
+            "spot_interruption": "SpotInterrupted",
+            "rebalance_recommendation": "RebalanceRecommended",
+            "scheduled_maintenance": "MaintenanceScheduled",
+            "instance_stopped": "InstanceStopped",
+            "instance_terminated": "InstanceTerminated",
+        }
+        self._record("Node", reasons.get(kind, "Interrupted"), message, node.name)
+
+    def interruption_replacement_launched(self, node, pod_count: int) -> None:
+        self._record(
+            "Node", "InterruptionReplacement",
+            f"Launching replacement capacity for {pod_count} pod(s) ahead of the drain", node.name,
+        )
 
     def of(self, reason: str) -> List[Event]:
         with self._lock:
@@ -76,3 +92,29 @@ class Recorder:
         with self._lock:
             self.events.clear()
 
+
+class DedupeRecorder(Recorder):
+    """TTL-deduped decorator (pkg/events/dedupe.go:25-95): identical events
+    within the window are suppressed."""
+
+    def __init__(self, inner: Recorder, ttl_seconds: float = 120.0, clock=None, capacity: int = DEFAULT_EVENT_CAPACITY):
+        super().__init__(capacity=capacity)
+        from .utils.clock import Clock
+
+        self.inner = inner
+        self.ttl = ttl_seconds
+        self.clock = clock or Clock()
+        self._seen: dict = {}
+
+    def _record(self, kind: str, reason: str, message: str, name: str) -> None:
+        key: Tuple[str, str, str, str] = (kind, reason, message, name)
+        now = self.clock.now()
+        with self._lock:
+            expiry = self._seen.get(key)
+            if expiry is not None and expiry > now:
+                return
+            self._seen[key] = now + self.ttl
+            # mirror into our own list so the Recorder read surface
+            # (of()/events) works on the wrapper too
+            self.events.append(Event(kind, reason, message, name))
+        self.inner._record(kind, reason, message, name)

@@ -9,7 +9,10 @@ tests/test_warm_fill_vectorized.py), of its seeded cluster churn
 (tests/test_incremental_parity.py's _Churn, bench.py's
 run_incremental_churn) and of its controller test environments
 (tests/env.py's Environment, tests/test_deprovisioning.py's DeprovEnv and
-owned_pod, tests/test_disruption.py's DisruptionEnv). They draw from numpy
+owned_pod, tests/test_disruption.py's DisruptionEnv, and the Runtime over
+the simulated cloud of tests/test_simulated_provider.py,
+tests/test_interruption_catalog.py's InterruptionEnv and tests/test_gc.py's
+GCEnv). They draw from numpy
 with the same seeds in the same order, so both packages build the same
 pods, catalogs and clusters: the tests and chip_smoke.py build the port's
 side from here.
@@ -22,6 +25,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from . import webhooks
 from .api.labels import (
     LABEL_CAPACITY_TYPE,
     LABEL_HOSTNAME,
@@ -64,15 +68,19 @@ from .api.objects import (
 )
 from .api.provisioner import Budget, Consolidation, Disruption, Limits, Provisioner, ProvisionerSpec
 from .cloudprovider.fake import FakeCloudProvider, Offering, instance_type
+from .cloudprovider.simulated.backend import CloudBackend, FleetInstanceSpec, FleetRequest
+from .cloudprovider.simulated.provider import SimulatedCloudProvider
 from .config import Config
 from .controllers.consolidation import ConsolidationController
 from .controllers.counter import CounterController
 from .controllers.disruption import DisruptionController
+from .controllers.gc import GarbageCollectionController
+from .controllers.interruption import InterruptionController
 from .controllers.node import NodeController
 from .controllers.provisioning import ProvisionerController, ProvisioningReconciler
 from .controllers.state.cluster import Cluster
 from .controllers.termination import TerminationController
-from .events import Recorder
+from .events import DEFAULT_EVENT_CAPACITY, DedupeRecorder, Recorder
 from .kube.cluster import KubeCluster
 from .scheduling.hostports import HostPortUsage
 from .scheduling.volumelimits import VolumeCount, VolumeLimits
@@ -711,9 +719,14 @@ class Environment:
         self.clock = clock or FakeClock()
         self.kube = KubeCluster(clock=self.clock)
         self.provider = FakeCloudProvider(instance_types)
+        self.recorder = Recorder()
+        self._wire(dense_solver)
+
+    def _wire(self, dense_solver=None) -> None:
+        """Cluster state and the provisioning controllers over this
+        environment's store, provider and recorder."""
         self.cluster = Cluster(self.kube, self.provider, clock=self.clock)
         self.config = Config()
-        self.recorder = Recorder()
         self.provisioner_controller = ProvisionerController(
             self.kube,
             self.cluster,
@@ -832,3 +845,168 @@ class DisruptionEnv(_LifecycleEnv):
         self.node_controller.reconcile_all()
         self.disruption.reconcile()
         self.termination_controller.reconcile_all()
+
+
+def spot_provisioner() -> Provisioner:
+    """The default provisioner restricted to spot capacity: the cost-driven
+    fleet a spot reclaim wave hits."""
+    return make_provisioner(
+        requirements=[NodeSelectorRequirement(key=LABEL_CAPACITY_TYPE, operator=OP_IN, values=["spot"])]
+    )
+
+
+def reclaim_wave_workload(count: int, seed: int = 42) -> List[Pod]:
+    """ReplicaSet-owned pods with build_workload's request mix (cpu
+    0.1-1.5, memory 100Mi-4Gi, drawn the same way from the same seed): the
+    first seventh in build_workload's zonal-spread cohorts, the rest generic.
+    No affinity or anti-affinity cohorts: placed anti-affinity pods would
+    send every re-solve to the host loop."""
+    rng = np.random.default_rng(seed)
+    cpus = [0.1, 0.25, 0.5, 1.0, 1.5]
+    mems = ["100Mi", "256Mi", "512Mi", "1Gi", "2Gi", "4Gi"]
+    values = "abcdefg"
+
+    def size():
+        return {"cpu": cpus[rng.integers(len(cpus))], "memory": mems[rng.integers(len(mems))]}
+
+    pods = []
+    for _ in range(count // 7):
+        label = {"spread": values[rng.integers(7)]}
+        pods.append(
+            owned_pod(
+                labels=label,
+                requests=size(),
+                topology_spread_constraints=[
+                    TopologySpreadConstraint(max_skew=1, topology_key=LABEL_TOPOLOGY_ZONE, label_selector=LabelSelector(match_labels=label))
+                ],
+            )
+        )
+    while len(pods) < count:
+        pods.append(owned_pod(labels={"app": values[rng.integers(7)]}, requests=size()))
+    return pods
+
+
+def spot_and_on_demand_provisioner() -> Provisioner:
+    """The default provisioner allowing both capacity types, as the
+    reference's interruption and gc rigs create it."""
+    return make_provisioner(
+        requirements=[NodeSelectorRequirement(key=LABEL_CAPACITY_TYPE, operator=OP_IN, values=["spot", "on-demand"])]
+    )
+
+
+class SimulatedEnv(Environment):
+    """The controllers a Runtime wires (karpenter_tpu/runtime.py:146-256)
+    over the simulated cloud, without the Runtime: CloudBackend and
+    SimulatedCloudProvider on a FakeClock, a DedupeRecorder, the admission
+    chain (webhooks.register), cluster state, the provisioning, node
+    (delegating disruption), termination, counter and garbage-collection
+    controllers, and the interruption controller on the provider's
+    notification source with the provider's offering-health hook. The
+    reference's rigs build a Runtime with the dense solver off; here the
+    caller routes the solve (env.provisioner_controller.dense_solver)."""
+
+    def __init__(self, event_capacity: int = DEFAULT_EVENT_CAPACITY):
+        self.clock = FakeClock()
+        self.kube = KubeCluster(clock=self.clock)
+        self.backend = CloudBackend(clock=self.clock)
+        self.provider = SimulatedCloudProvider(backend=self.backend, kube=self.kube, clock=self.clock)
+        self.recorder = DedupeRecorder(Recorder(capacity=event_capacity), clock=self.clock, capacity=event_capacity)
+        webhooks.register(self.kube, self.provider)
+        self._wire()
+        self.node_controller = NodeController(
+            self.kube, self.cluster, self.provider, clock=self.clock, delegate_disruption=True
+        )
+        self.termination_controller = TerminationController(self.kube, self.provider, self.recorder, clock=self.clock)
+        self.counter_controller = CounterController(self.kube, self.cluster)
+        self.gc = GarbageCollectionController(
+            self.kube, self.cluster, self.provider, termination=self.termination_controller, clock=self.clock
+        )
+        self.interruption = InterruptionController(
+            self.kube, self.cluster, self.provisioner_controller, self.provider.notification_source(),
+            termination=self.termination_controller, recorder=self.recorder, clock=self.clock,
+            cloud_provider=self.provider,
+        )
+
+    def instance_id(self, node) -> str:
+        return node.spec.provider_id.split("///", 1)[1]
+
+
+class InterruptionEnv(SimulatedEnv):
+    """The counterpart of tests/test_interruption_catalog.py's
+    InterruptionEnv (in-process transport): the simulated cloud, the
+    interruption controller polling its queue, and a provisioner allowing
+    spot and on-demand capacity."""
+
+    def __init__(self):
+        super().__init__()
+        self.kube.create(spot_and_on_demand_provisioner())
+
+    def launch_node_with_pods(self, pod_count: int = 3):
+        pods = []
+        for _ in range(pod_count):
+            pod = owned_pod(requests={"cpu": "1", "memory": "1Gi"})
+            pods.append(pod)
+            self.kube.create(pod)
+        self.provision()
+        node = self.kube.list_nodes()[0]
+        node.status.conditions = [NodeCondition(type="Ready", status="True")]
+        self.kube.update(node)
+        for pod in pods:
+            self.kube.bind_pod(pod, node.name)
+        self.node_controller.reconcile_all()
+        return node, pods
+
+    def converge(self, rounds: int = 4) -> None:
+        """Drain the at-least-once echo chain (interruption -> termination
+        -> instance_terminated notification -> no-op delete) to quiescence."""
+        for _ in range(rounds):
+            self.interruption.poll_once()
+            self.termination_controller.reconcile_all()
+
+
+class GCEnv(SimulatedEnv):
+    """The counterpart of tests/test_gc.py's GCEnv: the simulated cloud (the
+    sweep's default 30 s registration grace, the reference rig's value) and
+    a provisioner allowing spot and on-demand capacity."""
+
+    def __init__(self):
+        super().__init__()
+        self.kube.create(spot_and_on_demand_provisioner())
+
+    def launch_node(self, pod_count: int = 0):
+        pods = []
+        for _ in range(pod_count):
+            pod = owned_pod(requests={"cpu": "1", "memory": "1Gi"})
+            pods.append(pod)
+            self.kube.create(pod)
+        if not pods:
+            # provision needs at least one pending pod; use a throwaway
+            pod = owned_pod(requests={"cpu": "1", "memory": "1Gi"})
+            self.kube.create(pod)
+        self.provision()
+        node = self.kube.list_nodes()[-1]
+        node.status.conditions = [NodeCondition(type="Ready", status="True")]
+        self.kube.update(node)
+        for pod in pods:
+            self.kube.bind_pod(pod, node.name)
+        if not pods:
+            self.kube.delete(pod, grace=False)  # the throwaway: node ends up empty
+        return node, pods
+
+    def leak_instance(self) -> str:
+        """An instance with no node: the crash-between-launch-and-bind shape."""
+        template = self.backend.ensure_launch_template("gc-leak", "img", [], "")
+        instance = self.backend.create_fleet(
+            FleetRequest(
+                specs=[
+                    FleetInstanceSpec(
+                        instance_type=self.backend.catalog[0].name,
+                        zone="zone-a",
+                        capacity_type="on-demand",
+                        launch_template_id=template.template_id,
+                    )
+                ],
+                capacity_type="on-demand",
+            )
+        )
+        return instance.instance.instance_id
