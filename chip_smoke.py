@@ -69,7 +69,21 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     replacements, the quarantined pools zeros in K1's `allowed`), launches
     the replacement and drains the victim; then one provisioning round for
     the recreated pods, the cloud's reclaim and the gc sweep. A warm-up and
-    3 timed waves on fresh fleets, held against 4 with the plain versions.
+    3 timed waves on fresh fleets, held against 4 with the plain versions;
+  - the controller process (runtime.py, cmd/controller.py, service/):
+    runtime_boot starts `python -m karpenter_tpu_torch.cmd.controller` as a
+    child, waits for /healthz and /readyz, reads the crossover its Runtime
+    measured at boot with K1's probe on the card, and requires exit code 0
+    on SIGTERM; runtime_round creates the headline batch in a store with
+    300 standing nodes under a started Runtime (leader election, the
+    crossover measured, 1 s / 10 s batch windows) and waits until every pod
+    is nominated by its batch loop and its lifecycle and disruption loops
+    have passed; every K1 and K2 call in the window is held bit for bit,
+    and two fresh Runtimes' provision_once() with the kernels and with the
+    plain versions must place identically; solver_sidecar hands the
+    overflow round's request, pickled as serve()'s gRPC handler takes it,
+    to a SolverServer on the card (K2, then K1) and holds the plan equal to
+    the in-process schedule and to a plain-versions server's.
 
 K2 is held against its plain version three ways per input: through its
 wrapper on CUDA tensors, through the warm solve's round trip from host
@@ -183,6 +197,18 @@ BIG_ALLOCATABLE = {"cpu": 64, "memory": "128Gi", "pods": 110}
 WAVE = ("interruption_reclaim_wave", HEADLINE_PODS)
 WAVE_FRACTION, WAVE_MAX_VICTIMS = 0.6, 8
 WAVE_RUNS = 3
+# the controller process: the entry point's command, how long it may take
+# to answer both probes and to exit on SIGTERM; the Runtime cell's standing
+# nodes (controller_round_overflow's shape) and its deadlines; the sidecar
+# cell's standing nodes and its timed solves after a warm-up
+CONTROLLER_COMMAND = [sys.executable, "-m", "karpenter_tpu_torch.cmd.controller"]
+BOOT_DEADLINE_S = 180.0
+SHUTDOWN_DEADLINE_S = 60.0
+RUNTIME_ROUND = ("runtime_round", HEADLINE_PODS, 300)
+RUNTIME_DEADLINE_S = 120.0
+LOOP_PASS_DEADLINE_S = 10.0
+SIDECAR = ("solver_sidecar", HEADLINE_PODS, 300)
+SIDECAR_TRIALS = 3
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 
@@ -2122,12 +2148,508 @@ def interruption_reclaim_wave(dev, min_batch: int, card_name) -> dict:
     return line
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def probe_status(port: int, path: str) -> int:
+    """The HTTP status of one probe, 0 while nothing answers."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=2) as resp:
+            return resp.status
+    except urllib.error.HTTPError as err:
+        return err.code
+    except OSError:
+        return 0
+
+
+def runtime_boot(card_name, command=None) -> dict:
+    """The controller process on the card: `python -m
+    karpenter_tpu_torch.cmd.controller` (or `command`) as a child with a
+    free health-probe port; /healthz and /readyz polled until both answer
+    200; the crossover the Runtime measured at boot (K1's probe round trip)
+    read from the child's log with the device its solver runs on; then
+    SIGTERM, and exit code 0 required. The child is killed on any failure."""
+    import re
+    import signal
+
+    port = free_port()
+    argv = list(command or CONTROLLER_COMMAND) + ["--health-probe-port", str(port), "--log-level", "info"]
+    lines: list = []
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    reader = threading.Thread(target=lambda: lines.extend(proc.stderr), daemon=True)
+    reader.start()
+    ready_ms = shutdown_ms = None
+    try:
+        deadline = t0 + BOOT_DEADLINE_S
+        while time.perf_counter() < deadline and proc.poll() is None:
+            if probe_status(port, "/healthz") == 200 and probe_status(port, "/readyz") == 200:
+                ready_ms = (time.perf_counter() - t0) * 1e3
+                break
+            time.sleep(0.05)
+        if ready_ms is not None:
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=SHUTDOWN_DEADLINE_S)
+                shutdown_ms = (time.perf_counter() - t1) * 1e3
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    log = "".join(lines)
+    crossover_line = re.search(r"dispatch rt ([0-9.]+) ms -> min_batch (\d+)", log)
+    device = re.search(r"dense_solver=(\S+)", log)
+    line = {
+        "phase": "runtime_boot",
+        "card": card_name,
+        "command": argv,
+        "boot_to_ready_ms": ready_ms,
+        "probe_round_trip_ms": float(crossover_line.group(1)) if crossover_line else None,
+        "min_batch": int(crossover_line.group(2)) if crossover_line else None,
+        "solver_device": device.group(1) if device else None,
+        "shutdown_ms": shutdown_ms,
+        "exit_code": proc.returncode,
+        "log_tail": log.splitlines()[-12:],
+        "note": "K1's probe ran in the child, whose launch counts this process cannot read; the Runtime logs "
+        "its solver's device, and on a CUDA device the wrapper launches the kernel or raises",
+    }
+    emit(line)
+    check(ready_ms is not None, f"runtime_boot: the probes did not both answer 200 within {BOOT_DEADLINE_S} s (exit {proc.returncode})")
+    check(crossover_line is not None, "runtime_boot: the child logged no measured crossover")
+    check(device is not None and device.group(1).startswith("cuda"), f"runtime_boot: the Runtime's solver ran on {line['solver_device']}")
+    check(shutdown_ms is not None and proc.returncode == 0, f"runtime_boot: exit code {proc.returncode} after SIGTERM")
+    return line
+
+
+def runtime_store(pods_n: int, standing: int, tag: str):
+    """The in-memory store of the Runtime cells: `standing` 16-CPU nodes
+    (testing.standing_cluster), the default provisioner; and the batch,
+    build_workload(pods_n) named by `tag`, to be created in it."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.kube.cluster import KubeCluster
+
+    kube = KubeCluster()
+    testing.standing_cluster(kube, standing)
+    kube.create(testing.make_provisioner())
+    return kube, testing.rename(testing.build_workload(pods_n), tag)
+
+
+def watch_placements(provisioner, sink: list, ends: list) -> None:
+    """Wrap the provisioner's launch_nodes so each call's (node name, pods)
+    placements (its `placed` list: launched nodes and nominations onto
+    standing ones) land in `sink` too, with the instant the call returned in
+    `ends`."""
+    launch_nodes = provisioner.launch_nodes
+
+    def watched(results, ice_failures=None, placed=None):
+        mine = [] if placed is None else placed
+        n0 = len(mine)
+        launched = launch_nodes(results, ice_failures=ice_failures, placed=mine)
+        sink.extend(mine[n0:])
+        ends.append(time.perf_counter())
+        return launched
+
+    provisioner.launch_nodes = watched
+
+
+def runtime_outcome(kube, placed, prices) -> dict:
+    """What a Runtime's rounds placed, by node: a launched node (one the
+    fake provider created) by its instance type, zone and capacity type, a
+    standing node by name, each with its sorted pod names; and the
+    launched nodes' $/hour."""
+    from karpenter_tpu_torch.api import labels as lbl
+
+    launched, standing, price = [], [], 0.0
+    for name, pods in placed:
+        node = kube.get_node(name)
+        names = tuple(sorted(p.name for p in pods))
+        if not node.spec.provider_id:
+            standing.append((name, names))
+        else:
+            labels = node.metadata.labels
+            launched.append((labels[lbl.LABEL_INSTANCE_TYPE], labels[lbl.LABEL_TOPOLOGY_ZONE], labels[lbl.LABEL_CAPACITY_TYPE], names))
+            price += prices[labels[lbl.LABEL_INSTANCE_TYPE]]
+    return {"launched": sorted(launched), "standing": sorted(standing), "price_per_hour": price}
+
+
+def runtime_provision_once(dev, min_batch: int, plain: bool) -> dict:
+    """A fresh Runtime (leader election off, the dense solver at
+    `min_batch`) on a fresh store of the runtime cell's contents, driven by
+    one synchronous provision_once(); with plain=True both kernels' plain
+    versions stand in at the solve's seams. Its launches, placements and
+    $/hour."""
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
+    from karpenter_tpu_torch.runtime import Runtime
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+    from karpenter_tpu_torch.utils.options import parse
+
+    _name, pods_n, standing = RUNTIME_ROUND
+    kube, pods = runtime_store(pods_n, standing, "rto")
+    catalog = instance_types(HEADLINE_TYPES)
+    options = parse(["--no-leader-elect", "--dense-min-batch", str(min_batch)])
+    rt = Runtime(kube=kube, cloud_provider=FakeCloudProvider(catalog), options=options, device=dev)
+    placed, ends = [], []
+    watch_placements(rt.provisioner, placed, ends)
+    for pod in pods:
+        kube.create(pod)
+    saved = dense_module.bucket_cost_packed, fill_module.admission_counts
+    if plain:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = bucket_type_cost_packed, plain_admission_counts
+    try:
+        read_launches()
+        t0 = time.perf_counter()
+        rt.provision_once()
+        sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+    finally:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = saved
+        rt.stop()
+    got = runtime_outcome(kube, placed, {it.name(): it.price() for it in catalog})
+    return {"wall_ms": wall, "launches": launches, "nominated": sum(len(p) for _n, p in placed), **got}
+
+
+def runtime_round(dev, card_name) -> dict:
+    """The headline batch through a running Runtime's threads: Options from
+    parse() with the reference's defaults (leader election on, the
+    crossover measured at boot, batch windows 1 s idle / 10 s max),
+    FakeCloudProvider(instance_types(HEADLINE_TYPES)), a store holding the
+    provisioner and 300 standing nodes. start() returns once the Runtime is
+    elected and recovered; then the batch is created and the phase waits
+    until every pod is nominated and the lifecycle and disruption loops have
+    passed at least once. Every K1 and K2 call in the window is captured
+    and held bit for bit against its plain version; no node may end over
+    capacity; after stop() every thread is joined and the Lease released.
+    Then two fresh Runtimes at the measured min_batch, one with the kernels
+    and one with the plain versions, each run one provision_once() and must
+    place identically."""
+    from types import SimpleNamespace
+
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.runtime import Runtime
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+    from karpenter_tpu_torch.utils.options import parse
+
+    name, pods_n, standing = RUNTIME_ROUND
+    kube, pods = runtime_store(pods_n, standing, "rt")
+    catalog = instance_types(HEADLINE_TYPES)
+    options = parse(["--dense-min-batch", "0"])
+    t_boot = time.perf_counter()
+    rt = Runtime(kube=kube, cloud_provider=FakeCloudProvider(catalog), options=options, device=dev)
+    construct_ms = (time.perf_counter() - t_boot) * 1e3
+    min_batch = rt.dense_solver.min_batch
+    env = SimpleNamespace(controller=rt.provisioner, solver=rt.dense_solver, kube=kube, cluster=rt.cluster)
+    rec = instrument(env, dev)
+    placed, ends, captures = [], [], []
+    watch_placements(rt.provisioner, placed, ends)
+    names = {p.name for p in pods}
+    seams = dense_module.bucket_cost_packed, fill_module.admission_counts
+    capture_kernel_calls(captures)
+    stopped = False
+    try:
+        t_start = time.perf_counter()
+        rt.start()
+        start_ms = (time.perf_counter() - t_start) * 1e3
+        recovered = dict(rt.passes)
+        read_launches()
+        t0 = time.perf_counter()
+        for pod in pods:
+            kube.create(pod)
+        created = time.perf_counter()
+        deadline = created + RUNTIME_DEADLINE_S
+        nominated = set()
+        while time.perf_counter() < deadline and rt.healthy():
+            nominated = {p.name for _n, pod_list in list(placed) for p in pod_list}
+            if names <= nominated:
+                break
+            time.sleep(0.02)
+        done = max(ends) if ends else time.perf_counter()
+        loop_deadline = time.perf_counter() + LOOP_PASS_DEADLINE_S
+        while time.perf_counter() < loop_deadline and rt.healthy() and not (rt.passes.get("node", 0) >= 1 and rt.passes.get("disruption", 0) >= 1):
+            time.sleep(0.05)
+        sync(dev)
+        launches = read_launches()
+        passes = dict(rt.passes)
+        healthy = rt.healthy()
+        by_node = {}
+        for node_name, pod_list in placed:
+            by_node.setdefault(node_name, set()).update(p.name for p in pod_list)
+        broken = broken_placements(env, by_node)
+        t_stop = time.perf_counter()
+        stopped = True
+        rt.stop()  # re-raises what ended a loop, if anything did
+        stop_ms = (time.perf_counter() - t_stop) * 1e3
+    finally:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = seams
+        if not stopped:
+            rt.stop()
+    alive = [t.name for t in rt.threads() if t.is_alive()]
+    lease = kube.get("Lease", rt.elector.name, rt.elector.namespace)
+    released = lease is not None and lease.spec.holder_identity == rt.elector.identity and lease.spec.renew_time == 0.0
+    holds = hold_kernel_calls(captures, dev)
+    got = runtime_outcome(kube, placed, {it.name(): it.price() for it in catalog})
+    disruption = rt.disruption.commands._counts
+    kernel_run = runtime_provision_once(dev, min_batch, plain=False)
+    plain_run = runtime_provision_once(dev, min_batch, plain=True)
+    same = {k: kernel_run[k] == plain_run[k] for k in ("launched", "standing", "price_per_hour", "nominated")}
+    schedules = rec["schedule"]
+    line = {
+        "phase": "runtime_round",
+        "config": name,
+        "card": card_name,
+        "pods": pods_n,
+        "standing_nodes": standing,
+        "types": HEADLINE_TYPES,
+        "min_batch": min_batch,
+        "batch_idle_s": options.batch_idle_duration,
+        "batch_max_s": options.batch_max_duration,
+        "construct_ms": construct_ms,
+        "start_ms": start_ms,
+        "create_ms": (created - t0) * 1e3,
+        "pods_to_last_nomination_ms": (done - t0) * 1e3,
+        "stop_ms": stop_ms,
+        "rounds": len(rec["get_pods_ms"]),
+        "round_schedule_calls": len(schedules),
+        "nominated": len(nominated & names),
+        "nodes_launched": len(got["launched"]),
+        "pods_nominated_onto_standing": sum(len(n[1]) for n in got["standing"]),
+        "price_per_hour": got["price_per_hour"],
+        "kernel_launches": launches,
+        "phases_ms": schedules[0]["phases_ms"] if schedules else None,
+        "schedule_ms": [s["wall_ms"] for s in schedules],
+        "get_pods_ms": rec["get_pods_ms"],
+        "launch": rec["launch"],
+        "passes_after_start": recovered,
+        "passes": passes,
+        "disruption_commands": [[dict(k), v] for k, v in disruption.items()],
+        "kernel_holds": holds,
+        "broken": broken,
+        "healthy": healthy,
+        "threads_alive_after_stop": alive,
+        "lease_released": released,
+        "provision_once": {"kernels": kernel_run, "plain": plain_run, "identical": same},
+    }
+    line["provision_once"]["kernels"] = {k: kernel_run[k] for k in ("wall_ms", "launches", "nominated", "price_per_hour")}
+    line["provision_once"]["plain"] = {k: plain_run[k] for k in ("wall_ms", "launches", "nominated", "price_per_hour")}
+    emit(line)
+    check(healthy, f"{name}: the Runtime turned unhealthy")
+    check(recovered.get("gc", 0) >= 1, f"{name}: start() returned before the startup gc sweep ({recovered})")
+    check(names <= nominated, f"{name}: {len(names - nominated)} of {pods_n} pods never nominated within {RUNTIME_DEADLINE_S} s")
+    check(passes.get("node", 0) >= 1 and passes.get("disruption", 0) >= 1, f"{name}: the lifecycle and disruption loops did not both pass ({passes})")
+    check(launches["bucket_type_cost"] >= 1 and launches["warm_fill_counts"] >= 1, f"{name}: the window launched {launches}")
+    check(holds and all(h["identical"] for h in holds), f"{name}: a kernel call differs from its plain version: {[h for h in holds if not h['identical']]}")
+    check(not any(broken.values()), f"{name}: the rounds broke placements: {broken}")
+    check(not alive, f"{name}: threads alive after stop(): {alive}")
+    check(released, f"{name}: the Lease was not released")
+    check(kernel_run["launches"]["bucket_type_cost"] >= 1 and kernel_run["launches"]["warm_fill_counts"] >= 1, f"{name}: provision_once launched {kernel_run['launches']}")
+    check(not any(plain_run["launches"].values()), f"{name}: the plain versions' provision_once launched {plain_run['launches']}")
+    check(kernel_run["nominated"] == pods_n, f"{name}: provision_once nominated {kernel_run['nominated']} of {pods_n}")
+    check(all(same.values()), f"{name}: the kernels' and the plain versions' provision_once differ: {same}")
+    return line
+
+
+def sidecar_plan(results) -> dict:
+    """A launch plan by pod uid: each new node's instance types in price
+    order and pods, the existing placements, the unschedulable pods and the
+    new nodes' $/hour."""
+    new = sorted(
+        (tuple(it.name() for it in sorted(n.instance_type_options, key=lambda t: t.price())), tuple(sorted(p.uid for p in n.pods)))
+        for n in results.new_nodes
+        if n.pods
+    )
+    return {
+        "new_nodes": new,
+        "existing": sorted((v.node.name, tuple(sorted(p.uid for p in v.pods))) for v in results.existing_nodes if v.pods),
+        "unschedulable": sorted(p.uid for p in results.unschedulable),
+        "cost": sum(min(it.price() for it in n.instance_type_options) for n in results.new_nodes if n.pods),
+    }
+
+
+def solver_sidecar(dev, card_name) -> dict:
+    """deploy/karpenter-tpu-sidecar.yaml's shape with the solve in the
+    sidecar: the overflow round's request (the headline batch,
+    instance_types(HEADLINE_TYPES), 300 standing-node wire snapshots, the
+    cluster's pods and nodes) built by the client's build_request, pickled,
+    handed to a SolverServer on the card (its own DenseSolver, min_batch 1)
+    through schedule_bytes as serve()'s gRPC handler does, the response
+    unpickled and materialized. A warm-up and SIDECAR_TRIALS timed remote
+    solves, each launching K2 and K1 once, every call held bit for bit;
+    the plan equal to the in-process ProvisionerController.schedule of the
+    same batch on the same store at min_batch 1 and to a second server's
+    running the plain versions. It imports no grpc: the handler gets the
+    bytes serve() would hand it, in process."""
+    import pickle
+
+    from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
+    from karpenter_tpu_torch.scheduler.builder import apply_kubelet_max_pods
+    from karpenter_tpu_torch.service.client import build_request, materialize
+    from karpenter_tpu_torch.service.server import SolverServer
+    from karpenter_tpu_torch.solver import DenseSolveStats
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+
+    name, pods_n, standing = SIDECAR
+    env = controller_env(dev, pods_n, standing, 1, "sc")
+    create_pods(env)
+    ctrl = env.controller
+    pods = ctrl.get_pods()
+    provisioners = [p for p in env.kube.list_provisioners()]
+    instance_types = {p.name: apply_kubelet_max_pods(p, env.provider.get_instance_types(p)) for p in provisioners}
+
+    def remote(server, captures=None):
+        """One remote solve: (plan, record)."""
+        server.dense_solver.stats = DenseSolveStats()
+        state_nodes = env.cluster.nodes_snapshot()
+        schedule = server.schedule
+        solve_s = []
+
+        def timed_schedule(request):
+            t = time.perf_counter()
+            try:
+                return schedule(request)
+            finally:
+                sync(dev)
+                solve_s.append(time.perf_counter() - t)
+
+        server.schedule = timed_schedule
+        seams = dense_module.bucket_cost_packed, fill_module.admission_counts
+        if captures is not None:
+            capture_kernel_calls(captures)
+        try:
+            read_launches()
+            t0 = time.perf_counter()
+            request = build_request(provisioners, instance_types, pods, ctrl.daemonset_pods(), state_nodes, env.kube)
+            t1 = time.perf_counter()
+            request_bytes = pickle.dumps(request)
+            t2 = time.perf_counter()
+            response_bytes = server.schedule_bytes(request_bytes)
+            t3 = time.perf_counter()
+            response = pickle.loads(response_bytes)
+            t4 = time.perf_counter()
+            results = materialize(response, provisioners, instance_types, pods, state_nodes)
+            t5 = time.perf_counter()
+            launches = read_launches()
+        finally:
+            dense_module.bucket_cost_packed, fill_module.admission_counts = seams
+            del server.schedule
+        stats = server.dense_solver.stats
+        return sidecar_plan(results), {
+            "wall_ms": (t5 - t0) * 1e3,
+            "build_request_ms": (t1 - t0) * 1e3,
+            "pickle_ms": ((t2 - t1) + (t4 - t3)) * 1e3,
+            "server_ms": (t3 - t2) * 1e3,
+            "server_solve_ms": solve_s[0] * 1e3,
+            "server_unpickle_pickle_ms": ((t3 - t2) - solve_s[0]) * 1e3,
+            "materialize_ms": (t5 - t4) * 1e3,
+            "request_bytes": len(request_bytes),
+            "response_bytes": len(response_bytes),
+            "launches": launches,
+            "phases_ms": {k: getattr(stats, f"{k}_seconds") * 1e3 for k in ("encode", "fill", "fill_device", "device", "mask", "assemble", "device_wait", "commit")},
+            "error": response.error,
+        }
+
+    def local(batch=None):
+        """The in-process schedule of the batch (or of `batch`, the same
+        pods as other objects)."""
+        ctrl.dense_solver.stats = DenseSolveStats()
+        t0 = time.perf_counter()
+        results = ctrl.schedule(batch or pods, env.cluster.nodes_snapshot())
+        sync(dev)
+        return sidecar_plan(results), (time.perf_counter() - t0) * 1e3
+
+    server = SolverServer(device=dev)
+    remote(server)  # warm-up: catalog upload, encodings
+    captures = []
+    runs = [remote(server, captures) for _ in range(SIDECAR_TRIALS)]
+    holds = hold_kernel_calls(captures, dev)
+    local()
+    local_runs = [local() for _ in range(SIDECAR_TRIALS)]
+    # the same pods as the server gets them: unpickled, so no requirement
+    # or request the scheduler memoizes on a pod object is cached yet
+    cold_runs = [local(pickle.loads(pickle.dumps(pods))) for _ in range(SIDECAR_TRIALS)]
+    plain_server = SolverServer(device=dev)
+    seams = dense_module.bucket_cost_packed, fill_module.admission_counts
+    dense_module.bucket_cost_packed, fill_module.admission_counts = bucket_type_cost_packed, plain_admission_counts
+    try:
+        plain_plan, plain_rec = remote(plain_server)
+    finally:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = seams
+    plan = runs[-1][0]
+    records = [r for _p, r in runs]
+    same_runs = all(p == plan for p, _r in runs)
+    same_local = all(p == plan for p, _ms in local_runs + cold_runs)
+    same_plain = plain_plan == plan
+
+    def median(key):
+        return statistics.median(r[key] for r in records)
+
+    line = {
+        "phase": "solver_sidecar",
+        "config": name,
+        "card": card_name,
+        "pods": pods_n,
+        "standing_nodes": standing,
+        "types": HEADLINE_TYPES,
+        "min_batch": 1,
+        "transport": "in-process pickle round trip (SolverServer.schedule_bytes, serve()'s gRPC handler)",
+        "request_bytes": median("request_bytes"),
+        "response_bytes": median("response_bytes"),
+        "wall_ms": median("wall_ms"),
+        "build_request_ms": median("build_request_ms"),
+        "pickle_ms": median("pickle_ms"),
+        "server_ms": median("server_ms"),
+        "server_solve_ms": median("server_solve_ms"),
+        "server_unpickle_pickle_ms": median("server_unpickle_pickle_ms"),
+        "materialize_ms": median("materialize_ms"),
+        "in_process_schedule_ms": statistics.median(ms for _p, ms in local_runs),
+        "in_process_cold_pods_schedule_ms": statistics.median(ms for _p, ms in cold_runs),
+        "phases_ms": records[-1]["phases_ms"],
+        "runs": records,
+        "in_process_schedule_ms_runs": [ms for _p, ms in local_runs],
+        "in_process_cold_pods_schedule_ms_runs": [ms for _p, ms in cold_runs],
+        "kernel_launches": {k: [r["launches"][k] for r in records] for k in ("bucket_type_cost", "warm_fill_counts")},
+        "kernel_holds": holds,
+        "new_nodes": len(plan["new_nodes"]),
+        "pods_on_existing": sum(len(v[1]) for v in plan["existing"]),
+        "unschedulable": len(plan["unschedulable"]),
+        "cost": plan["cost"],
+        "runs_identical": same_runs,
+        "in_process_identical": same_local,
+        "plain_server": {"launches": plain_rec["launches"], "server_solve_ms": plain_rec["server_solve_ms"], "identical": same_plain},
+    }
+    emit(line)
+    check(not any(r["error"] for r in records), f"{name}: the server's solve failed: {records[-1]['error']}")
+    for i, r in enumerate(records):
+        check(r["launches"] == {"bucket_type_cost": 1, "warm_fill_counts": 1}, f"{name}: remote solve {i} launched {r['launches']}")
+    check(len(holds) == 2 * SIDECAR_TRIALS and all(h["identical"] for h in holds), f"{name}: a kernel call differs from its plain version: {holds}")
+    check(not plan["unschedulable"] and plan["existing"] and plan["new_nodes"], f"{name}: the plan is not the overflow's (existing and new nodes, none unschedulable)")
+    check(same_runs and same_local, f"{name}: the remote plans differ from each other or from the in-process schedule")
+    check(not any(plain_rec["launches"].values()), f"{name}: the plain versions' server launched {plain_rec['launches']}")
+    check(same_plain, f"{name}: the plain versions' server planned differently")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     try:
-        from karpenter_tpu_torch import testing
+        from karpenter_tpu_torch import logsetup, testing
         from karpenter_tpu_torch.api.objects import Taint
         from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
         from karpenter_tpu_torch.ops import bucket_cost, warmfill
@@ -2426,6 +2948,25 @@ def main() -> int:
     # the drain, the post-drain round and the gc sweep
     wave_line = interruption_reclaim_wave(dev, min_batch, card_name)
 
+    # 12c. the controller process: the entry point booted as a child (the
+    # crossover measured at boot, the probes, SIGTERM), the headline batch
+    # through a running Runtime's threads, and the solve in the sidecar. The
+    # Runtimes configure the port's log handler at info; later phases log
+    # warnings only
+    runtime_boot(card_name)
+    runtime_line = runtime_round(dev, card_name)
+    sidecar_line = solver_sidecar(dev, card_name)
+    logsetup.set_level("warning")
+
+    def runtime_launches(kernel_name):
+        """The Runtime cell's launches of one kernel: in the threaded window
+        and in the synchronous provision_once() (the boot's probe runs in
+        the child process, whose counts are not readable here)."""
+        return {
+            "runtime_round": runtime_line["kernel_launches"][kernel_name],
+            "provision_once": runtime_line["provision_once"]["kernels"]["launches"][kernel_name],
+        }
+
     def interruption_launches(kernel_name):
         """The wave's launches of one kernel over its timed runs, in the
         re-solves and in the post-drain rounds."""
@@ -2495,6 +3036,8 @@ def main() -> int:
                 "controller_launches": controller_launches("bucket_type_cost"),
                 "disruption_launches": disruption_launches("bucket_type_cost"),
                 "interruption_launches": interruption_launches("bucket_type_cost"),
+                "runtime_launches": runtime_launches("bucket_type_cost"),
+                "sidecar_launches": sidecar_line["kernel_launches"]["bucket_type_cost"],
                 "max_abs_err": max_err,
                 "ms": kernel_ms,
                 "kernel_ms": kernel_ms,
@@ -2523,6 +3066,8 @@ def main() -> int:
                 "controller_launches": controller_launches("warm_fill_counts"),
                 "disruption_launches": disruption_launches("warm_fill_counts"),
                 "interruption_launches": interruption_launches("warm_fill_counts"),
+                "runtime_launches": runtime_launches("warm_fill_counts"),
+                "sidecar_launches": sidecar_line["kernel_launches"]["warm_fill_counts"],
                 "max_abs_err": k2_err,
                 "ms": k2_ms,
                 "kernel_ms": k2_ms,

@@ -12,10 +12,8 @@ cluster-state nomination TTL prevent double-provisioning in the meantime.
 
 The port's copy of karpenter_tpu/controllers/provisioning/provisioner.py.
 Left out: the telemetry (metrics, trace spans, the pod journal, the flight
-recorder and the decision log), the solver sidecar, so a set
-`remote_solver` raises, and the Runtime's knobs (the leadership gate, the
-backoff option), which come back with the Runtime (ROADMAP A9). Two
-deliberate differences from the reference:
+recorder and the decision log; ROADMAP A8). Three deliberate differences
+from the reference:
 
 - its batch loop logs a failed round and goes on; the port's ends at the
   first round that raises, keeps the exception in `error`, and `stop()`
@@ -23,7 +21,11 @@ deliberate differences from the reference:
 - its capacity-failure re-solve takes the cluster state as it stands,
   where the pods the round nominated are not yet bound, so it hands their
   capacity out again; the port's re-solve counts them on their nodes, in
-  the nodes' free resources and in the topology domains.
+  the nodes' free resources and in the topology domains (over the solver
+  sidecar too: the request ships them as bound to their nodes);
+- where the solver sidecar fails, its `schedule` falls back to the local
+  scheduler; the port's lets the RemoteSchedulingError out of `schedule()`
+  (and so out of the round), as a failure on the card would.
 """
 
 from __future__ import annotations
@@ -62,19 +64,25 @@ class ProvisionerController:
         remote_solver=None,
         wait_for_cluster_sync: bool = True,
         clock=None,
+        ice_backoff_seconds: Optional[float] = None,
+        leader_check=None,
     ):
         from ...utils.clock import Clock
 
-        if remote_solver is not None:
-            raise NotImplementedError(
-                "remote_solver: the solver sidecar (service/client.py) is not ported yet (ROADMAP A9)"
-            )
         self.kube = kube
+        # leadership gate (runtime.py _may_act): when set, the batch loop
+        # holds a completed batch until the gate opens instead of launching
+        # as a deposed leader. None = always act (embedded and test callers
+        # with no election)
+        self._leader_check = leader_check
         self.cluster = cluster
         self.cloud_provider = cloud_provider
         self.config = config or Config()
         self.recorder = recorder or Recorder()
         self.dense_solver = dense_solver
+        # the solver sidecar (service/client.py): batches at or above the
+        # crossover solve there; a failed remote solve raises
+        self.remote_solver = remote_solver
         self.wait_for_cluster_sync = wait_for_cluster_sync
         self.clock = clock or kube.clock or Clock()
         self.batcher = Batcher(self.config, self.clock)
@@ -89,6 +97,7 @@ class ProvisionerController:
         # the escalation ladder (next-cheapest offering -> next type ->
         # re-solve) is exhausted; get_pods skips it until the instant passes
         # so a total crunch cannot hot-loop the solver against the wall
+        self.ice_backoff_seconds = ice_backoff_seconds if ice_backoff_seconds is not None else self.ICE_BACKOFF_SECONDS
         self._ice_backoff: Dict[tuple, float] = {}  # (namespace, name) -> retry-after instant
         # liveness for unschedulable leftovers: a round that could not place
         # every pod re-enters on this deadline even with no fresh pod event
@@ -124,6 +133,13 @@ class ProvisionerController:
             self.batcher.wait(deadline=self._earliest_ice_retry())
             if self._stop.is_set():
                 return
+            # leader-flap gate: a deposed leader HOLDS the batch (the pods
+            # stay pending, a successor will pick them up or we will on
+            # re-election) rather than launching capacity it no longer owns
+            while self._leader_check is not None and not self._leader_check():
+                if self._stop.is_set():
+                    return
+                self.clock.sleep(0.05)
             try:
                 self.provision()
             except Exception as exc:
@@ -204,7 +220,7 @@ class ProvisionerController:
         # was fully quarantined — re-enters on the deadline, with no fresh
         # pod event needed
         self._unschedulable_retry_at = (
-            self.clock.now() + self.ICE_BACKOFF_SECONDS if any_unschedulable else None
+            self.clock.now() + self.ice_backoff_seconds if any_unschedulable else None
         )
         if pods:
             log.info(
@@ -235,7 +251,7 @@ class ProvisionerController:
         still hit insufficient capacity. Mark each pod unschedulable — an
         event, and a backoff that keeps the pod out of the next batches
         until the unavailable-offering TTL has a chance to restore a pool."""
-        retry_at = self.clock.now() + self.ICE_BACKOFF_SECONDS
+        retry_at = self.clock.now() + self.ice_backoff_seconds
         for vn in failed_nodes:
             for pod in vn.pods:
                 self.recorder.pod_failed_to_schedule(
@@ -247,7 +263,7 @@ class ProvisionerController:
         log.warning(
             "capacity-failure escalation exhausted for %d pod(s); backing off %.1fs",
             sum(len(vn.pods) for vn in failed_nodes),
-            self.ICE_BACKOFF_SECONDS,
+            self.ice_backoff_seconds,
         )
 
     def get_pods(self) -> List[Pod]:
@@ -299,6 +315,30 @@ class ProvisionerController:
         # a provisioner being deleted must not place new capacity
         # (provisioning suite: "should ignore provisioners that are deleting")
         provisioners = [p for p in self.kube.list_provisioners() if p.metadata.deletion_timestamp is None]
+        if self.remote_solver is not None and len(pods) >= self._remote_min_batch():
+            from ...scheduler.builder import apply_kubelet_max_pods
+
+            # the same kubelet maxPods cap the local build applies — the
+            # client materializes launch options from THIS universe, so an
+            # uncapped list would launch nodes at native pod density
+            instance_types = {
+                p.name: apply_kubelet_max_pods(p, self.cloud_provider.get_instance_types(p)) for p in provisioners
+            }
+            results = self.remote_solver.solve(
+                provisioners,
+                instance_types,
+                pods,
+                daemonset_pods=self.daemonset_pods(),
+                state_nodes=state_nodes,
+                kube=self.kube,
+                simulation_mode=bool(opts and opts.simulation_mode),
+                exclude_nodes=list(opts.exclude_nodes) if opts else [],
+                nominated=nominated,
+            )
+            if not (opts and opts.simulation_mode):
+                for pod, err in results.unschedulable.items():
+                    self.recorder.pod_failed_to_schedule(pod, err)
+            return results
         scheduler = build_scheduler(
             provisioners,
             self.cloud_provider,
@@ -313,6 +353,15 @@ class ProvisionerController:
             nominated=nominated,
         )
         return scheduler.solve(pods)
+
+    def _remote_min_batch(self) -> int:
+        """Below the host/device crossover the wire trip plus the sidecar's
+        device solve loses to the local exact loop on both latency and node
+        cost — route small batches locally even when a sidecar is
+        configured."""
+        from ...utils.options import DENSE_MIN_BATCH_DEFAULT
+
+        return self.dense_solver.min_batch if self.dense_solver is not None else DENSE_MIN_BATCH_DEFAULT
 
     def daemonset_pods(self) -> List[Pod]:
         """Pod templates of every DaemonSet, for per-template overhead."""

@@ -35,8 +35,9 @@ A divergence heals: the engine's residency is invalidated with reason
 discards the audited pass's encoding (and the cube cache on cube-stale).
 
 The auditor is an object the caller creates and hands to the DenseSolver
-(`auditor=`), not a process-wide singleton. Like the engine, it lives in the
-single-threaded provisioning loop. A readback that fails raises out of the
+(`auditor=`), not a process-wide singleton. Its audit interval is a
+constructor argument (the Runtime passes --residency-audit-interval; left
+unset, it is INTERVAL at construction). Like the engine, it lives in the single-threaded provisioning loop. A readback that fails raises out of the
 solve. Counters are plain attributes (`divergences`, `audits`, `heals`).
 """
 
@@ -113,8 +114,9 @@ class ResidencyAuditor:
     checkpoint all describe the same instant. `seed` seeds the sampled
     draw."""
 
-    def __init__(self, seed: int = 0):
+    def __init__(self, seed: int = 0, interval: Optional[int] = None):
         self.seed = int(seed)
+        self.interval = INTERVAL if interval is None else int(interval)
         self.passes = 0
         self.audits = 0
         self.heals = 0
@@ -150,7 +152,7 @@ class ResidencyAuditor:
         if res is None or not views:
             return None
         self.passes += 1
-        if self.passes % INTERVAL != 0:
+        if self.passes % self.interval != 0:
             return None
         # the mirror's row identity must match the caller's snapshot
         # exactly (advance() just committed against these views); anything

@@ -7,8 +7,8 @@ warm-up call out. Where a measurement fails, the JAX package returns its
 default and the port raises. The port's default dispatch (the bucket ->
 type cost kernel's wrapper at the probe shape) runs here on the CPU, where
 the wrapper takes its plain version; asked for the card without one, it
-raises. The two Runtime cases of tests/test_crossover.py wait for the
-port's Runtime (ROADMAP A9).
+raises. The two Runtime cases of tests/test_crossover.py are held in
+tests/test_torch_runtime.py.
 """
 
 from __future__ import annotations

@@ -22,10 +22,7 @@ tests/test_crash_recovery.py's TestRecoverLedgerReconstruction
 
 Left out of tests/test_disruption.py:
 - TestTraceChain (test_drift_chain_is_one_trace): the port has no tracer
-  yet (ROADMAP A8);
-- TestBudgetValidation.test_webhook_rejects_invalid_budgets: the admission
-  webhooks (webhooks.py) are not ported yet (ROADMAP A9); the validation
-  itself (validate_disruption) is held by the other cases of the class.
+  yet (ROADMAP A8).
 
 A port-only case makes a kernel wrapper raise inside a what-if: the
 exception leaves DisruptionController.reconcile() and is not logged as
@@ -236,6 +233,20 @@ class TestBudgetValidation:
                 assert any("blocks all voluntary disruption permanently" in e for e in errs), nodes
                 got.append(errs)
             return got
+
+        dboth(scenario, "host")
+
+    def test_webhook_rejects_invalid_budgets(self):
+        def scenario(k):
+            import importlib
+
+            webhooks = importlib.import_module("karpenter_tpu.webhooks" if k.side == "ref" else "karpenter_tpu_torch.webhooks")
+            kube = k.kube_module.KubeCluster()
+            webhooks.register(kube)
+            with pytest.raises(webhooks.AdmissionError, match="budget nodes") as err:
+                kube.create(k.make_provisioner(budgets=[k.Budget(nodes="lots")]))
+            kube.create(k.make_provisioner(name="ok", budgets=[k.Budget(nodes="10%")]))
+            return str(err.value), [p.name for p in kube.list_provisioners()]
 
         dboth(scenario, "host")
 

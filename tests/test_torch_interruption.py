@@ -18,7 +18,7 @@ min_batch=1, so every proactive re-solve goes dense. Instance ids (and so
 node names) count from 1 per backend, and nodes launch one at a time, so
 both sides name them alike.
 
-Left for ROADMAP A9: the `http` transport of the end-to-end drill
+Left for ROADMAP A9b: the `http` transport of the end-to-end drill
 (`test_spot_interruption_drill_end_to_end[http]`, CloudAPIService and
 CloudAPIClient). The reference's
 test_transient_solve_failure_retries_on_redelivery holds the port's one

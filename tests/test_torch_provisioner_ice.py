@@ -20,7 +20,8 @@ on both packages; and the port's batch loop, which stops on a failed round.
   instance_types(100), every offering of the 25 cheapest types marked
   unavailable, one round through the provisioning controller.
 - The port's own: a round whose solve raises ends the batch loop with the
-  error kept and re-raised by stop(); a set remote_solver raises; the
+  error kept and re-raised by stop(); a failed remote solve raises out of
+  the round instead of falling back to the local scheduler; the
   batcher's window opens, extends and caps under a FakeClock as the JAX
   package's does.
 """
@@ -283,11 +284,36 @@ def test_clean_stop_raises_nothing():
 
 
 def test_remote_solver_is_not_ported():
-    env = testing.Environment()
+    """The JAX package's fallback from a failed remote solve to the local
+    scheduler is not ported: the RemoteSchedulingError leaves the round and
+    nothing launches. A batch below the crossover never reaches the
+    sidecar."""
     from karpenter_tpu_torch.controllers.provisioning import ProvisionerController
+    from karpenter_tpu_torch.service.client import RemoteSchedulingError
+    from karpenter_tpu_torch.solver import DenseSolver
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        ProvisionerController(env.kube, env.cluster, env.provider, remote_solver=object())
+    class FailingSidecar:
+        calls = 0
+
+        def solve(self, *args, **kwargs):
+            FailingSidecar.calls += 1
+            raise RemoteSchedulingError("solver service unreachable: refused")
+
+    env = testing.Environment()
+    env.kube.create(testing.make_provisioner())
+    env.kube.create(testing.make_pod(requests={"cpu": 0.5}))
+    controller = ProvisionerController(
+        env.kube, env.cluster, env.provider, remote_solver=FailingSidecar(),
+        dense_solver=DenseSolver(min_batch=2, device="cpu"), clock=env.clock,
+    )
+    results = controller.provision()  # 1 pod < min_batch 2: solved locally
+    assert FailingSidecar.calls == 0 and sum(len(n.pods) for n in results.new_nodes) == 1
+    nodes = len(env.kube.list_nodes())
+    env.kube.create(testing.make_pod(requests={"cpu": 0.5}))
+    env.kube.create(testing.make_pod(requests={"cpu": 0.5}))
+    with pytest.raises(RemoteSchedulingError, match="unreachable"):
+        controller.provision()
+    assert FailingSidecar.calls == 1 and len(env.kube.list_nodes()) == nodes
 
 
 class _ScriptedClock:

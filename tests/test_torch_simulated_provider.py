@@ -10,7 +10,7 @@ The end-to-end case runs the reference's Runtime against the port's
 SimulatedEnv (the controllers a Runtime wires), with the exact host loop
 and with the dense solve at min_batch=1.
 
-Left for ROADMAP A9: the `http` transport, on which the reference runs
+Left for ROADMAP A9b: the `http` transport, on which the reference runs
 the whole suite a second time (CloudAPIService and CloudAPIClient).
 """
 
