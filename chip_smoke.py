@@ -83,7 +83,24 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     plain versions must place identically; solver_sidecar hands the
     overflow round's request, pickled as serve()'s gRPC handler takes it,
     to a SolverServer on the card (K2, then K1) and holds the plan equal to
-    the in-process schedule and to a plain-versions server's.
+    the in-process schedule and to a plain-versions server's, then sends
+    the same request over a gRPC loopback (service.server.serve() and
+    service.client.SolverClient) and holds that plan and its kernel calls
+    the same way;
+  - the wire (kube/apiserver.py, kube/client.py, kube/codec.py):
+    runtime_round_http runs runtime_round's cell with the Runtime on an
+    HttpKubeClient (built by cmd/controller.build_kube_backend for
+    --apiserver-url, 200 QPS / 300 burst) against an APIServer on
+    127.0.0.1 in a child process, the standing nodes and the batch written
+    in that process as other clients' writes; its LIST, watch delivery and
+    node POSTs are measured, every K1/K2 call held, and the outcome must
+    equal the in-memory round's; controller_process_http boots `python -m
+    karpenter_tpu_torch.cmd.controller --apiserver-url <url>` as a child
+    against an apiserver process, writes the headline batch onto the empty
+    cluster, times the first pod
+    to the last Node the child POSTs, holds the node types against an
+    in-process solve (kernels and plain versions), and requires the Lease
+    released and exit code 0 on SIGTERM.
 
 K2 is held against its plain version three ways per input: through its
 wrapper on CUDA tensors, through the warm solve's round trip from host
@@ -209,6 +226,15 @@ RUNTIME_DEADLINE_S = 120.0
 LOOP_PASS_DEADLINE_S = 10.0
 SIDECAR = ("solver_sidecar", HEADLINE_PODS, 300)
 SIDECAR_TRIALS = 3
+GRPC_TIMEOUT_S = 300.0
+# the wire (kube/apiserver.py, kube/client.py): runtime_round's cell over
+# HTTP, and a fresh controller process against an apiserver on an empty
+# cluster
+RUNTIME_ROUND_HTTP = ("runtime_round_http", HEADLINE_PODS, 300)
+CONTROLLER_PROCESS_HTTP = ("controller_process_http", HEADLINE_PODS)
+HTTP_ROUND_DEADLINE_S = 180.0
+NODES_SETTLE_S = 3.0
+THREAD_JOIN_DEADLINE_S = 60.0
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 
@@ -2284,6 +2310,79 @@ def runtime_outcome(kube, placed, prices) -> dict:
     return {"launched": sorted(launched), "standing": sorted(standing), "price_per_hour": price}
 
 
+def drive_runtime_round(rt, env, dev, names, write_batch, deadline_s: float) -> dict:
+    """One round of a Runtime cell: start() the Runtime (elected and
+    recovered when it returns), write the batch through `write_batch` (which
+    returns the instants its first write began and its last one ended), wait
+    until every pod in `names` is nominated and the lifecycle and disruption
+    loops have passed at least once, then until every node a pod went to is
+    in the Runtime's Cluster, and stop() it. Every K1 and K2 call from
+    start() to stop() is captured (`captures`, for hold_kernel_calls); each
+    launch call's placements land in `placed`, the instant it returned in
+    `ends`. The seams are put back whatever happens, and the Runtime is
+    stopped."""
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+
+    placed, ends, captures = [], [], []
+    watch_placements(rt.provisioner, placed, ends)
+    seams = dense_module.bucket_cost_packed, fill_module.admission_counts
+    capture_kernel_calls(captures)
+    stopped = False
+    try:
+        t_start = time.perf_counter()
+        rt.start()
+        start_ms = (time.perf_counter() - t_start) * 1e3
+        recovered = dict(rt.passes)
+        read_launches()
+        t0, created = write_batch()
+        deadline = time.perf_counter() + deadline_s
+        nominated = set()
+        while time.perf_counter() < deadline and rt.healthy():
+            nominated = {p.name for _n, pod_list in list(placed) for p in pod_list}
+            if names <= nominated:
+                break
+            time.sleep(0.02)
+        done = max(ends) if ends else time.perf_counter()
+        loop_deadline = time.perf_counter() + LOOP_PASS_DEADLINE_S
+        while time.perf_counter() < loop_deadline and rt.healthy() and not (rt.passes.get("node", 0) >= 1 and rt.passes.get("disruption", 0) >= 1):
+            time.sleep(0.05)
+        sync(dev)
+        launches = read_launches()
+        passes = dict(rt.passes)
+        healthy = rt.healthy()
+        by_node = {}
+        for node_name, pod_list in placed:
+            by_node.setdefault(node_name, set()).update(p.name for p in pod_list)
+        # a launched node reaches the Runtime's Cluster through its watch
+        known_deadline = time.perf_counter() + LOOP_PASS_DEADLINE_S
+        while time.perf_counter() < known_deadline and any(rt.cluster.get_state_node(n) is None for n in by_node):
+            time.sleep(0.05)
+        broken = broken_placements(env, by_node)
+        t_stop = time.perf_counter()
+        stopped = True
+        rt.stop()  # re-raises what ended a loop, if anything did
+        stop_ms = (time.perf_counter() - t_stop) * 1e3
+    finally:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = seams
+        if not stopped:
+            rt.stop()
+    return {
+        "placed": placed, "ends": ends, "captures": captures, "start_ms": start_ms, "recovered": recovered,
+        "t0": t0, "created": created, "done": done, "nominated": nominated, "launches": launches,
+        "passes": passes, "healthy": healthy, "broken": broken, "t_stop": t_stop, "stop_ms": stop_ms,
+    }
+
+
+def runtime_reads(rt, kube, run, catalog, dev) -> tuple:
+    """What a stopped Runtime's round left, read through `kube`: whether
+    its Lease was released, its captured kernel calls held against their
+    plain versions, and its outcome (runtime_outcome)."""
+    released = lease_released(kube, rt.elector.identity)
+    holds = hold_kernel_calls(run["captures"], dev)
+    return released, holds, runtime_outcome(kube, run["placed"], {it.name(): it.price() for it in catalog})
+
+
 def runtime_provision_once(dev, min_batch: int, plain: bool) -> dict:
     """A fresh Runtime (leader election off, the dense solver at
     `min_batch`) on a fresh store of the runtime cell's contents, driven by
@@ -2337,12 +2436,11 @@ def runtime_round(dev, card_name) -> dict:
     Then two fresh Runtimes at the measured min_batch, one with the kernels
     and one with the plain versions, each run one provision_once() and must
     place identically."""
+    from collections import Counter
     from types import SimpleNamespace
 
     from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
     from karpenter_tpu_torch.runtime import Runtime
-    from karpenter_tpu_torch.solver import dense as dense_module
-    from karpenter_tpu_torch.solver import warmfill as fill_module
     from karpenter_tpu_torch.utils.options import parse
 
     name, pods_n, standing = RUNTIME_ROUND
@@ -2355,54 +2453,19 @@ def runtime_round(dev, card_name) -> dict:
     min_batch = rt.dense_solver.min_batch
     env = SimpleNamespace(controller=rt.provisioner, solver=rt.dense_solver, kube=kube, cluster=rt.cluster)
     rec = instrument(env, dev)
-    placed, ends, captures = [], [], []
-    watch_placements(rt.provisioner, placed, ends)
     names = {p.name for p in pods}
-    seams = dense_module.bucket_cost_packed, fill_module.admission_counts
-    capture_kernel_calls(captures)
-    stopped = False
-    try:
-        t_start = time.perf_counter()
-        rt.start()
-        start_ms = (time.perf_counter() - t_start) * 1e3
-        recovered = dict(rt.passes)
-        read_launches()
+
+    def write_batch():
         t0 = time.perf_counter()
         for pod in pods:
             kube.create(pod)
-        created = time.perf_counter()
-        deadline = created + RUNTIME_DEADLINE_S
-        nominated = set()
-        while time.perf_counter() < deadline and rt.healthy():
-            nominated = {p.name for _n, pod_list in list(placed) for p in pod_list}
-            if names <= nominated:
-                break
-            time.sleep(0.02)
-        done = max(ends) if ends else time.perf_counter()
-        loop_deadline = time.perf_counter() + LOOP_PASS_DEADLINE_S
-        while time.perf_counter() < loop_deadline and rt.healthy() and not (rt.passes.get("node", 0) >= 1 and rt.passes.get("disruption", 0) >= 1):
-            time.sleep(0.05)
-        sync(dev)
-        launches = read_launches()
-        passes = dict(rt.passes)
-        healthy = rt.healthy()
-        by_node = {}
-        for node_name, pod_list in placed:
-            by_node.setdefault(node_name, set()).update(p.name for p in pod_list)
-        broken = broken_placements(env, by_node)
-        t_stop = time.perf_counter()
-        stopped = True
-        rt.stop()  # re-raises what ended a loop, if anything did
-        stop_ms = (time.perf_counter() - t_stop) * 1e3
-    finally:
-        dense_module.bucket_cost_packed, fill_module.admission_counts = seams
-        if not stopped:
-            rt.stop()
+        return t0, time.perf_counter()
+
+    run = drive_runtime_round(rt, env, dev, names, write_batch, RUNTIME_DEADLINE_S)
+    recovered, nominated, launches, passes, healthy, broken = (run[k] for k in ("recovered", "nominated", "launches", "passes", "healthy", "broken"))
+    t0, created, done, start_ms, stop_ms = (run[k] for k in ("t0", "created", "done", "start_ms", "stop_ms"))
     alive = [t.name for t in rt.threads() if t.is_alive()]
-    lease = kube.get("Lease", rt.elector.name, rt.elector.namespace)
-    released = lease is not None and lease.spec.holder_identity == rt.elector.identity and lease.spec.renew_time == 0.0
-    holds = hold_kernel_calls(captures, dev)
-    got = runtime_outcome(kube, placed, {it.name(): it.price() for it in catalog})
+    released, holds, got = runtime_reads(rt, kube, run, catalog, dev)
     disruption = rt.disruption.commands._counts
     kernel_run = runtime_provision_once(dev, min_batch, plain=False)
     plain_run = runtime_provision_once(dev, min_batch, plain=True)
@@ -2427,6 +2490,7 @@ def runtime_round(dev, card_name) -> dict:
         "round_schedule_calls": len(schedules),
         "nominated": len(nominated & names),
         "nodes_launched": len(got["launched"]),
+        "launched_types": dict(sorted(Counter(t for t, *_rest in got["launched"]).items())),
         "pods_nominated_onto_standing": sum(len(n[1]) for n in got["standing"]),
         "price_per_hour": got["price_per_hour"],
         "kernel_launches": launches,
@@ -2572,6 +2636,77 @@ def solver_sidecar(dev, card_name) -> dict:
         sync(dev)
         return sidecar_plan(results), (time.perf_counter() - t0) * 1e3
 
+    def over_grpc(captures):
+        """A warm-up and SIDECAR_TRIALS remote solves through
+        service.client.SolverClient against service.server.serve() bound to
+        127.0.0.1:0 on the card: build_request, gRPC with pickle both ways,
+        the server's unpickle, solve and pickle, materialize. Each a (plan,
+        record); the timed solves' K1 and K2 calls land in `captures`."""
+        try:
+            import grpc  # noqa: F401
+        except ImportError as exc:
+            raise PhaseFailed(f"{name}: grpc is not importable, so the gRPC loopback cannot run: {exc}") from exc
+        from karpenter_tpu_torch.service import client as client_module
+        from karpenter_tpu_torch.service.client import SolverClient
+        from karpenter_tpu_torch.service.server import serve
+
+        grpc_server, port, handler = serve("127.0.0.1:0", device=dev)
+        client = SolverClient(f"127.0.0.1:{port}", timeout=GRPC_TIMEOUT_S)
+        marks = {}
+
+        def timed(key, fn):
+            def run(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    out = fn(*args, **kwargs)
+                    if key == "server_solve":
+                        sync(dev)
+                finally:
+                    marks[key] = time.perf_counter() - t
+                if key == "server":
+                    marks["bytes"] = (len(args[0]), len(out))
+                return out
+
+            return run
+
+        build, mat = client_module.build_request, client_module.materialize
+        client_module.build_request, client_module.materialize = timed("build", build), timed("materialize", mat)
+        handler.schedule_bytes, handler.schedule = timed("server", handler.schedule_bytes), timed("server_solve", handler.schedule)
+        seams = dense_module.bucket_cost_packed, fill_module.admission_counts
+        out = []
+        try:
+            for trial in range(1 + SIDECAR_TRIALS):
+                if trial == 1:
+                    capture_kernel_calls(captures)
+                handler.dense_solver.stats = DenseSolveStats()
+                state_nodes = env.cluster.nodes_snapshot()
+                marks.clear()
+                read_launches()
+                t0 = time.perf_counter()
+                results = client.solve(provisioners, instance_types, pods, ctrl.daemonset_pods(), state_nodes, env.kube)
+                wall = time.perf_counter() - t0
+                launches = read_launches()
+                stats = handler.dense_solver.stats
+                out.append((sidecar_plan(results), {
+                    "wall_ms": wall * 1e3,
+                    "build_request_ms": marks["build"] * 1e3,
+                    "grpc_and_client_pickle_ms": (wall - marks["build"] - marks["server"] - marks["materialize"]) * 1e3,
+                    "server_ms": marks["server"] * 1e3,
+                    "server_solve_ms": marks["server_solve"] * 1e3,
+                    "server_unpickle_pickle_ms": (marks["server"] - marks["server_solve"]) * 1e3,
+                    "materialize_ms": marks["materialize"] * 1e3,
+                    "request_bytes": marks["bytes"][0],
+                    "response_bytes": marks["bytes"][1],
+                    "launches": launches,
+                    "phases_ms": {k: getattr(stats, f"{k}_seconds") * 1e3 for k in ("encode", "fill", "fill_device", "device", "mask", "assemble", "device_wait", "commit")},
+                }))
+        finally:
+            dense_module.bucket_cost_packed, fill_module.admission_counts = seams
+            client_module.build_request, client_module.materialize = build, mat
+            client.close()
+            grpc_server.stop(grace=None).wait(timeout=30)
+        return out[1:]
+
     server = SolverServer(device=dev)
     remote(server)  # warm-up: catalog upload, encodings
     captures = []
@@ -2589,11 +2724,16 @@ def solver_sidecar(dev, card_name) -> dict:
         plain_plan, plain_rec = remote(plain_server)
     finally:
         dense_module.bucket_cost_packed, fill_module.admission_counts = seams
+    grpc_captures = []
+    grpc_runs = over_grpc(grpc_captures)
+    grpc_holds = hold_kernel_calls(grpc_captures, dev)
+    grpc_records = [r for _p, r in grpc_runs]
     plan = runs[-1][0]
     records = [r for _p, r in runs]
     same_runs = all(p == plan for p, _r in runs)
     same_local = all(p == plan for p, _ms in local_runs + cold_runs)
     same_plain = plain_plan == plan
+    same_grpc = all(p == plan for p, _r in grpc_runs)
 
     def median(key):
         return statistics.median(r[key] for r in records)
@@ -2631,6 +2771,20 @@ def solver_sidecar(dev, card_name) -> dict:
         "runs_identical": same_runs,
         "in_process_identical": same_local,
         "plain_server": {"launches": plain_rec["launches"], "server_solve_ms": plain_rec["server_solve_ms"], "identical": same_plain},
+        "grpc": {
+            "transport": "service.server.serve() on 127.0.0.1:0 and service.client.SolverClient, one process",
+            "wall_ms": statistics.median(r["wall_ms"] for r in grpc_records),
+            "split_ms": {
+                k: statistics.median(r[k] for r in grpc_records)
+                for k in ("build_request_ms", "grpc_and_client_pickle_ms", "server_ms", "server_solve_ms", "server_unpickle_pickle_ms", "materialize_ms")
+            },
+            "request_bytes": grpc_records[-1]["request_bytes"],
+            "response_bytes": grpc_records[-1]["response_bytes"],
+            "runs": grpc_records,
+            "kernel_launches": {k: [r["launches"][k] for r in grpc_records] for k in ("bucket_type_cost", "warm_fill_counts")},
+            "kernel_holds": grpc_holds,
+            "identical_to_in_process_bytes_path": same_grpc,
+        },
     }
     emit(line)
     check(not any(r["error"] for r in records), f"{name}: the server's solve failed: {records[-1]['error']}")
@@ -2641,6 +2795,553 @@ def solver_sidecar(dev, card_name) -> dict:
     check(same_runs and same_local, f"{name}: the remote plans differ from each other or from the in-process schedule")
     check(not any(plain_rec["launches"].values()), f"{name}: the plain versions' server launched {plain_rec['launches']}")
     check(same_plain, f"{name}: the plain versions' server planned differently")
+    for i, r in enumerate(grpc_records):
+        check(r["launches"] == {"bucket_type_cost": 1, "warm_fill_counts": 1}, f"{name}: gRPC remote solve {i} launched {r['launches']}")
+    check(len(grpc_holds) == 2 * SIDECAR_TRIALS and all(h["identical"] for h in grpc_holds), f"{name}: a kernel call over gRPC differs from its plain version: {grpc_holds}")
+    check(same_grpc, f"{name}: the plans over gRPC differ from the in-process bytes path's")
+    return line
+
+
+def lease_released(kube, identity=None) -> bool:
+    """The controller's Lease in the server, given up: renewTime zeroed by
+    the holder's release (by `identity`, where given)."""
+    from karpenter_tpu_torch.kube.leaderelection import LEASE_NAME, LEASE_NAMESPACE
+
+    lease = kube.get("Lease", LEASE_NAME, LEASE_NAMESPACE)
+    if lease is None:
+        return False
+    return lease.spec.renew_time == 0.0 and (identity is None or lease.spec.holder_identity == identity)
+
+
+def instrument_wire(kube, recording) -> dict:
+    """Wrap an HttpKubeClient's one request path: every request counted by
+    verb and resource and by thread, each node POST timed (the token
+    bucket's wait included), and while `recording.on` is set on the calling
+    thread (the round's get_pods) each request's wall and parsed body kept
+    for its bytes, counted after the run. Its LISTs too: by thread, their
+    count, items and wall (the request and the decode of every item)."""
+    from karpenter_tpu_torch.kube.codec import API_REGISTRY
+
+    plurals = {plural for _version, plural, _namespaced in API_REGISTRY.values()}
+    rec = {"requests": {}, "requests_by_thread": {}, "lists_by_thread": {}, "node_posts_ms": [], "get_pods_requests": []}
+    request, list_kind = kube._request, kube.list
+
+    def timed_list(kind, namespace=None):
+        t0 = time.perf_counter()
+        out = list_kind(kind, namespace)
+        entry = rec["lists_by_thread"].setdefault(threading.current_thread().name, {"lists": 0, "items": 0, "ms": 0.0})
+        entry["lists"] += 1
+        entry["items"] += len(out)
+        entry["ms"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def timed(method, path, body=None):
+        t0 = time.perf_counter()
+        out = request(method, path, body)
+        ms = (time.perf_counter() - t0) * 1e3
+        parts = [p for p in path.split("?")[0].split("/") if p]
+        resource = next((p for p in parts if p in plurals), "?")
+        if parts[-1] in ("binding", "eviction"):
+            resource += "/" + parts[-1]
+        key = f"{method} {resource}"
+        rec["requests"][key] = rec["requests"].get(key, 0) + 1
+        thread = threading.current_thread().name
+        rec["requests_by_thread"][thread] = rec["requests_by_thread"].get(thread, 0) + 1
+        if method == "POST" and path.endswith("/nodes"):
+            rec["node_posts_ms"].append(ms)
+        if getattr(recording, "on", False):
+            rec["get_pods_requests"].append((method, path, ms, out))
+        return out
+
+    kube._request, kube.list = timed, timed_list
+    return rec
+
+
+# an APIServer in a process of its own for runtime_round_http, driven over
+# its stdin: one JSON line answers each command
+APISERVER_CHILD = r"""
+import json, sys, time
+from karpenter_tpu_torch import testing
+from karpenter_tpu_torch.kube.apiserver import APIServer
+from karpenter_tpu_torch.kube.codec import API_REGISTRY, to_wire
+
+srv = APIServer().start()
+create = srv.state.create
+node_times = []
+
+
+def timed_create(kind, namespace, wire):
+    out = create(kind, namespace, wire)
+    if kind == "Node":
+        node_times.append(time.time())
+    return out
+
+
+srv.state.create = timed_create
+
+
+class Writer:
+    def create(self, obj):
+        create(obj.kind, obj.metadata.namespace if API_REGISTRY[obj.kind][2] else "", to_wire(obj))
+
+
+writer, batch = Writer(), []
+print(json.dumps({"url": srv.url}), flush=True)
+for line in sys.stdin:
+    cmd, *args = line.split()
+    if cmd == "standing":
+        testing.standing_cluster(writer, int(args[0]))
+        print(json.dumps({"ok": True}), flush=True)
+    elif cmd == "provisioner":
+        writer.create(testing.make_provisioner())
+        print(json.dumps({"ok": True}), flush=True)
+    elif cmd == "build":
+        batch = testing.rename(testing.build_workload(int(args[0])), args[1])
+        print(json.dumps({"ok": True}), flush=True)
+    elif cmd == "write":
+        t0 = time.time()
+        for pod in batch:
+            writer.create(pod)
+        print(json.dumps({"t0": t0, "t1": time.time()}), flush=True)
+    elif cmd == "report":
+        print(json.dumps({"node_times": node_times}), flush=True)
+    elif cmd == "stop":
+        srv.state.chaos_kill_watches()
+        srv.stop()
+        print(json.dumps({"ok": True}), flush=True)
+        break
+"""
+
+
+class APIServerChild:
+    """kube/apiserver.py's APIServer on 127.0.0.1 in a child process, as a
+    cluster's apiserver runs apart from its controllers: its JSON work
+    (every LIST copied and encoded, every watch event encoded) does not
+    share the controller's interpreter lock. It writes the standing nodes,
+    the provisioner and the batch into its own state as other clients'
+    writes (a real cluster's pods come from many clients, so they neither
+    spend the controller's rate-limited budget nor cross its socket; each
+    takes the server's create path: version, journal, watch fan-out), and
+    stamps each Node it creates with the wall clock."""
+
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", APISERVER_CHILD], stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True
+        )
+        self.url = self._read()["url"]
+
+    def _read(self) -> dict:
+        line = self.proc.stdout.readline()
+        if not line:
+            raise PhaseFailed(f"the apiserver process exited ({self.proc.poll()})")
+        return json.loads(line)
+
+    def command(self, *words) -> dict:
+        self.proc.stdin.write(" ".join(str(w) for w in words) + "\n")
+        self.proc.stdin.flush()
+        return self._read()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                self.command("stop")
+                self.proc.wait(timeout=30)
+            except (OSError, ValueError, PhaseFailed, subprocess.TimeoutExpired):
+                pass
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def runtime_round_http(dev, card_name, memory_line) -> dict:
+    """runtime_round's cell over the wire: an APIServer (kube/apiserver.py)
+    on 127.0.0.1 in a process of its own (APIServerChild) holds the 300
+    standing nodes and the provisioner, written as other clients' writes;
+    the Runtime runs from parse(["--apiserver-url", url]) with the
+    reference's defaults (leader election, 1 s idle / 10 s max windows, the
+    crossover measured, the client's 200 QPS / 300 burst) on the
+    HttpKubeClient that cmd/controller.build_kube_backend builds for that
+    flag. Once it is started, the server writes the headline batch and the
+    phase waits until every pod is nominated. Measured: pods to last
+    nomination, split into the watch's delivery of the last pod to the
+    Runtime's Cluster, the round's get_pods (its LIST's request and bytes),
+    its schedule and phases and the node POSTs; every request the Runtime
+    made, by verb and resource and by thread. Every K1 and K2 call in the
+    window is held bit for bit; the outcome (launches by type, pods onto
+    standing nodes, $/hour) must equal the in-memory runtime_round's; no
+    node over capacity; after stop() the Runtime's threads end, the Lease
+    is released in the server, and the client's watch threads end with the
+    server."""
+    from collections import Counter
+    from types import SimpleNamespace
+
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.cmd.controller import build_kube_backend
+    from karpenter_tpu_torch.controllers.state.cluster import Cluster
+    from karpenter_tpu_torch.kube.client import HttpKubeClient
+    from karpenter_tpu_torch.runtime import Runtime
+    from karpenter_tpu_torch.utils.options import parse
+
+    name, pods_n, standing = RUNTIME_ROUND_HTTP
+    server = APIServerChild()
+    kube = rt = reader = None
+    try:
+        server.command("standing", standing)
+        server.command("provisioner")
+        server.command("build", pods_n, "rth")
+        names = {f"dp-rth-{i:04d}" for i in range(pods_n)}
+        catalog = instance_types(HEADLINE_TYPES)
+        options = parse(["--apiserver-url", server.url])
+        kube, url = build_kube_backend(options)
+        # the checks' reads after the run, apart from the Runtime's budget
+        reader = HttpKubeClient(url, qps=1e9, burst=10**9)
+        recording = threading.local()
+        wire = instrument_wire(kube, recording)
+        delivered = {}
+        on_pod_event = Cluster._on_pod_event
+
+        def timed_pod_event(self, event):
+            on_pod_event(self, event)
+            if event.obj.name in names and event.obj.name not in delivered:
+                delivered[event.obj.name] = time.perf_counter()
+
+        # the Cluster the Runtime builds registers this handler with its watch
+        Cluster._on_pod_event = timed_pod_event
+        try:
+            t_boot = time.perf_counter()
+            rt = Runtime(kube=kube, cloud_provider=FakeCloudProvider(catalog), options=options, device=dev)
+            construct_ms = (time.perf_counter() - t_boot) * 1e3
+        finally:
+            Cluster._on_pod_event = on_pod_event
+        min_batch = rt.dense_solver.min_batch
+        env = SimpleNamespace(controller=rt.provisioner, solver=rt.dense_solver, kube=reader, cluster=rt.cluster)
+        rec = instrument(env, dev)
+        timed_get_pods = rt.provisioner.get_pods
+        round_starts = []
+
+        def recorded_get_pods():
+            round_starts.append(time.perf_counter())
+            recording.on = True
+            try:
+                return timed_get_pods()
+            finally:
+                recording.on = False
+
+        rt.provisioner.get_pods = recorded_get_pods
+        clocks = {}
+
+        def write_batch():
+            # the server's wall clock, mapped onto this process's perf_counter
+            clocks["perf0"], clocks["wall0"] = time.perf_counter(), time.time()
+            written = server.command("write")
+            return tuple(clocks["perf0"] + (written[k] - clocks["wall0"]) for k in ("t0", "t1"))
+
+        run = drive_runtime_round(rt, env, dev, names, write_batch, HTTP_ROUND_DEADLINE_S)
+        nominated, launches, passes, healthy, broken = (run[k] for k in ("nominated", "launches", "passes", "healthy", "broken"))
+        t0, created, done, start_ms, stop_ms, t_stop = (run[k] for k in ("t0", "created", "done", "start_ms", "stop_ms", "t_stop"))
+        schedules = list(rec["schedule"])
+        # stop() joins each thread for 5 s; a loop in the middle of a pass
+        # over the wire ends at its next check of the stop flag
+        stragglers = [t.name for t in rt.threads() if t.is_alive()]
+        join_deadline = time.perf_counter() + THREAD_JOIN_DEADLINE_S
+        for t in rt.threads():
+            t.join(timeout=max(0.0, join_deadline - time.perf_counter()))
+        joined_ms = (time.perf_counter() - t_stop) * 1e3
+        alive = [t.name for t in rt.threads() if t.is_alive()]
+        released, holds, got = runtime_reads(rt, reader, run, catalog, dev)
+        node_times = [clocks["perf0"] + (w - clocks["wall0"]) for w in server.command("report")["node_times"]]
+    finally:
+        for client in (kube, reader):
+            if client is not None:
+                client.stop()
+        server.stop()
+    watch_threads = [t for t in (kube._watch_threads if kube is not None else []) if t.is_alive()]
+    for t in watch_threads:
+        t.join(timeout=5)
+    watch_alive = [t.name for t in watch_threads if t.is_alive()]
+    list_requests = [(ms, out) for m, _p, ms, out in wire["get_pods_requests"] if m == "GET" and "items" in out]
+    list_bytes = [len(json.dumps(out).encode()) for _ms, out in list_requests]
+    list_items = [len(out["items"]) for _ms, out in list_requests]
+    list_ms = [ms for ms, _out in list_requests]
+    wire["get_pods_requests"] = None
+    launched_types = dict(sorted(Counter(t for t, *_rest in got["launched"]).items()))
+    onto_standing = sum(len(n[1]) for n in got["standing"])
+    memory = {k: memory_line[k] for k in ("launched_types", "pods_nominated_onto_standing", "price_per_hour")}
+    same_outcome = {
+        "launched_types": launched_types == memory["launched_types"],
+        "pods_nominated_onto_standing": onto_standing == memory["pods_nominated_onto_standing"],
+        # the same prices summed in another order
+        "price_per_hour": abs(got["price_per_hour"] - memory["price_per_hour"]) <= 1e-9 * max(1.0, memory["price_per_hour"]),
+    }
+    last_delivery = max(delivered.values()) if delivered else None
+    first = schedules[0] if schedules else None
+    line = {
+        "phase": "runtime_round_http",
+        "config": name,
+        "card": card_name,
+        "apiserver": "kube/apiserver.py APIServer on 127.0.0.1, a process of its own",
+        "client": {"qps": options.kube_client_qps, "burst": options.kube_client_burst},
+        "pods": pods_n,
+        "standing_nodes": standing,
+        "types": HEADLINE_TYPES,
+        "min_batch": min_batch,
+        "batch_idle_s": options.batch_idle_duration,
+        "batch_max_s": options.batch_max_duration,
+        "construct_ms": construct_ms,
+        "start_ms": start_ms,
+        "create_ms": (created - t0) * 1e3,
+        "pods_to_last_nomination_ms": (done - t0) * 1e3,
+        "last_pod_delivered_to_cluster_ms": (last_delivery - t0) * 1e3 if last_delivery else None,
+        "pods_delivered_to_cluster": len(delivered),
+        "first_round_start_ms": (round_starts[0] - t0) * 1e3 if round_starts else None,
+        "stop_ms": stop_ms,
+        "get_pods_calls": len(rec["get_pods_ms"]),
+        "get_pods_ms": rec["get_pods_ms"],
+        "get_pods_list_ms": list_ms,
+        "get_pods_list_bytes": list_bytes,
+        "get_pods_list_items": list_items,
+        "schedule_calls": len(schedules),
+        "schedule_ms": [s["wall_ms"] for s in schedules],
+        "schedule_pods": [s["pods"] for s in schedules],
+        "phases_ms": first["phases_ms"] if first else None,
+        "launch": rec["launch"],
+        "node_posts": len(wire["node_posts_ms"]),
+        "node_post_ms_total": sum(wire["node_posts_ms"]),
+        "node_post_ms_max": max(wire["node_posts_ms"]) if wire["node_posts_ms"] else None,
+        "first_pod_to_last_node_created_ms": (max(node_times) - t0) * 1e3 if node_times else None,
+        "requests": dict(sorted(wire["requests"].items())),
+        "requests_by_thread": dict(sorted(wire["requests_by_thread"].items())),
+        "lists_by_thread": dict(sorted(wire["lists_by_thread"].items())),
+        "nominated": len(nominated & names),
+        "nodes_launched": len(got["launched"]),
+        "launched_types": launched_types,
+        "pods_nominated_onto_standing": onto_standing,
+        "price_per_hour": got["price_per_hour"],
+        "in_memory": memory,
+        "outcome_equal_to_in_memory": same_outcome,
+        "kernel_launches": launches,
+        "kernel_holds": holds,
+        "passes": passes,
+        "broken": broken,
+        "healthy": healthy,
+        "threads_alive_when_stop_returned": stragglers,
+        "threads_joined_ms_after_stop": joined_ms,
+        "threads_alive_after_stop": alive,
+        "watch_threads_alive_after_server_stop": watch_alive,
+        "server_exit_code": server.proc.returncode,
+        "lease_released": released,
+    }
+    emit(line)
+    check(healthy, f"{name}: the Runtime turned unhealthy")
+    check(names <= nominated, f"{name}: {len(names - nominated)} of {pods_n} pods never nominated within {HTTP_ROUND_DEADLINE_S} s")
+    check(len(schedules) == 1 and schedules[0]["pods"] == pods_n, f"{name}: the batch took {len(schedules)} schedules of {[s['pods'] for s in schedules]} pods, expected one of {pods_n}")
+    check(list_items and list_items[0] == pods_n, f"{name}: the round's LIST returned {list_items} pods")
+    check(passes.get("node", 0) >= 1 and passes.get("disruption", 0) >= 1, f"{name}: the lifecycle and disruption loops did not both pass ({passes})")
+    check(launches["bucket_type_cost"] >= 1 and launches["warm_fill_counts"] >= 1, f"{name}: the window launched {launches}")
+    check(holds and all(h["identical"] for h in holds), f"{name}: a kernel call differs from its plain version: {[h for h in holds if not h['identical']]}")
+    check(all(same_outcome.values()), f"{name}: the outcome differs from the in-memory runtime_round's: {same_outcome}")
+    check(len(wire["node_posts_ms"]) == len(got["launched"]) == len(node_times), f"{name}: {len(wire['node_posts_ms'])} node POSTs, {len(node_times)} nodes created, {len(got['launched'])} launches")
+    check(not any(broken.values()), f"{name}: the round broke placements: {broken}")
+    check(not alive, f"{name}: threads alive {THREAD_JOIN_DEADLINE_S} s after stop(): {alive}")
+    check(released, f"{name}: the Lease was not released in the server")
+    check(not watch_alive and server.proc.returncode == 0, f"{name}: watch threads alive after the server stopped: {watch_alive}; server exit {server.proc.returncode}")
+    return line
+
+
+def expected_node_types(results) -> dict:
+    """The instance types the controller process's provider (the default
+    FakeCloudProvider) launches for a solve's new nodes (its create picks
+    the first option with a matching offering), by count; and the new nodes
+    whose pods request more than that type allocates."""
+    from collections import Counter
+
+    from karpenter_tpu_torch.api import labels as lbl
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_tpu_torch.cloudprovider.types import NodeRequest
+    from karpenter_tpu_torch.utils import resources as res
+
+    provider = FakeCloudProvider()
+    by_name = {it.name(): it for n in results.new_nodes for it in n.instance_type_options}
+    types, over = Counter(), 0
+    for n in results.new_nodes:
+        if not n.pods:
+            continue
+        node = provider.create(NodeRequest(template=n.template, instance_type_options=n.instance_type_options))
+        type_name = node.metadata.labels[lbl.LABEL_INSTANCE_TYPE]
+        types[type_name] += 1
+        it = by_name[type_name]
+        free = res.subtract(res.subtract(it.resources(), it.overhead()), res.requests_for_pods(*n.pods))
+        over += any(v < -1e-6 for v in free.values())
+    return {"types": dict(sorted(types.items())), "over_capacity": over}
+
+
+def controller_process_http(dev, card_name, command=None) -> dict:
+    """A fresh controller process against an apiserver: an APIServer on
+    127.0.0.1 in a process of its own (APIServerChild), and `python -m
+    karpenter_tpu_torch.cmd.controller --apiserver-url <url>
+    --health-probe-port <free>` (or `command`) as a child on the card. Boot:
+    spawn to both probes answering 200. Then the server writes the default
+    provisioner and the headline batch onto the empty cluster, so every
+    pod lands on a new node (K1 in the child, no K2). Measured: the
+    first pod created to the last Node the child POSTs (its first round,
+    the crossover measured at boot), the Node count, and SIGTERM to exit 0.
+    Held: the multiset of node types equals an in-process
+    build_scheduler(...).solve of the same batch on the entry point's
+    catalog (the default FakeCloudProvider) with the kernels (each K1 call
+    captured and held bit for bit against its plain version, and the
+    node-count guard's fail-opens to the host loop recorded) and with the
+    plain versions, whose new nodes fit their types; the child's log
+    shows one provisioned batch of every pod with none unschedulable and
+    its solver on the card; the Lease is released in the server. The child
+    is killed and the server stopped on any failure."""
+    import re
+    import signal
+
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, default_instance_types
+    from karpenter_tpu_torch.kube.client import HttpKubeClient
+    from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
+    from karpenter_tpu_torch.scheduler import build_scheduler
+    from karpenter_tpu_torch.solver import DenseSolver
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+
+    name, pods_n = CONTROLLER_PROCESS_HTTP
+
+    def in_process(plain: bool) -> dict:
+        pods = testing.rename(testing.build_workload(pods_n), "cph")
+        provisioner = testing.make_provisioner()
+        solver = DenseSolver(min_batch=1, device=dev)
+        saved = dense_module.bucket_cost_packed, fill_module.admission_counts
+        captures = []
+        if plain:
+            dense_module.bucket_cost_packed, fill_module.admission_counts = bucket_type_cost_packed, plain_admission_counts
+        else:
+            capture_kernel_calls(captures)
+        try:
+            read_launches()
+            t0 = time.perf_counter()
+            results = build_scheduler([provisioner], FakeCloudProvider(), pods, dense_solver=solver).solve(pods)
+            sync(dev)
+            wall = (time.perf_counter() - t0) * 1e3
+            launches = read_launches()
+        finally:
+            dense_module.bucket_cost_packed, fill_module.admission_counts = saved
+        return {
+            **expected_node_types(results),
+            "launches": launches,
+            "unschedulable": len(results.unschedulable),
+            "solve_ms": wall,
+            # the dense plan dropped for the exact host loop (the node-count guard)
+            "node_guard_failopens": solver.stats.node_guard_failopens,
+            "kernel_holds": hold_kernel_calls(captures, dev),
+        }
+
+    kernels_solve = in_process(plain=False)
+    plain_solve_rec = in_process(plain=True)
+    want_nodes = sum(kernels_solve["types"].values())
+
+    server = APIServerChild()
+    reader = HttpKubeClient(server.url, qps=1e9, burst=10**9)  # the checks' reads
+    port = free_port()
+    argv = list(command or CONTROLLER_COMMAND) + ["--apiserver-url", server.url, "--health-probe-port", str(port), "--log-level", "info"]
+    lines: list = []
+    proc = log_reader = None
+    ready_ms = shutdown_ms = t_first = created = None
+    node_times, nodes = [], []
+    released = False
+    try:
+        server.command("build", pods_n, "cph")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        log_reader = threading.Thread(target=lambda: lines.extend(proc.stderr), daemon=True)
+        log_reader.start()
+        deadline = t0 + BOOT_DEADLINE_S
+        while time.perf_counter() < deadline and proc.poll() is None:
+            if probe_status(port, "/healthz") == 200 and probe_status(port, "/readyz") == 200:
+                ready_ms = (time.perf_counter() - t0) * 1e3
+                break
+            time.sleep(0.05)
+        if ready_ms is not None:
+            server.command("provisioner")
+            # the server's wall clock, mapped onto this process's perf_counter
+            perf0, wall0 = time.perf_counter(), time.time()
+            written = server.command("write")
+            t_first = perf0 + (written["t0"] - wall0)
+            created = perf0 + (written["t1"] - wall0)
+            deadline = time.perf_counter() + HTTP_ROUND_DEADLINE_S
+            while time.perf_counter() < deadline and proc.poll() is None:
+                node_times = [perf0 + (w - wall0) for w in server.command("report")["node_times"]]
+                last = node_times[-1] if node_times else created
+                if len(node_times) >= want_nodes and time.perf_counter() - last >= NODES_SETTLE_S:
+                    break
+                time.sleep(0.25)
+            nodes = reader.list_nodes()
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=SHUTDOWN_DEADLINE_S)
+                shutdown_ms = (time.perf_counter() - t1) * 1e3
+            except subprocess.TimeoutExpired:
+                pass
+            released = lease_released(reader)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if log_reader is not None:
+            log_reader.join(timeout=10)
+        reader.stop()
+        server.stop()
+    from collections import Counter
+
+    from karpenter_tpu_torch.api import labels as lbl
+
+    log = "".join(lines)
+    batches = [
+        {"pods": int(m.group(1)), "new_nodes": int(m.group(2)), "launched": int(m.group(3)), "on_existing": int(m.group(4)), "unschedulable": int(m.group(5)), "ms": int(m.group(6))}
+        for m in re.finditer(r"provisioned batch: (\d+) pods -> (\d+) new nodes \((\d+) launched\), (\d+) on existing, (\d+) unschedulable in (\d+) ms", log)
+    ]
+    crossover_line = re.search(r"dispatch rt ([0-9.]+) ms -> min_batch (\d+)", log)
+    device = re.search(r"dense_solver=(\S+)", log)
+    child_types = dict(sorted(Counter(n.metadata.labels.get(lbl.LABEL_INSTANCE_TYPE) for n in nodes).items()))
+    line = {
+        "phase": "controller_process_http",
+        "config": name,
+        "card": card_name,
+        "command": argv,
+        "pods": pods_n,
+        "types": len(default_instance_types()),
+        "boot_to_ready_ms": ready_ms,
+        "probe_round_trip_ms": float(crossover_line.group(1)) if crossover_line else None,
+        "min_batch": int(crossover_line.group(2)) if crossover_line else None,
+        "solver_device": device.group(1) if device else None,
+        "create_ms": (created - t_first) * 1e3 if created else None,
+        "first_pod_to_last_node_ms": (node_times[-1] - t_first) * 1e3 if node_times and t_first else None,
+        "first_pod_to_first_node_ms": (node_times[0] - t_first) * 1e3 if node_times and t_first else None,
+        "nodes": len(nodes),
+        "node_types": child_types,
+        "batches": batches,
+        "shutdown_ms": shutdown_ms,
+        "exit_code": proc.returncode if proc is not None else None,
+        "lease_released": released,
+        "in_process": {"kernels": kernels_solve, "plain": plain_solve_rec},
+        "kernel_launches": "in the child (K1's probe at boot, K1 in the round), whose counts this process cannot read",
+        "log_tail": log.splitlines()[-12:],
+    }
+    emit(line)
+    check(ready_ms is not None, f"{name}: the probes did not both answer 200 within {BOOT_DEADLINE_S} s (exit {proc.returncode if proc else None})")
+    check(device is not None and device.group(1).startswith("cuda"), f"{name}: the child's solver ran on {line['solver_device']}")
+    check(kernels_solve["launches"]["bucket_type_cost"] >= 1 and kernels_solve["launches"]["warm_fill_counts"] == 0, f"{name}: the in-process solve launched {kernels_solve['launches']}")
+    holds = kernels_solve["kernel_holds"]
+    check(holds and all(h["identical"] for h in holds), f"{name}: a kernel call of the in-process solve differs from its plain version: {[h for h in holds if not h['identical']]}")
+    check(not any(plain_solve_rec["launches"].values()), f"{name}: the plain versions' solve launched {plain_solve_rec['launches']}")
+    check(kernels_solve["types"] == plain_solve_rec["types"], f"{name}: the kernels' and the plain versions' solves chose other types")
+    check(kernels_solve["over_capacity"] == 0 and kernels_solve["unschedulable"] == 0, f"{name}: the in-process solve: {kernels_solve}")
+    check(sum(b["pods"] for b in batches) == pods_n and all(b["unschedulable"] == 0 for b in batches), f"{name}: the child's batches {batches}")
+    check(child_types == kernels_solve["types"], f"{name}: the child launched {child_types}, the in-process solve {kernels_solve['types']}")
+    check(released, f"{name}: the Lease was not released in the server")
+    check(shutdown_ms is not None and proc.returncode == 0, f"{name}: exit code {proc.returncode} after SIGTERM")
     return line
 
 
@@ -2956,6 +3657,11 @@ def main() -> int:
     runtime_boot(card_name)
     runtime_line = runtime_round(dev, card_name)
     sidecar_line = solver_sidecar(dev, card_name)
+
+    # 12d. the wire: the Runtime's cell over HTTP against an apiserver
+    # process, then a fresh controller process against one
+    runtime_http_line = runtime_round_http(dev, card_name, runtime_line)
+    controller_process_http(dev, card_name)
     logsetup.set_level("warning")
 
     def runtime_launches(kernel_name):
@@ -2966,6 +3672,12 @@ def main() -> int:
             "runtime_round": runtime_line["kernel_launches"][kernel_name],
             "provision_once": runtime_line["provision_once"]["kernels"]["launches"][kernel_name],
         }
+
+    def http_launches(kernel_name):
+        """The wire cells' launches of one kernel: the Runtime's window over
+        HTTP (the fresh process's launches happen in the child, whose counts
+        are not readable here)."""
+        return {"runtime_round_http": runtime_http_line["kernel_launches"][kernel_name], "controller_process_http": "child"}
 
     def interruption_launches(kernel_name):
         """The wave's launches of one kernel over its timed runs, in the
@@ -3038,6 +3750,8 @@ def main() -> int:
                 "interruption_launches": interruption_launches("bucket_type_cost"),
                 "runtime_launches": runtime_launches("bucket_type_cost"),
                 "sidecar_launches": sidecar_line["kernel_launches"]["bucket_type_cost"],
+                "sidecar_grpc_launches": sidecar_line["grpc"]["kernel_launches"]["bucket_type_cost"],
+                "http_launches": http_launches("bucket_type_cost"),
                 "max_abs_err": max_err,
                 "ms": kernel_ms,
                 "kernel_ms": kernel_ms,
@@ -3068,6 +3782,8 @@ def main() -> int:
                 "interruption_launches": interruption_launches("warm_fill_counts"),
                 "runtime_launches": runtime_launches("warm_fill_counts"),
                 "sidecar_launches": sidecar_line["kernel_launches"]["warm_fill_counts"],
+                "sidecar_grpc_launches": sidecar_line["grpc"]["kernel_launches"]["warm_fill_counts"],
+                "http_launches": http_launches("warm_fill_counts"),
                 "max_abs_err": k2_err,
                 "ms": k2_ms,
                 "kernel_ms": k2_ms,

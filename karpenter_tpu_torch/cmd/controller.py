@@ -1,6 +1,6 @@
 """Controller process entry point (cmd/controller/main.go analog).
 
-    python -m karpenter_tpu_torch.cmd.controller --health-probe-port 8081
+    python -m karpenter_tpu_torch.cmd.controller --health-probe-port 8081 [--apiserver-url URL]
 
 Boots the runtime, on the card, against a cluster backend and a cloud
 provider, serves the health and readiness probes from the moment the
@@ -9,9 +9,9 @@ process is up, and stops on SIGINT or SIGTERM.
 The port's copy of karpenter_tpu/cmd/controller.py. Backend selection
 mirrors client-go's config loading: --apiserver-url (or
 $KUBERNETES_APISERVER_URL, or the in-cluster $KUBERNETES_SERVICE_HOST with
-a mounted serviceaccount token) selects the real-protocol HTTP client,
-which is not ported yet and raises NotImplementedError (ROADMAP A9b);
-otherwise the in-memory simulation backend runs. The debug surfaces'
+a mounted serviceaccount token) selects the real-protocol HTTP client at
+the configured QPS/burst budget; otherwise the in-memory simulation backend
+runs. The debug surfaces'
 flags raise through the Runtime (ROADMAP A8). Nothing listens on
 --metrics-port until /metrics is ported (ROADMAP A8); `main` logs a warning
 naming the port at boot, so a deployment that scrapes it sees why. A runtime whose loop dies
@@ -34,14 +34,17 @@ def build_kube_backend(options):
     (rest.InClusterConfig: $KUBERNETES_SERVICE_HOST + mounted token/ca.crt);
     else the in-memory simulation backend. Returns (backend, url)."""
     url = options.apiserver_url
+    ca_file = token_file = None
     if not url and os.environ.get("KUBERNETES_SERVICE_HOST"):
         host = os.environ["KUBERNETES_SERVICE_HOST"]
         if ":" in host:  # IPv6 service host
             host = f"[{host}]"
         port = os.environ.get("KUBERNETES_SERVICE_PORT", "443")
         token_path = os.path.join(SERVICEACCOUNT_DIR, "token")
+        ca_path = os.path.join(SERVICEACCOUNT_DIR, "ca.crt")
         if os.path.exists(token_path):
             url = f"https://{host}:{port}"
+            ca_file, token_file = ca_path, token_path
         else:
             print(
                 "karpenter-tpu: in-cluster apiserver detected but no "
@@ -50,7 +53,20 @@ def build_kube_backend(options):
                 file=sys.stderr,
             )
     if url:
-        raise NotImplementedError(f"apiserver {url}: the HTTP kube client (kube/client.py) is not ported yet (ROADMAP A9b)")
+        from ..kube.client import HttpKubeClient
+        from ..utils.clock import Clock
+
+        return (
+            HttpKubeClient(
+                url,
+                qps=options.kube_client_qps,
+                burst=options.kube_client_burst,
+                clock=Clock(),
+                ca_file=ca_file,
+                token_file=token_file,
+            ),
+            url,
+        )
     from ..kube.cluster import KubeCluster
 
     return KubeCluster(), ""
@@ -94,7 +110,8 @@ def main(argv=None) -> int:
     clock = Clock()
     try:
         runtime.start()
-        print("karpenter-tpu controller running (in-memory backend); Ctrl-C to stop", file=sys.stderr)
+        backend = f"apiserver {url}" if url else "in-memory backend"
+        print(f"karpenter-tpu controller running ({backend}); Ctrl-C to stop", file=sys.stderr)
         while not stop["flag"] and runtime.healthy():
             clock.sleep(0.5)
     finally:

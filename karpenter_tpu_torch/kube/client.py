@@ -1,0 +1,456 @@
+"""HttpKubeClient: the real-protocol Kubernetes client.
+
+Drop-in replacement for the in-memory KubeCluster (kube/cluster.py) that
+speaks HTTP to an apiserver — the in-process emulator (kube/apiserver.py)
+or any endpoint serving the same protocol subset. Mirrors the client stack
+the reference builds on (controllers.go:86-165):
+
+  - rate-limited REST client: a token bucket at 200 QPS / 300 burst, the
+    reference's defaults (utils/options/options.go:65-66)
+  - ListAndWatch informers: watch() lists (replay) then streams chunked
+    watch events on a daemon thread, reconnecting from the last seen
+    resourceVersion and relisting on 410 Gone
+  - optimistic-concurrency handling: update() retries stale-resourceVersion
+    409s by refreshing the version and resending (client-go's
+    RetryOnConflict idiom), preserving KubeCluster's last-write-wins surface
+  - the Eviction (429 on PDB violation) and Binding subresources
+
+Every verb serializes through kube/codec.py, so state observed by
+controllers is always a decoded wire copy — reference semantics, where
+mutating a local object never changes the cluster until written back.
+
+The port's copy of karpenter_tpu/kube/client.py. Left out: the conflict
+counter (ROADMAP A8a) and the relist's journal event (A8b).
+"""
+
+from __future__ import annotations
+
+import http.client
+import json
+import random
+import threading
+from typing import Callable, Dict, List, Optional
+from urllib.parse import urlparse
+
+from ..api.objects import CSINode, Namespace, Node, PersistentVolume, PersistentVolumeClaim, Pod, StorageClass
+from ..api.provisioner import Provisioner
+from ..logsetup import get_logger
+from .cluster import ADDED, DELETED, MODIFIED, Conflict, ConflictExhausted, NotFound, WatchEvent
+from .codec import API_REGISTRY, from_wire, rest_path, to_wire
+
+log = get_logger("kubeclient")
+
+DEFAULT_QPS = 200.0  # options.go:65
+DEFAULT_BURST = 300  # options.go:66
+
+# watch-reconnect backoff: exponential cap with FULL jitter (the apiclient
+# retry idiom) through the clock seam — a restarted apiserver must not be
+# thundering-herded by every informer reconnecting on the same tick
+WATCH_BACKOFF_BASE = 0.05
+WATCH_BACKOFF_CAP = 2.0
+
+
+class TokenBucket:
+    """client-go flowcontrol.NewTokenBucketRateLimiter analog. Time flows
+    through the Clock seam so a FakeClock suite can drive refill
+    deterministically (the analyze clock rule's whole point)."""
+
+    def __init__(self, qps: float, burst: int, clock=None):
+        from ..utils.clock import Clock
+
+        self.qps = qps
+        self.burst = float(burst)
+        self.clock = clock or Clock()
+        self._tokens = float(burst)
+        self._last = self.clock.now()
+        self._lock = threading.Lock()
+
+    def take(self) -> None:
+        while True:
+            with self._lock:
+                now = self.clock.now()
+                self._tokens = min(self.burst, self._tokens + (now - self._last) * self.qps)
+                self._last = now
+                if self._tokens >= 1.0:
+                    self._tokens -= 1.0
+                    return
+                wait = (1.0 - self._tokens) / self.qps
+            self.clock.sleep(wait)
+
+
+class ApiStatusError(RuntimeError):
+    def __init__(self, code: int, body: dict):
+        super().__init__(f"HTTP {code}: {body.get('message', '')}")
+        self.code = code
+        self.body = body
+
+
+class HttpKubeClient:
+    """KubeCluster-surface client over the Kubernetes REST protocol.
+
+    https:// base URLs speak TLS; `ca_file` pins the server CA and
+    `token_file` adds bearer-token auth — together the in-cluster
+    serviceaccount credential set (client-go rest.InClusterConfig)."""
+
+    def __init__(
+        self,
+        base_url: str,
+        qps: float = DEFAULT_QPS,
+        burst: int = DEFAULT_BURST,
+        clock=None,
+        ca_file: Optional[str] = None,
+        token_file: Optional[str] = None,
+    ):
+        from ..utils.clock import Clock
+
+        parsed = urlparse(base_url)
+        self._host = parsed.hostname or "127.0.0.1"
+        self._tls = parsed.scheme == "https"
+        self._port = parsed.port or (443 if self._tls else 80)
+        self._ssl_context = None
+        if self._tls:
+            import ssl
+
+            self._ssl_context = ssl.create_default_context(cafile=ca_file)
+        self._token_file = token_file
+        # same default as KubeCluster: consumers dereference kube.clock.now()
+        self.clock = clock or Clock()
+        self._limiter = TokenBucket(qps, burst, clock=self.clock)
+        self._watch_threads: List[threading.Thread] = []
+        self._watch_cancels: List[tuple] = []  # (kind, handler, cancel Event)
+        self._stop = threading.Event()
+        self._local = threading.local()  # per-thread persistent connection
+        # seeded per client: the jitter must differ BETWEEN informers of one
+        # process (each watch loop draws from the shared stream) while tests
+        # stay reproducible enough to bound the sleep range
+        self._watch_rng = random.Random(0x5EED)
+
+    # -- transport -----------------------------------------------------------
+
+    def _new_connection(self, timeout: float) -> http.client.HTTPConnection:
+        if self._tls:
+            return http.client.HTTPSConnection(self._host, self._port, timeout=timeout, context=self._ssl_context)
+        return http.client.HTTPConnection(self._host, self._port, timeout=timeout)
+
+    def _auth_headers(self) -> Dict[str, str]:
+        if self._token_file is None:
+            return {}
+        try:
+            # re-read per request: kubelet rotates projected tokens in place
+            with open(self._token_file) as fh:
+                return {"Authorization": f"Bearer {fh.read().strip()}"}
+        except OSError:
+            return {}
+
+    def _connection(self, fresh: bool = False) -> http.client.HTTPConnection:
+        conn = None if fresh else getattr(self._local, "conn", None)
+        if conn is None:
+            conn = self._new_connection(timeout=30)
+            self._local.conn = conn
+        return conn
+
+    def _request(self, method: str, path: str, body: Optional[dict] = None) -> dict:
+        self._limiter.take()
+        payload = json.dumps(body).encode() if body is not None else None
+        headers = {"Content-Type": "application/json", **self._auth_headers()}
+        # keep-alive per thread; one transparent retry on a dead connection
+        for attempt in range(2):
+            conn = self._connection(fresh=attempt > 0)
+            try:
+                conn.request(method, path, body=payload, headers=headers)
+                resp = conn.getresponse()
+                data = resp.read()
+            except (http.client.HTTPException, ConnectionError, OSError):
+                conn.close()
+                self._local.conn = None
+                if attempt == 0:
+                    continue
+                raise
+            parsed = json.loads(data) if data else {}
+            if resp.status >= 400:
+                raise ApiStatusError(resp.status, parsed)
+            return parsed
+        raise RuntimeError("unreachable")
+
+    # -- verbs (KubeCluster surface) ----------------------------------------
+
+    def create(self, obj) -> object:
+        wire = to_wire(obj)
+        try:
+            out = self._request("POST", rest_path(obj.kind, obj.metadata.namespace), wire)
+        except ApiStatusError as err:
+            if err.code == 409:
+                raise Conflict(str(err)) from err
+            raise
+        stored = from_wire(out)
+        obj.metadata.resource_version = stored.metadata.resource_version
+        obj.metadata.uid = stored.metadata.uid
+        obj.metadata.creation_timestamp = stored.metadata.creation_timestamp
+        return obj
+
+    RETRY_ON_CONFLICT_ATTEMPTS = 4
+
+    def update(self, obj) -> object:
+        wire = to_wire(obj)
+        path = rest_path(obj.kind, obj.metadata.namespace, obj.metadata.name)
+        for attempt in range(self.RETRY_ON_CONFLICT_ATTEMPTS):
+            try:
+                out = self._request("PUT", path, wire)
+                obj.metadata.resource_version = int(out.get("metadata", {}).get("resourceVersion") or 0)
+                return obj
+            except ApiStatusError as err:
+                if err.code == 404:
+                    raise NotFound(str(err)) from err
+                if err.code != 409:
+                    raise
+                if attempt == self.RETRY_ON_CONFLICT_ATTEMPTS - 1:
+                    # typed exhaustion, never a raw ApiStatusError: callers
+                    # dispatch on "every refresh round lost" explicitly
+                    raise ConflictExhausted(
+                        f"{obj.kind} {obj.metadata.name!r}: conflict retries exhausted"
+                        f" after {self.RETRY_ON_CONFLICT_ATTEMPTS} attempts"
+                    ) from err
+                # RetryOnConflict: refresh the version, resend our state
+                try:
+                    current = self._request("GET", path)
+                except ApiStatusError as get_err:
+                    if get_err.code == 404:
+                        raise NotFound(str(get_err)) from get_err
+                    raise
+                wire["metadata"]["resourceVersion"] = current.get("metadata", {}).get("resourceVersion", "0")
+        raise RuntimeError("unreachable")
+
+    def update_no_retry(self, obj) -> object:
+        """Conditional update: a stale resourceVersion surfaces as Conflict
+        instead of being refreshed — the primitive compare-and-swap leader
+        election is built on."""
+        try:
+            out = self._request("PUT", rest_path(obj.kind, obj.metadata.namespace, obj.metadata.name), to_wire(obj))
+        except ApiStatusError as err:
+            if err.code == 404:
+                raise NotFound(str(err)) from err
+            if err.code == 409:
+                raise Conflict(str(err)) from err
+            raise
+        obj.metadata.resource_version = int(out.get("metadata", {}).get("resourceVersion") or 0)
+        return obj
+
+    def apply(self, obj) -> object:
+        try:
+            return self.create(obj)
+        except Conflict:
+            return self.update(obj)
+
+    def delete(self, obj, grace: bool = True) -> None:
+        path = rest_path(obj.kind, obj.metadata.namespace, obj.metadata.name)
+        if not grace:
+            path += "?gracePeriodSeconds=0"
+        try:
+            out = self._request("DELETE", path)
+        except ApiStatusError as err:
+            if err.code == 404:
+                return  # idempotent, like KubeCluster.delete
+            if err.code == 409:
+                # a conflicted delete (injected storms included) must speak
+                # the same typed, counted surface the other verbs do
+                raise Conflict(str(err)) from err
+            raise
+        # surface the terminating timestamp on the caller's copy
+        dt = out.get("metadata", {}).get("deletionTimestamp")
+        if dt is not None:
+            from .codec import ts_from_wire
+
+            obj.metadata.deletion_timestamp = ts_from_wire(dt)
+
+    def finalize(self, obj) -> None:
+        current = self.get(obj.kind, obj.metadata.name, obj.metadata.namespace)
+        if current is None:
+            return
+        current.metadata.finalizers = []
+        try:
+            self.update(current)
+        except NotFound:
+            pass
+
+    def get(self, kind: str, name: str, namespace: str = "default"):
+        try:
+            return from_wire(self._request("GET", rest_path(kind, namespace, name)), kind)
+        except ApiStatusError as err:
+            if err.code == 404:
+                return None
+            raise
+
+    def version(self) -> int:
+        """The store's global resourceVersion, read off a LIST envelope —
+        the KubeCluster.version() parity surface the coherence witness's
+        moved-under-me guard compares before and after a deep compare."""
+        out = self._request("GET", rest_path("Node"))
+        return int(out.get("metadata", {}).get("resourceVersion") or 0)
+
+    def list(self, kind: str, namespace: Optional[str] = None) -> List[object]:
+        _, _, namespaced = API_REGISTRY[kind]
+        path = rest_path(kind, namespace or "")
+        out = self._request("GET", path)
+        items = [from_wire(w, kind) for w in out.get("items", [])]
+        if namespace is not None and namespaced:
+            items = [o for o in items if o.metadata.namespace == namespace]
+        return items
+
+    # -- watches (ListAndWatch informer) -------------------------------------
+
+    def watch(self, kind: str, handler: Callable[[WatchEvent], None], replay: bool = True) -> None:
+        cancel = threading.Event()
+        thread = threading.Thread(
+            target=self._watch_loop, args=(kind, handler, replay, cancel), daemon=True, name=f"watch-{kind.lower()}"
+        )
+        self._watch_threads.append(thread)
+        self._watch_cancels.append((kind, handler, cancel))
+        thread.start()
+
+    def watcher_count(self) -> int:
+        """Live (un-cancelled) watch registrations — the KubeCluster parity
+        seam for the invariant monitor's leaked-watch witness."""
+        return len(self._watch_cancels)
+
+    def unwatch(self, kind: str, handler: Callable[[WatchEvent], None]) -> None:
+        """Cancel the watch registered for (kind, handler): the informer
+        loop exits at its next reconnect/poll boundary. The KubeCluster
+        parity seam a stopped/crashed Runtime uses to detach its caches."""
+        for entry in list(self._watch_cancels):
+            if entry[0] == kind and entry[1] is handler:
+                entry[2].set()
+                self._watch_cancels.remove(entry)
+
+    def _watch_loop(self, kind: str, handler: Callable[[WatchEvent], None], replay: bool, cancel=None) -> None:
+        known: Dict[str, object] = {}  # uid -> last object delivered to the handler
+        rv = 0
+        first = True
+        attempt = 0  # consecutive reconnect failures (resets on a healthy stream)
+        while not self._stop.is_set() and not (cancel is not None and cancel.is_set()):
+            try:
+                if first or rv == 0:
+                    # list to (re)sync, then stream from the list version
+                    out = self._request("GET", rest_path(kind))
+                    rv = int(out.get("metadata", {}).get("resourceVersion") or 0)
+                    current = {}
+                    for w in out.get("items", []):
+                        o = from_wire(w, kind)
+                        current[o.metadata.uid] = o
+                    if replay or not first:
+                        # informer resync: a 410 gap can hide adds, updates,
+                        # AND deletes — diff against delivered state so a
+                        # deleted object still surfaces as DELETED instead of
+                        # living on as a ghost in the handler's cache
+                        for uid, o in current.items():
+                            handler(WatchEvent(ADDED if uid not in known else MODIFIED, o))
+                        for uid, o in known.items():
+                            if uid not in current:
+                                handler(WatchEvent(DELETED, o))
+                    known = current
+                    first = False
+                rv = self._stream(kind, rv, handler, known, cancel)
+                attempt = 0  # the stream served (or closed cleanly): healthy
+            except Exception as exc:  # noqa: BLE001 - reconnect like an informer
+                if self._stop.is_set() or (cancel is not None and cancel.is_set()):
+                    return
+                # full-jitter backoff (the apiclient retry idiom): every
+                # informer of every replica reconnecting to a restarted
+                # apiserver on the same 50 ms tick IS the thundering herd
+                cap = min(WATCH_BACKOFF_CAP, WATCH_BACKOFF_BASE * (2**attempt))
+                attempt += 1
+                log.debug("watch %s: reconnecting after %s (attempt %d)", kind, exc, attempt)
+                self.clock.sleep(self._watch_rng.uniform(0.0, cap))
+
+    def _stream(self, kind: str, rv: int, handler: Callable[[WatchEvent], None], known: Dict[str, object], cancel=None) -> int:
+        conn = self._new_connection(timeout=300)
+        try:
+            conn.request("GET", rest_path(kind) + f"?watch=true&resourceVersion={rv}", headers=self._auth_headers())
+            resp = conn.getresponse()
+            if resp.status == 410:
+                return 0  # journal compacted: relist
+            if resp.status >= 400:
+                raise ApiStatusError(resp.status, {})
+            while not self._stop.is_set() and not (cancel is not None and cancel.is_set()):
+                line = resp.readline()
+                if not line:
+                    return rv  # server closed: reconnect from rv
+                line = line.strip()
+                if not line:
+                    continue
+                event = json.loads(line)
+                wire = event["object"]
+                rv = int(wire.get("metadata", {}).get("resourceVersion") or rv)
+                o = from_wire(wire, kind)
+                if event["type"] == DELETED:
+                    known.pop(o.metadata.uid, None)
+                else:
+                    known[o.metadata.uid] = o
+                handler(WatchEvent(event["type"], o))
+            return rv
+        finally:
+            conn.close()
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    # -- typed conveniences (KubeCluster parity) ------------------------------
+
+    def list_pods(self, namespace: Optional[str] = None) -> List[Pod]:
+        return self.list("Pod", namespace)
+
+    def list_nodes(self) -> List[Node]:
+        return self.list("Node")
+
+    def list_provisioners(self) -> List[Provisioner]:
+        return self.list("Provisioner")
+
+    def list_namespaces(self) -> List[Namespace]:
+        return self.list("Namespace")
+
+    def get_node(self, name: str) -> Optional[Node]:
+        if not name:
+            return None
+        return self.get("Node", name, namespace="")
+
+    def pods_on_node(self, node_name: str) -> List[Pod]:
+        return [p for p in self.list_pods() if p.spec.node_name == node_name]
+
+    def pending_pods(self) -> List[Pod]:
+        return [p for p in self.list_pods() if not p.spec.node_name]
+
+    def bind_pod(self, pod: Pod, node_name: str) -> None:
+        self._request(
+            "POST",
+            rest_path("Pod", pod.namespace, pod.name) + "/binding",
+            {"apiVersion": "v1", "kind": "Binding", "target": {"kind": "Node", "name": node_name}},
+        )
+        pod.spec.node_name = node_name
+        pod.status.phase = "Running"
+
+    def evict_pod(self, pod: Pod) -> bool:
+        try:
+            self._request(
+                "POST",
+                rest_path("Pod", pod.namespace, pod.name) + "/eviction",
+                {"apiVersion": "policy/v1", "kind": "Eviction", "metadata": {"name": pod.name, "namespace": pod.namespace}},
+            )
+            return True
+        except ApiStatusError as err:
+            if err.code == 429:
+                return False
+            if err.code == 404:
+                return True  # already gone counts as evicted (eviction.go:100-102)
+            raise
+
+    # volume topology lookups (scheduling/volumelimits.py protocol)
+    def get_persistent_volume_claim(self, namespace: str, name: str) -> Optional[PersistentVolumeClaim]:
+        return self.get("PersistentVolumeClaim", name, namespace)
+
+    def get_persistent_volume(self, name: str) -> Optional[PersistentVolume]:
+        return self.get("PersistentVolume", name, namespace="")
+
+    def get_storage_class(self, name: str) -> Optional[StorageClass]:
+        return self.get("StorageClass", name, namespace="")
+
+    def get_csi_node(self, node_name: str) -> Optional[CSINode]:
+        return self.get("CSINode", node_name, namespace="")

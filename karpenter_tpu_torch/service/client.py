@@ -13,7 +13,8 @@ scheduler on a RemoteSchedulingError; the port's lets it out of the round,
 as a failure on the card would (ROADMAP C). `nominated` (node name, pods)
 pairs, the pods a round placed before its capacity-failure re-solve, ship
 as cluster pods bound to their nodes, so the sidecar counts them in the
-topology domains as the local re-solve does.
+topology domains as the local re-solve does. The channel takes messages up
+to wire.MAX_MESSAGE_BYTES (the reference keeps gRPC's 4 MiB default).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Dict, List, Sequence
 from ..logsetup import get_logger
 from ..scheduler.scheduler import SchedulingResults
 from ..scheduling.nodetemplate import NodeTemplate
-from .wire import METHOD_HEALTH, METHOD_SCHEDULE, SERVICE_NAME, SolveRequest, SolveResponse, WireStateNode
+from .wire import CHANNEL_OPTIONS, METHOD_HEALTH, METHOD_SCHEDULE, SERVICE_NAME, SolveRequest, SolveResponse, WireStateNode
 
 log = get_logger("service")
 
@@ -159,7 +160,7 @@ class SolverClient:
 
         self.address = address
         self.timeout = timeout
-        self._channel = grpc.insecure_channel(address)
+        self._channel = grpc.insecure_channel(address, options=CHANNEL_OPTIONS)
         self._schedule = self._channel.unary_unary(
             f"/{SERVICE_NAME}/{METHOD_SCHEDULE}",
             request_serializer=pickle.dumps,

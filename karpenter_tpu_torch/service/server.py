@@ -15,7 +15,9 @@ plan (wire.SolveResponse); the control plane owns launching.
 The port's copy of karpenter_tpu/service/server.py. `SolverServer` and
 `serve` gain `device=` (default "cuda"), which reaches the default
 DenseSolver(min_batch=1). `SolverServer.schedule_bytes` is the handler
-`serve` registers: pickled request in, pickled response out.
+`serve` registers: pickled request in, pickled response out. The server
+takes messages up to wire.MAX_MESSAGE_BYTES, where the reference keeps
+gRPC's 4 MiB default and refuses a 10,000-pod request.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..scheduler import SchedulerOptions, build_scheduler
 from ..scheduling.hostports import HostPortUsage
 from ..scheduling.volumelimits import VolumeCount, VolumeLimits
 from ..solver import DenseSolver
-from .wire import METHOD_HEALTH, METHOD_SCHEDULE, SERVICE_NAME, SolveRequest, SolveResponse, WireNewNode, WireStateNode
+from .wire import CHANNEL_OPTIONS, METHOD_HEALTH, METHOD_SCHEDULE, SERVICE_NAME, SolveRequest, SolveResponse, WireNewNode, WireStateNode
 
 log = get_logger("service")
 
@@ -167,7 +169,7 @@ def serve(address: str = "127.0.0.1:0", dense_solver: Optional[DenseSolver] = No
             METHOD_HEALTH: grpc.unary_unary_rpc_method_handler(_health),
         },
     )
-    server = grpc.server(futures.ThreadPoolExecutor(max_workers=max_workers))
+    server = grpc.server(futures.ThreadPoolExecutor(max_workers=max_workers), options=CHANNEL_OPTIONS)
     server.add_generic_rpc_handlers((generic,))
     port = server.add_insecure_port(address)
     if port == 0:

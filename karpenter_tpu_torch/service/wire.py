@@ -87,3 +87,12 @@ class SolveResponse:
 SERVICE_NAME = "karpenter_tpu.Solver"
 METHOD_SCHEDULE = "Schedule"
 METHOD_HEALTH = "Health"
+# gRPC refuses a received message over 4 MiB by default; a request for a
+# batch of 10,000 pods onto 300 nodes pickles to about 6.8 MB. Both ends of
+# the channel take messages up to 64 MiB, nine times that request, and
+# refuse a larger one before buffering it.
+MAX_MESSAGE_BYTES = 64 * 1024 * 1024
+CHANNEL_OPTIONS = (
+    ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
+    ("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
+)

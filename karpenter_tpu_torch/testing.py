@@ -169,6 +169,10 @@ def make_pod(
     )
 
 
+def make_pods(count: int, **kwargs) -> List[Pod]:
+    return [make_pod(**kwargs) for _ in range(count)]
+
+
 def make_provisioner(
     name: str = "default",
     labels: Optional[Dict[str, str]] = None,
@@ -903,13 +907,24 @@ class SimulatedEnv(Environment):
     controllers, and the interruption controller on the provider's
     notification source with the provider's offering-health hook. The
     reference's rigs build a Runtime with the dense solver off; here the
-    caller routes the solve (env.provisioner_controller.dense_solver)."""
+    caller routes the solve (env.provisioner_controller.dense_solver). With
+    transport="http" the provider reaches the backend only through the cloud
+    API's sockets (CloudAPIService on the backend, CloudAPIClient in the
+    provider), as the reference's InterruptionEnv does; close() stops the
+    service."""
 
-    def __init__(self, event_capacity: int = DEFAULT_EVENT_CAPACITY):
+    def __init__(self, event_capacity: int = DEFAULT_EVENT_CAPACITY, transport: str = "inprocess"):
         self.clock = FakeClock()
         self.kube = KubeCluster(clock=self.clock)
         self.backend = CloudBackend(clock=self.clock)
-        self.provider = SimulatedCloudProvider(backend=self.backend, kube=self.kube, clock=self.clock)
+        self.service = None
+        cloud = self.backend
+        if transport == "http":
+            from .cloudprovider.simulated import CloudAPIClient, CloudAPIService
+
+            self.service = CloudAPIService(backend=self.backend).start()
+            cloud = CloudAPIClient(self.service.url, clock=self.clock)
+        self.provider = SimulatedCloudProvider(backend=cloud, kube=self.kube, clock=self.clock)
         self.recorder = DedupeRecorder(Recorder(capacity=event_capacity), clock=self.clock, capacity=event_capacity)
         webhooks.register(self.kube, self.provider)
         self._wire()
@@ -930,15 +945,19 @@ class SimulatedEnv(Environment):
     def instance_id(self, node) -> str:
         return node.spec.provider_id.split("///", 1)[1]
 
+    def close(self) -> None:
+        if self.service is not None:
+            self.service.stop()
+
 
 class InterruptionEnv(SimulatedEnv):
     """The counterpart of tests/test_interruption_catalog.py's
-    InterruptionEnv (in-process transport): the simulated cloud, the
+    InterruptionEnv, on either transport: the simulated cloud, the
     interruption controller polling its queue, and a provisioner allowing
     spot and on-demand capacity."""
 
-    def __init__(self):
-        super().__init__()
+    def __init__(self, transport: str = "inprocess"):
+        super().__init__(transport=transport)
         self.kube.create(spot_and_on_demand_provisioner())
 
     def launch_node_with_pods(self, pod_count: int = 3):

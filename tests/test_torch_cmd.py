@@ -1,10 +1,10 @@
 """The port's process entry points on the CPU.
 
 - `cmd/controller.build_kube_backend`'s three choices: an apiserver URL
-  (the flag, or the in-cluster service host with a mounted token) selects
-  the HTTP client, which the port raises for (ROADMAP A9b) where the JAX
-  package builds it, on the same URL; the in-cluster host without a token
-  and no host at all select the in-memory backend on both packages.
+  (the flag, or the in-cluster service host with a mounted token and CA)
+  selects the HTTP client, which both packages build for the same URL, CA,
+  token and QPS/burst budget; the in-cluster host without a token and no
+  host at all select the in-memory backend on both packages.
 - `cmd/controller.main`: an unported flag raises before anything binds;
   without a card the Runtime raises; and the whole process on the CPU (the
   Runtime's device patched to "cpu" by a wrapper, since the entry point
@@ -12,6 +12,11 @@
   /healthz and /readyz answering 200, exit code 0 on SIGTERM.
 - `cmd/solver_service.main`: --coordinator and $KARPENTER_TPU_COORDINATOR
   raise, naming ROADMAP A12.
+- tests/test_e2e_process.py's two topology cases on both packages: an
+  apiserver, the webhook process and the controller process wired only
+  through sockets (the port's controller through the CPU wrapper). The
+  deployment-shaped case leaves out its /metrics and capsule checks, which
+  wait for ROADMAP A8a and A8b.
 """
 
 from __future__ import annotations
@@ -49,25 +54,74 @@ def _no_cluster_env(monkeypatch):
     logsetup.set_level("info")
 
 
+def _client_record(kube) -> dict:
+    """What an HttpKubeClient was built with: its endpoint, TLS, token file,
+    the headers it would send and its rate limit."""
+    return {
+        "type": type(kube).__name__,
+        "host": kube._host,
+        "port": kube._port,
+        "tls": kube._tls,
+        "token_file": kube._token_file,
+        "auth": kube._auth_headers(),
+        "qps": kube._limiter.qps,
+        "burst": kube._limiter.burst,
+    }
+
+
+def _both_backends(ref_options, options):
+    ref_kube, ref_url = ref_controller.build_kube_backend(ref_options)
+    kube, url = controller.build_kube_backend(options)
+    try:
+        return (_client_record(ref_kube), ref_url), (_client_record(kube), url), kube
+    finally:
+        ref_kube.stop()
+        kube.stop()
+
+
 class TestBuildKubeBackend:
     def test_apiserver_url_selects_the_http_client(self):
+        from karpenter_tpu_torch.kube.client import HttpKubeClient
+
         url = "http://127.0.0.1:1"
-        ref_kube, ref_url = ref_controller.build_kube_backend(RefOptions(apiserver_url=url))
-        try:
-            assert ref_url == url and type(ref_kube).__name__ == "HttpKubeClient"
-        finally:
-            ref_kube.stop()
-        with pytest.raises(NotImplementedError, match=f"apiserver {url}: .*ROADMAP A9b"):
-            controller.build_kube_backend(Options(apiserver_url=url))
+        ref, port, kube = _both_backends(
+            RefOptions(apiserver_url=url, kube_client_qps=50.0, kube_client_burst=70),
+            Options(apiserver_url=url, kube_client_qps=50.0, kube_client_burst=70),
+        )
+        assert port == ref
+        assert isinstance(kube, HttpKubeClient)
+        assert port[1] == url and port[0]["qps"] == 50.0 and port[0]["burst"] == 70 and not port[0]["tls"]
 
     @pytest.mark.parametrize("host,want", [("10.0.0.1", "https://10.0.0.1:6443"), ("fd00::1", "https://[fd00::1]:6443")])
     def test_in_cluster_token_selects_the_http_client(self, monkeypatch, tmp_path, host, want):
+        """The port reads the mounted token and CA (its serviceaccount
+        directory pointed at a temporary one); the JAX package's client is
+        built with what its build_kube_backend passes for the same mount
+        (karpenter_tpu/cmd/controller.py:45-59), since its directory is
+        not redirected."""
+        from karpenter_tpu.kube.client import HttpKubeClient as RefHttpKubeClient
+        from karpenter_tpu.utils.clock import Clock as RefClock
+        from karpenter_tpu_torch.kube.certs import generate_serving_cert
+
         (tmp_path / "token").write_text("t")
+        (tmp_path / "ca.crt").write_bytes(generate_serving_cert().ca_pem)
         monkeypatch.setattr(controller, "SERVICEACCOUNT_DIR", str(tmp_path))
         monkeypatch.setenv("KUBERNETES_SERVICE_HOST", host)
         monkeypatch.setenv("KUBERNETES_SERVICE_PORT", "6443")
-        with pytest.raises(NotImplementedError, match=re.escape(f"apiserver {want}: ")):
-            controller.build_kube_backend(Options())
+        defaults = RefOptions()
+        ref_kube = RefHttpKubeClient(
+            want, qps=defaults.kube_client_qps, burst=defaults.kube_client_burst, clock=RefClock(),
+            ca_file=str(tmp_path / "ca.crt"), token_file=str(tmp_path / "token"),
+        )
+        kube, url = controller.build_kube_backend(Options())
+        try:
+            assert (_client_record(kube), url) == (_client_record(ref_kube), want)
+            assert kube._tls and kube._token_file == str(tmp_path / "token")
+            assert kube._auth_headers() == {"Authorization": "Bearer t"}
+            assert kube._ssl_context is not None
+        finally:
+            ref_kube.stop()
+            kube.stop()
 
     def test_in_cluster_without_token_falls_to_in_memory(self, monkeypatch, capsys):
         monkeypatch.setenv("KUBERNETES_SERVICE_HOST", "10.0.0.1")
@@ -158,3 +212,173 @@ class TestSolverServiceMain:
         monkeypatch.setenv("KARPENTER_TPU_COORDINATOR", "10.0.0.1:1234")
         with pytest.raises(NotImplementedError, match="ROADMAP A12"):
             solver_service.main([])
+
+
+# -- tests/test_e2e_process.py: the deployment topology, both packages ---------
+
+
+def _wait_for(predicate, timeout=60.0, interval=0.2, message="condition"):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        value = predicate()
+        if value:
+            return value
+        time.sleep(interval)
+    raise AssertionError(f"timed out waiting for {message}")
+
+
+class _Side:
+    """One package's apiserver, client, builders and process commands; the
+    port's controller runs through the CPU wrapper."""
+
+    def __init__(self, side: str):
+        self.side = side
+        if side == "ref":
+            from karpenter_tpu.api.objects import OP_IN, NodeSelectorRequirement
+            from karpenter_tpu.kube.apiserver import APIServer
+            from karpenter_tpu.kube.client import ApiStatusError, HttpKubeClient
+            from tests.helpers import make_pod, make_provisioner
+
+            self.controller = [sys.executable, "-m", "karpenter_tpu.cmd.controller"]
+            self.webhook = [sys.executable, "-m", "karpenter_tpu.cmd.webhook"]
+        else:
+            from karpenter_tpu_torch.api.objects import OP_IN, NodeSelectorRequirement
+            from karpenter_tpu_torch.kube.apiserver import APIServer
+            from karpenter_tpu_torch.kube.client import ApiStatusError, HttpKubeClient
+            from karpenter_tpu_torch.testing import make_pod, make_provisioner
+
+            self.controller = [sys.executable, "-c", _CPU_CONTROLLER]
+            self.webhook = [sys.executable, "-m", "karpenter_tpu_torch.cmd.webhook"]
+        self.APIServer, self.HttpKubeClient, self.ApiStatusError = APIServer, HttpKubeClient, ApiStatusError
+        self.make_pod, self.make_provisioner = make_pod, make_provisioner
+        self.bad_requirement = NodeSelectorRequirement("team", OP_IN, [])
+
+
+class _Procs:
+    """Spawns processes and servers; stops every one at the end."""
+
+    def __init__(self, tmp_path):
+        self.tmp_path, self.procs, self.stops = tmp_path, [], []
+
+    def spawn(self, argv, capture=False, env_extra=None):
+        env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO), **(env_extra or {}))
+        if capture:
+            out, err = subprocess.PIPE, subprocess.PIPE
+        else:
+            log = open(self.tmp_path / f"proc-{len(self.procs)}.log", "w")
+            self.stops.append(log.close)
+            out = err = log
+        proc = subprocess.Popen(argv, stdout=out, stderr=err, text=True, env=env, cwd=REPO)
+        self.procs.append(proc)
+        return proc
+
+    def close(self):
+        for proc in reversed(self.procs):
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.communicate(timeout=10)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.communicate()
+        for stop in reversed(self.stops):
+            stop()
+
+
+def _node_types(client) -> list:
+    return sorted(n.metadata.labels.get("node.kubernetes.io/instance-type") for n in client.list_nodes())
+
+
+def _deployment_shaped(s: _Side, procs: _Procs) -> dict:
+    """test_e2e_process.py:66 without its /metrics and capsule checks: the
+    webhook registers itself against the apiserver, the controller serves
+    its probes, admission enforces through the registered objects, and the
+    controller process provisions a pod."""
+    srv = s.APIServer().start()
+    procs.stops.append(srv.stop)
+    health_port = _free_port()
+    procs.spawn(s.webhook + ["--port", "0"], env_extra={"KUBERNETES_APISERVER_URL": srv.url})
+    procs.spawn(
+        s.controller + ["--disable-dense-solver", "--batch-max-duration", "0.3", "--batch-idle-duration", "0.05",
+                        "--health-probe-port", str(health_port), "--metrics-port", str(_free_port())],
+        env_extra={"KUBERNETES_APISERVER_URL": srv.url},
+    )
+    client = s.HttpKubeClient(srv.url)
+    procs.stops.append(client.stop)
+    cfg = _wait_for(
+        lambda: (lambda c: c if c is not None and c.webhooks[0]["clientConfig"].get("caBundle") else None)(
+            client.get("ValidatingWebhookConfiguration", "validation.webhook.karpenter-tpu.sh", namespace="")
+        ),
+        message="webhook self-registration",
+    )
+    assert cfg.webhooks[0]["clientConfig"]["url"].endswith("/validate")
+    assert _wait_for(lambda: _status(health_port, "/healthz") == 200, message="healthz")
+    assert _wait_for(lambda: _status(health_port, "/readyz") == 200, message="readyz")
+    with pytest.raises(s.ApiStatusError) as err:
+        client.create(s.make_provisioner(name="bad", requirements=[s.bad_requirement]))
+    client.create(s.make_provisioner())
+    client.create(s.make_pod(name="e2e-pod", requests={"cpu": "0.5"}))
+    _wait_for(lambda: client.list_nodes() or None, message="nodes from the controller process")
+    return {"rejected": err.value.code, "registrations": sorted(
+        (c.kind, c.metadata.name, [h["clientConfig"]["url"].rsplit("/", 1)[-1] for h in c.webhooks])
+        for c in (client.get(kind, name, namespace="") for kind, name in (
+            ("MutatingWebhookConfiguration", "defaulting.webhook.karpenter-tpu.sh"),
+            ("ValidatingWebhookConfiguration", "validation.webhook.karpenter-tpu.sh"),
+        ))
+    ), "node_types": _node_types(client)}
+
+
+def _full_topology(s: _Side, procs: _Procs) -> dict:
+    """test_e2e_process.py:256: the webhook process's CA bundle read from
+    its stdout and registered in the apiserver, then the controller process
+    provisions through it and holds the election Lease."""
+    srv = s.APIServer().start()
+    procs.stops.append(srv.stop)
+    webhook = procs.spawn(s.webhook + ["--port", "0"], capture=True)
+    ca_lines, url = [], None
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and url is None:
+        line = webhook.stderr.readline()
+        if "serving AdmissionReview at" in line:
+            url = line.split(" at ")[1].split()[0]
+        elif not line and webhook.poll() is not None:
+            break
+    assert url, "webhook did not come up"
+    while True:
+        line = webhook.stdout.readline()
+        assert line, "webhook exited before emitting its CA bundle"
+        ca_lines.append(line)
+        if "END CERTIFICATE" in line:
+            break
+    srv.state.register_webhooks(
+        kinds={"Provisioner"}, mutate_url=url + "/mutate", validate_url=url + "/validate", ca_pem="".join(ca_lines).encode()
+    )
+    procs.spawn(
+        s.controller + ["--disable-dense-solver", "--batch-max-duration", "0.3", "--batch-idle-duration", "0.05",
+                        "--health-probe-port", str(_free_port()), "--metrics-port", str(_free_port())],
+        env_extra={"KUBERNETES_APISERVER_URL": srv.url},
+    )
+    client = s.HttpKubeClient(srv.url)
+    procs.stops.append(client.stop)
+    with pytest.raises(s.ApiStatusError) as err:
+        client.create(s.make_provisioner(name="bad", requirements=[s.bad_requirement]))
+    client.create(s.make_provisioner())
+    for i in range(3):
+        client.create(s.make_pod(name=f"e2e-pod-{i}", requests={"cpu": "0.5"}))
+    _wait_for(lambda: client.list_nodes() or None, message="nodes from the controller process")
+    lease = _wait_for(lambda: client.get("Lease", "karpenter-leader-election", "kube-system"), message="the election lease")
+    assert lease.spec.holder_identity
+    return {"rejected": err.value.code, "node_types": _node_types(client), "lease": (lease.metadata.name, lease.metadata.namespace)}
+
+
+@pytest.mark.parametrize("topology", [_deployment_shaped, _full_topology], ids=["deployment_shaped", "full"])
+def test_deployment_topology_on_both_packages(topology, tmp_path):
+    records = {}
+    for side in ("ref", "port"):
+        p = _Procs(tmp_path / side)
+        (tmp_path / side).mkdir()
+        try:
+            records[side] = topology(_Side(side), p)
+        finally:
+            p.close()
+    assert records["port"] == records["ref"]

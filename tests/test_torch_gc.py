@@ -109,10 +109,12 @@ class TestSweepScoping:
             gc = k.GarbageCollectionController(kube, cluster=None, cloud_provider=provider, clock=kube.clock)
             node = k.node(labels={k.lbl.PROVISIONER_NAME_LABEL: "default"}, allocatable={"cpu": "4"})
             kube.create(node)
+            # the reference's counter is process-wide: read the sweep's own
+            sweeps = gc.sweeps.value()
             result = gc.reconcile()
             assert result == {"orphans": [], "ghosts": []}
             assert kube.get_node(node.name) is not None
-            return [result, [n.name for n in kube.list_nodes()], gc.sweeps.value()]
+            return [result, [n.name for n in kube.list_nodes()], gc.sweeps.value() - sweeps]
 
         sboth(scenario, "host")
 

@@ -34,6 +34,7 @@ singletons are restored (reference_singletons), the residency auditor off.
 from __future__ import annotations
 
 import copy
+import importlib
 import logging
 import random
 import threading
@@ -117,11 +118,21 @@ class RKit:
     def fake_provider(self, n: int):
         return self.fake.FakeCloudProvider(self.fake.instance_types(n))
 
-    def simulated(self, kube, clock=None):
-        """(backend, provider) of the simulated cloud on `kube`."""
+    def simulated(self, kube, clock=None, finalizer=None):
+        """(backend, provider) of the simulated cloud on `kube`. Given a
+        `finalizer`, the provider reaches the backend only over the cloud
+        API's sockets (this package's CloudAPIService and CloudAPIClient),
+        and the service's stop goes to the finalizer."""
         clock = clock or kube.clock
         backend = self.backend.CloudBackend(clock=clock)
-        return backend, self.provider.SimulatedCloudProvider(backend=backend, kube=kube, clock=clock)
+        cloud = backend
+        if finalizer is not None:
+            package = "karpenter_tpu" if self.side == "ref" else "karpenter_tpu_torch"
+            simulated = importlib.import_module(f"{package}.cloudprovider.simulated")
+            service = simulated.CloudAPIService(backend=backend).start()
+            finalizer(service.stop)
+            cloud = simulated.CloudAPIClient(service.url)
+        return backend, self.provider.SimulatedCloudProvider(backend=cloud, kube=kube, clock=clock)
 
     def build(self, kube, provider, **options):
         """A Runtime of this package; the port's runs on the CPU."""
@@ -392,7 +403,7 @@ def test_in_memory_backend_preserves_mutual_exclusion(kit):
         kube.update_no_retry(lease_b)
 
 
-# -- tests/test_crash_recovery.py:63[inprocess] -------------------------------
+# -- tests/test_crash_recovery.py:63, both transports ---------------------------
 
 
 def _rs_pod(kit):
@@ -410,9 +421,18 @@ def _leak_instance(kit, backend) -> str:
 
 
 def test_crash_restart_reconciles_leak_and_ghost(kit, runtimes):
+    _crash_restart(kit, runtimes)
+
+
+def test_crash_restart_reconciles_leak_and_ghost_over_http(kit, runtimes, request):
+    """The [http] param: the provider reaches its cloud over sockets."""
+    _crash_restart(kit, runtimes, finalizer=request.addfinalizer)
+
+
+def _crash_restart(kit, runtimes, finalizer=None):
     objects, lbl = kit.objects, kit.labels
     kube = kit.KubeCluster()
-    backend, provider = kit.simulated(kube)
+    backend, provider = kit.simulated(kube, finalizer=finalizer)
     options = dict(
         leader_elect=False, dense_solver_enabled=False, batch_max_duration=0.3, batch_idle_duration=0.05,
         gc_interval=0.3, gc_registration_grace=0.8,

@@ -10,8 +10,12 @@ The end-to-end case runs the reference's Runtime against the port's
 SimulatedEnv (the controllers a Runtime wires), with the exact host loop
 and with the dense solve at min_batch=1.
 
-Left for ROADMAP A9b: the `http` transport, on which the reference runs
-the whole suite a second time (CloudAPIService and CloudAPIClient).
+Every case that the reference runs on its `provider` fixture runs on the
+`http` transport too, as there: the *OverHttp classes at the end repeat
+their classes with each side's provider talking to its cloud only through
+sockets (that package's CloudAPIService on the backend, its CloudAPIClient
+in the provider; the cases keep reading the backend, the service's own
+state). The `http_transport` fixture stops the services.
 """
 
 from __future__ import annotations
@@ -26,15 +30,37 @@ from tests.test_torch_interruption import RefSimulatedEnv, SKit, leader_cleared 
 from tests.test_torch_provisioning import MODES, reference_singletons, run_both  # noqa: F401
 
 
+_transport = {"name": "inprocess", "stops": []}
+
+
+@pytest.fixture
+def http_transport():
+    """Sim builds its provider over the cloud API's sockets for the test;
+    every service it started is stopped after it."""
+    _transport["name"] = "http"
+    yield
+    _transport["name"] = "inprocess"
+    while _transport["stops"]:
+        _transport["stops"].pop()()
+
+
 class Sim:
-    """One side's cloud: clock, backend, store and provider."""
+    """One side's cloud: clock, backend, store and provider, the provider
+    over the current transport."""
 
     def __init__(self, k):
         self.k = k
         self.clock = k.clock.FakeClock()
         self.backend = k.backend.CloudBackend(clock=self.clock)
         self.kube = k.kube_module.KubeCluster(clock=self.clock)
-        self.provider = k.provider.SimulatedCloudProvider(backend=self.backend, kube=self.kube, clock=self.clock)
+        cloud = self.backend
+        if _transport["name"] == "http":
+            package = "karpenter_tpu" if k.side == "ref" else "karpenter_tpu_torch"
+            simulated = importlib.import_module(f"{package}.cloudprovider.simulated")
+            service = simulated.CloudAPIService(backend=self.backend).start()
+            _transport["stops"].append(service.stop)
+            cloud = simulated.CloudAPIClient(service.url, clock=self.clock)
+        self.provider = k.provider.SimulatedCloudProvider(backend=cloud, kube=self.kube, clock=self.clock)
 
     def request(self, provisioner, options=None):
         k = self.k
@@ -550,3 +576,43 @@ class TestKubeletConfigFlow:
             return node_record(node)
 
         both_once(scenario)
+
+
+# -- the `http` transport: tests/test_simulated_provider.py:33's second param --
+# Each class again, every case that builds a Sim over the cloud API's
+# sockets; the cases that build none are left out (set to None).
+
+
+@pytest.mark.usefixtures("http_transport")
+class TestCatalogOverHttp(TestCatalog):
+    pass
+
+
+@pytest.mark.usefixtures("http_transport")
+class TestCreateOverHttp(TestCreate):
+    pass
+
+
+@pytest.mark.usefixtures("http_transport")
+class TestNodeClassOverHttp(TestNodeClass):
+    test_deterministic_spot_prices = None
+
+
+@pytest.mark.usefixtures("http_transport")
+class TestImageFamiliesOverHttp(TestImageFamilies):
+    test_image_discovery_versioned_per_arch = None
+
+
+@pytest.mark.usefixtures("http_transport")
+class TestNetworkProvidersOverHttp(TestNetworkProviders):
+    pass
+
+
+@pytest.mark.usefixtures("http_transport")
+class TestProviderAdmissionHooksOverHttp(TestProviderAdmissionHooks):
+    pass
+
+
+@pytest.mark.usefixtures("http_transport")
+class TestKubeletConfigFlowOverHttp(TestKubeletConfigFlow):
+    pass

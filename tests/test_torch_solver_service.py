@@ -439,3 +439,100 @@ def test_solver_server_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SolverServer()
+
+
+def test_request_over_four_mib_crosses_the_wire(services):
+    """A request past gRPC's 4 MiB default (a 10,000-pod batch pickles to
+    about 7 MB; here 40 pods carrying 120 kB annotations): the JAX package's
+    channel refuses it (RESOURCE_EXHAUSTED), the port's, whose ends take
+    messages up to wire.MAX_MESSAGE_BYTES, solves it as the local scheduler
+    does."""
+
+    def case(kit, client, handler):
+        provisioner = kit.make_provisioner()
+        types = kit.types(provisioner, 15)
+        pods = [kit.make_pod(requests={"cpu": 0.5}, annotations={"payload": "x" * 120_000}) for _ in range(40)]
+        assert len(pickle.dumps(pods)) > 4 * 1024 * 1024
+        try:
+            remote = client.solve([provisioner], types, pods)
+        except kit.client.RemoteSchedulingError as err:
+            return ("refused", "RESOURCE_EXHAUSTED" in str(err))
+        local = kit.build_scheduler(
+            [provisioner], kit.fake.FakeCloudProvider(types[provisioner.name]), pods, dense_solver=kit.solver()
+        ).solve(pods)
+        return ("solved", plan(remote, pods) == plan(local, pods))
+
+    got = both(services, case)
+    assert got["ref"] == ("refused", True)
+    assert got["port"] == ("solved", True)
+
+
+def test_request_over_the_message_cap_is_refused(services):
+    """A request past wire.MAX_MESSAGE_BYTES (64 MiB; here 40 pods carrying
+    1.7 MB annotations) is refused on the port's channel with
+    RESOURCE_EXHAUSTED, and the sidecar solves nothing."""
+    from karpenter_tpu_torch.service.wire import MAX_MESSAGE_BYTES
+
+    kit, client, handler, _server = services["port"]
+    provisioner = kit.make_provisioner()
+    types = kit.types(provisioner, 15)
+    pods = [kit.make_pod(requests={"cpu": 0.5}, annotations={"payload": "x" * 1_700_000}) for _ in range(40)]
+    assert len(pickle.dumps(pods)) > MAX_MESSAGE_BYTES
+    solves = handler.solves
+    with pytest.raises(kit.client.RemoteSchedulingError, match="RESOURCE_EXHAUSTED"):
+        client.solve([provisioner], types, pods)
+    assert handler.solves == solves
+
+
+# -- ROADMAP C2: the capacity-failure re-solve through the sidecar ---------------
+
+
+@pytest.mark.parametrize("refused", ["most_launched_type", "every_launched_type"])
+def test_strict_ice_round_through_the_sidecar_equals_in_process(refused, services):
+    """tests/test_torch_provisioner_ice.py's first case on the port, dense,
+    once in process and once with every solve of the round sent to the
+    sidecar (min_batch 1): the first solve, each re-solve (its batch and
+    the round's nominated pods, shipped bound to their nodes), the launches
+    with the pods nominated onto each, the parked pods, and no node over
+    capacity must be the same."""
+    from tests.test_torch_provisioner_ice import _env_with_batch, _nominations, _overbooked, _refused_types, _strict, _watch
+    from tests.test_torch_provisioning import Kit
+
+    _kit, client, handler, _server = services["port"]
+
+    def round_of(remote: bool):
+        k = Kit("port", "dense")
+        first = _env_with_batch(k)
+        first.provision()
+        quarantined = _refused_types(first, k, refused)
+        env = _env_with_batch(k)
+        pools = _strict(env, k, quarantined)
+        controller = env.provisioner_controller
+        if remote:
+            controller.remote_solver = client
+        calls = _watch(controller)
+        solves = handler.solves
+        env.provision()
+        remote_solves = handler.solves - solves
+        lbl = k.lbl
+        nominated = _nominations(env)
+        launched = []
+        for node in env.kube.list_nodes():
+            labels = node.metadata.labels
+            pool = (labels[lbl.LABEL_INSTANCE_TYPE], labels[lbl.LABEL_TOPOLOGY_ZONE], labels[lbl.LABEL_CAPACITY_TYPE])
+            assert pool not in pools, f"node {node.name} launched on a quarantined pool"
+            launched.append((node.name, *pool, tuple(sorted(nominated.get(node.name, {})))))
+        record = {
+            "schedule": calls["schedule"],
+            "ice": calls["ice"],
+            "launched": sorted(launched),
+            "parked": sorted(name for _ns, name in controller._ice_backoff),
+            "overbooked": _overbooked(env, k),
+        }
+        return record, remote_solves
+
+    local, local_solves = round_of(remote=False)
+    remote, remote_solves = round_of(remote=True)
+    assert local_solves == 0 and remote_solves == len(remote["schedule"]) >= 2, "every solve of the round, re-solves too, goes to the sidecar"
+    assert remote["overbooked"] == [] and local["overbooked"] == []
+    assert remote == local
