@@ -72,15 +72,25 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     3 timed waves on fresh fleets, held against 4 with the plain versions;
   - the controller process (runtime.py, cmd/controller.py, service/):
     runtime_boot starts `python -m karpenter_tpu_torch.cmd.controller` as a
-    child, waits for /healthz and /readyz, reads the crossover its Runtime
-    measured at boot with K1's probe on the card, and requires exit code 0
-    on SIGTERM; runtime_round creates the headline batch in a store with
+    child, waits for /healthz and /readyz, then /metrics and /debug, reads
+    the crossover its Runtime measured at boot with K1's probe on the card,
+    requires exit code 0 on SIGTERM, and splits the boot: the runtime's
+    import, the CUDA context and K1's probe, each in a fresh child;
+    runtime_round creates the headline batch in a store with
     300 standing nodes under a started Runtime (leader election, the
     crossover measured, 1 s / 10 s batch windows) and waits until every pod
     is nominated by its batch loop and its lifecycle and disruption loops
     have passed; every K1 and K2 call in the window is held bit for bit,
     and two fresh Runtimes' provision_once() with the kernels and with the
-    plain versions must place identically; solver_sidecar hands the
+    plain versions must place identically; runtime_round_traced runs the
+    same cell with --enable-tracing, --enable-lock-witness and /metrics
+    served (metrics.py, tracing.py, analysis/witness.py, the scrapers):
+    the round's trace must link provision → batch → solve (encode, fill,
+    device with mask and assemble, commit) → launch (every launch-node,
+    bind), the decision records must equal the nominations, /metrics must
+    answer with the telemetry's families, the witness must find no
+    lock-order cycle, and the outcome must equal the untraced round's;
+    solver_sidecar hands the
     overflow round's request, pickled as serve()'s gRPC handler takes it,
     to a SolverServer on the card (K2, then K1) and holds the plan equal to
     the in-process schedule and to a plain-versions server's, then sends
@@ -222,6 +232,7 @@ CONTROLLER_COMMAND = [sys.executable, "-m", "karpenter_tpu_torch.cmd.controller"
 BOOT_DEADLINE_S = 180.0
 SHUTDOWN_DEADLINE_S = 60.0
 RUNTIME_ROUND = ("runtime_round", HEADLINE_PODS, 300)
+RUNTIME_ROUND_TRACED = ("runtime_round_traced", HEADLINE_PODS, 300)
 RUNTIME_DEADLINE_S = 120.0
 LOOP_PASS_DEADLINE_S = 10.0
 SIDECAR = ("solver_sidecar", HEADLINE_PODS, 300)
@@ -906,9 +917,9 @@ def instrument(env, dev) -> dict:
         })
         return results
 
-    def timed_launch_one(vn, ice_failures=None):
+    def timed_launch_one(vn, *args):
         try:
-            return launch_one(vn, ice_failures)
+            return launch_one(vn, *args)
         finally:
             ends.append(time.perf_counter())
 
@@ -934,14 +945,19 @@ def instrument(env, dev) -> dict:
 def broken_placements(env, nominated) -> dict:
     """The nodes whose bound and nominated pods together request more than
     the node has, and the hostname anti-affinity and zonal self-affinity
-    cohorts of build_workload that the nominations break."""
+    cohorts of build_workload that the nominations break; a node the
+    cluster state does not know yet cannot be judged and is listed."""
     from karpenter_tpu_torch.api import labels as lbl
     from karpenter_tpu_torch.utils import resources as res
 
     pods = {p.name: p for p in env.kube.list_pods()}
-    over, hosts, zones = [], {}, {}
+    over, hosts, zones, unknown = [], {}, {}, []
     for node in env.kube.list_nodes():
-        free = dict(env.cluster.get_state_node(node.name).available)
+        state = env.cluster.get_state_node(node.name)
+        if state is None:
+            unknown.append(node.name)
+            continue
+        free = dict(state.available)
         for name in nominated.get(node.name, ()):
             free = res.subtract(free, res.pod_requests(pods[name]))
             labels = pods[name].metadata.labels
@@ -955,6 +971,7 @@ def broken_placements(env, nominated) -> dict:
         "over_capacity": len(over),
         "anti_affinity_shared": sorted(v for v, names in hosts.items() if len(names) != len(set(names))),
         "affinity_split": sorted(v for v, found in zones.items() if len(found) > 1),
+        "unknown_to_cluster": sorted(unknown),
     }
 
 
@@ -1311,16 +1328,18 @@ def replicaset_stand_in(kube) -> list:
 class GcPauses:
     """The interpreter's garbage-collection pauses, from gc.callbacks while
     installed: `ms` accumulates every collection's time, `full` counts the
-    generation-2 (whole-heap) collections."""
+    generation-2 (whole-heap) collections, `longest_ms` is the longest one."""
 
     def __init__(self):
-        self.ms, self.full, self._t0 = 0.0, 0, None
+        self.ms, self.full, self.longest_ms, self._t0 = 0.0, 0, 0.0, None
 
     def __call__(self, phase, info):
         if phase == "start":
             self._t0 = time.perf_counter()
         elif self._t0 is not None:
-            self.ms += (time.perf_counter() - self._t0) * 1e3
+            pause = (time.perf_counter() - self._t0) * 1e3
+            self.ms += pause
+            self.longest_ms = max(self.longest_ms, pause)
             self.full += info["generation"] == 2
             self._t0 = None
 
@@ -2196,18 +2215,64 @@ def probe_status(port: int, path: str) -> int:
         return 0
 
 
-def runtime_boot(card_name, command=None) -> dict:
+# each part of the controller's boot, timed in a fresh child of its own:
+# the child prints one JSON object, its part's ms
+BOOT_PARTS = {
+    "import_torch_ms": (
+        "import json, time; t = time.perf_counter(); import torch; "
+        "print(json.dumps({'ms': (time.perf_counter() - t) * 1e3}))"
+    ),
+    "import_runtime_ms": (
+        "import json, time; t = time.perf_counter(); import karpenter_tpu_torch.runtime; "
+        "print(json.dumps({'ms': (time.perf_counter() - t) * 1e3}))"
+    ),
+    # the first allocation and synchronize, after the import of torch
+    "cuda_context_ms": (
+        "import json, time, torch; t = time.perf_counter(); torch.zeros(1, device='cuda'); torch.cuda.synchronize(); "
+        "print(json.dumps({'ms': (time.perf_counter() - t) * 1e3}))"
+    ),
+    # the part after the import of torch, which the line's import_torch_ms times
+    "k1_probe_ms": (
+        "import json, time, torch; torch.zeros(1, device='cuda'); torch.cuda.synchronize(); "
+        "from karpenter_tpu_torch.solver.dense import measure_dense_crossover; t = time.perf_counter(); "
+        "min_batch = measure_dense_crossover(device='cuda'); "
+        "print(json.dumps({'ms': (time.perf_counter() - t) * 1e3, 'min_batch': min_batch}))"
+    ),
+}
+
+
+def boot_split(parts=None) -> dict:
+    """ROADMAP B3's split of the controller's boot: each of BOOT_PARTS
+    (`parts` replaces them) in a fresh child, its ms as the child measured
+    it, and the child's wall from spawn to exit (the interpreter's start
+    included). The kernels' libraries are already built on disk by then,
+    as in a deployed image."""
+    out = {}
+    for part, code in (parts or BOOT_PARTS).items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=BOOT_DEADLINE_S)
+        wall = (time.perf_counter() - t0) * 1e3
+        check(proc.returncode == 0, f"boot split {part}: exit {proc.returncode}: {proc.stderr[-2000:]}")
+        out[part] = {**json.loads(proc.stdout.strip().splitlines()[-1]), "child_wall_ms": wall}
+    return out
+
+
+def runtime_boot(card_name, command=None, parts=None) -> dict:
     """The controller process on the card: `python -m
     karpenter_tpu_torch.cmd.controller` (or `command`) as a child with a
-    free health-probe port; /healthz and /readyz polled until both answer
-    200; the crossover the Runtime measured at boot (K1's probe round trip)
-    read from the child's log with the device its solver runs on; then
-    SIGTERM, and exit code 0 required. The child is killed on any failure."""
+    free health-probe port and a free metrics port; /healthz and /readyz
+    polled until both answer 200, then /metrics and /debug; the crossover
+    the Runtime measured at boot (K1's probe round trip) read from the
+    child's log with the device its solver runs on; then SIGTERM, and exit
+    code 0 required. The child is killed on any failure. Then the boot's
+    split (boot_split, `parts` in place of BOOT_PARTS)."""
     import re
     import signal
 
-    port = free_port()
-    argv = list(command or CONTROLLER_COMMAND) + ["--health-probe-port", str(port), "--log-level", "info"]
+    port, metrics_port = free_port(), free_port()
+    argv = list(command or CONTROLLER_COMMAND) + [
+        "--health-probe-port", str(port), "--metrics-port", str(metrics_port), "--log-level", "info",
+    ]
     lines: list = []
     t0 = time.perf_counter()
     proc = subprocess.Popen(argv, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
@@ -2221,6 +2286,7 @@ def runtime_boot(card_name, command=None) -> dict:
                 ready_ms = (time.perf_counter() - t0) * 1e3
                 break
             time.sleep(0.05)
+        served = {path: probe_status(metrics_port, path) for path in ("/metrics", "/debug")}
         if ready_ms is not None:
             t1 = time.perf_counter()
             proc.send_signal(signal.SIGTERM)
@@ -2245,14 +2311,17 @@ def runtime_boot(card_name, command=None) -> dict:
         "probe_round_trip_ms": float(crossover_line.group(1)) if crossover_line else None,
         "min_batch": int(crossover_line.group(2)) if crossover_line else None,
         "solver_device": device.group(1) if device else None,
+        "metrics_port_status": served,
         "shutdown_ms": shutdown_ms,
         "exit_code": proc.returncode,
+        "boot_split": boot_split(parts),
         "log_tail": log.splitlines()[-12:],
         "note": "K1's probe ran in the child, whose launch counts this process cannot read; the Runtime logs "
         "its solver's device, and on a CUDA device the wrapper launches the kernel or raises",
     }
     emit(line)
     check(ready_ms is not None, f"runtime_boot: the probes did not both answer 200 within {BOOT_DEADLINE_S} s (exit {proc.returncode})")
+    check(all(v == 200 for v in served.values()), f"runtime_boot: the metrics port answered {served}")
     check(crossover_line is not None, "runtime_boot: the child logged no measured crossover")
     check(device is not None and device.group(1).startswith("cuda"), f"runtime_boot: the Runtime's solver ran on {line['solver_device']}")
     check(shutdown_ms is not None and proc.returncode == 0, f"runtime_boot: exit code {proc.returncode} after SIGTERM")
@@ -2315,8 +2384,9 @@ def drive_runtime_round(rt, env, dev, names, write_batch, deadline_s: float) -> 
     recovered when it returns), write the batch through `write_batch` (which
     returns the instants its first write began and its last one ended), wait
     until every pod in `names` is nominated and the lifecycle and disruption
-    loops have passed at least once, then until every node a pod went to is
-    in the Runtime's Cluster, and stop() it. Every K1 and K2 call from
+    loops have passed at least once (the batch loop stopped once the batch
+    is nominated), then (within the same deadline) until every node a pod
+    went to is in the Runtime's Cluster, and stop() it. Every K1 and K2 call from
     start() to stop() is captured (`captures`, for hold_kernel_calls); each
     launch call's placements land in `placed`, the instant it returned in
     `ends`. The seams are put back whatever happens, and the Runtime is
@@ -2344,6 +2414,11 @@ def drive_runtime_round(rt, env, dev, names, write_batch, deadline_s: float) -> 
                 break
             time.sleep(0.02)
         done = max(ends) if ends else time.perf_counter()
+        # no pod is bound in these cells, so a later round would solve the
+        # batch again: pod events delivered during the round (over HTTP,
+        # behind the loops' LISTs) trigger one. The round measured is the
+        # first; the batch loop stops once it has nominated the batch.
+        rt.provisioner.stop()
         loop_deadline = time.perf_counter() + LOOP_PASS_DEADLINE_S
         while time.perf_counter() < loop_deadline and rt.healthy() and not (rt.passes.get("node", 0) >= 1 and rt.passes.get("disruption", 0) >= 1):
             time.sleep(0.05)
@@ -2355,9 +2430,11 @@ def drive_runtime_round(rt, env, dev, names, write_batch, deadline_s: float) -> 
         for node_name, pod_list in placed:
             by_node.setdefault(node_name, set()).update(p.name for p in pod_list)
         # a launched node reaches the Runtime's Cluster through its watch
-        known_deadline = time.perf_counter() + LOOP_PASS_DEADLINE_S
+        # (over HTTP, behind the loops' LISTs: the round's deadline bounds it)
+        known_deadline = time.perf_counter() + deadline_s
         while time.perf_counter() < known_deadline and any(rt.cluster.get_state_node(n) is None for n in by_node):
             time.sleep(0.05)
+        nodes_known_ms = (time.perf_counter() - done) * 1e3
         broken = broken_placements(env, by_node)
         t_stop = time.perf_counter()
         stopped = True
@@ -2371,6 +2448,7 @@ def drive_runtime_round(rt, env, dev, names, write_batch, deadline_s: float) -> 
         "placed": placed, "ends": ends, "captures": captures, "start_ms": start_ms, "recovered": recovered,
         "t0": t0, "created": created, "done": done, "nominated": nominated, "launches": launches,
         "passes": passes, "healthy": healthy, "broken": broken, "t_stop": t_stop, "stop_ms": stop_ms,
+        "nodes_known_ms": nodes_known_ms,
     }
 
 
@@ -2454,6 +2532,8 @@ def runtime_round(dev, card_name) -> dict:
     env = SimpleNamespace(controller=rt.provisioner, solver=rt.dense_solver, kube=kube, cluster=rt.cluster)
     rec = instrument(env, dev)
     names = {p.name for p in pods}
+    # the registry's command counter is process-wide: the line takes this round's
+    commands_before = dict(rt.disruption.commands.values())
 
     def write_batch():
         t0 = time.perf_counter()
@@ -2466,7 +2546,7 @@ def runtime_round(dev, card_name) -> dict:
     t0, created, done, start_ms, stop_ms = (run[k] for k in ("t0", "created", "done", "start_ms", "stop_ms"))
     alive = [t.name for t in rt.threads() if t.is_alive()]
     released, holds, got = runtime_reads(rt, kube, run, catalog, dev)
-    disruption = rt.disruption.commands._counts
+    disruption = {k: v - commands_before.get(k, 0) for k, v in rt.disruption.commands.values().items() if v != commands_before.get(k, 0)}
     kernel_run = runtime_provision_once(dev, min_batch, plain=False)
     plain_run = runtime_provision_once(dev, min_batch, plain=True)
     same = {k: kernel_run[k] == plain_run[k] for k in ("launched", "standing", "price_per_hour", "nominated")}
@@ -2500,7 +2580,7 @@ def runtime_round(dev, card_name) -> dict:
         "launch": rec["launch"],
         "passes_after_start": recovered,
         "passes": passes,
-        "disruption_commands": [[dict(k), v] for k, v in disruption.items()],
+        "disruption_commands": [[dict(zip(("method", "outcome"), k)), v] for k, v in disruption.items()],
         "kernel_holds": holds,
         "broken": broken,
         "healthy": healthy,
@@ -2524,6 +2604,248 @@ def runtime_round(dev, card_name) -> dict:
     check(not any(plain_run["launches"].values()), f"{name}: the plain versions' provision_once launched {plain_run['launches']}")
     check(kernel_run["nominated"] == pods_n, f"{name}: provision_once nominated {kernel_run['nominated']} of {pods_n}")
     check(all(same.values()), f"{name}: the kernels' and the plain versions' provision_once differ: {same}")
+    return line
+
+
+def http_get(port: int, path: str) -> tuple:
+    """(status, body bytes, ms) of one GET on 127.0.0.1; status 0 while
+    nothing answers."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+            status, body = resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        status, body = err.code, err.read()
+    except OSError:
+        status, body = 0, b""
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def span_durations(tree) -> dict:
+    """Each span name's duration in a trace tree: the one span's ms, or
+    for a repeated name its count, total and longest."""
+    found = {}
+
+    def walk(node):
+        found.setdefault(node["name"], []).append(node["duration_ms"])
+        for child in node["children"]:
+            walk(child)
+
+    walk(tree)
+    return {k: v[0] if len(v) == 1 else {"count": len(v), "total_ms": sum(v), "max_ms": max(v)} for k, v in found.items()}
+
+
+def trace_chain(tree) -> list:
+    """What a provisioning round's trace lacks of the chain provision →
+    batch, solve (encode, fill, device with mask and assemble, commit),
+    launch (every launch-node, bind); empty when the chain is whole."""
+
+    def kids(node):
+        return {c["name"]: c for c in node["children"]} if node is not None else {}
+
+    top = kids(tree)
+    solve = kids(top.get("solve"))
+    device = kids(solve.get("device"))
+    launch = [c["name"] for c in top["launch"]["children"]] if "launch" in top else []
+    want = [
+        ("provision", tree["name"] == "provision"),
+        *((f"provision/{n}", n in top) for n in ("batch", "solve", "launch")),
+        *((f"solve/{n}", n in solve) for n in ("encode", "fill", "device", "commit")),
+        *((f"device/{n}", n in device) for n in ("mask", "assemble")),
+        ("launch/launch-node", "launch-node" in launch),
+        ("launch/bind", "bind" in launch),
+    ]
+    return [name for name, ok in want if not ok]
+
+
+def runtime_round_traced(dev, card_name, untraced_line) -> dict:
+    """runtime_round's cell with the telemetry on: parse() defaults plus
+    --enable-tracing --enable-lock-witness --metrics-port, the witness
+    enabled before the store is built (as cmd/controller.main does, so the
+    kube.store lock is witnessed), and an ObservabilityServer serving
+    /metrics with cmd/controller.debug_routes. The round goes through
+    drive_runtime_round. Measured: pods to last nomination beside the
+    untraced round's, the round's trace (each span's duration), the
+    decision log, one /metrics scrape after the round (ms, bytes), each
+    scraper's pass at this size, and the witness's acquisitions, contended
+    acquisitions, long holds and longest hold by lock with its edge and
+    cycle gauges. Held: one trace links provision → batch → solve →
+    encode/fill/device(mask, assemble)/commit → launch → every launch-node
+    → bind; the decision records equal the nominations onto standing and
+    new nodes, the ring keeps its 4,096 and the dropped counter counts the
+    rest; /metrics answers 200 with the provisioning, reconcile, scheduling,
+    cloud-provider and witness families and no launch failure; no
+    lock-order cycle; every K1/K2 call held bit for bit; the outcome equal
+    to the untraced round's; no node over capacity; threads joined and the
+    Lease released after stop()."""
+    import gc
+    from collections import Counter
+    from types import SimpleNamespace
+
+    from karpenter_tpu_torch import tracing
+    from karpenter_tpu_torch.analysis import witness
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.cmd.controller import debug_routes
+    from karpenter_tpu_torch.metrics import REGISTRY
+    from karpenter_tpu_torch.observability import ObservabilityServer
+    from karpenter_tpu_torch.runtime import Runtime
+    from karpenter_tpu_torch.utils.options import parse
+
+    name, pods_n, standing = RUNTIME_ROUND_TRACED
+    port = free_port()
+    options = parse(["--dense-min-batch", "0", "--enable-tracing", "--enable-lock-witness", "--metrics-port", str(port)])
+    WITNESS, TRACER, DECISIONS = witness.WITNESS, tracing.TRACER, tracing.DECISIONS
+    WITNESS.reset()
+    WITNESS.enable()
+    DECISIONS.reset()
+    decisions = Counter()
+    record = DECISIONS.record
+
+    def counted(rec):
+        decisions[rec.outcome] += 1
+        record(rec)
+
+    DECISIONS.record = counted
+    counters = {"acquisitions": witness.ACQUISITIONS, "contended": witness.CONTENDED, "long_holds": witness.LONG_HOLDS}
+    before = {k: dict(c.values()) for k, c in counters.items()}
+    dropped_before = tracing.DECISIONS_DROPPED.value()
+    # the registry is process-wide: earlier phases' capacity failures are in it
+    failures = REGISTRY.get("karpenter_provisioning_launch_failures_total")
+    failures_before = sum(failures.values().values()) if failures is not None else 0.0
+    obs = None
+    pauses = GcPauses()
+    gc.callbacks.append(pauses)
+    try:
+        kube, pods = runtime_store(pods_n, standing, "rtt")
+        catalog = instance_types(HEADLINE_TYPES)
+        t_boot = time.perf_counter()
+        rt = Runtime(kube=kube, cloud_provider=FakeCloudProvider(catalog), options=options, device=dev)
+        construct_ms = (time.perf_counter() - t_boot) * 1e3
+        TRACER.reset()
+        obs = ObservabilityServer(
+            healthy=rt.healthy, ready=lambda: rt.ready() and rt.healthy(), health_port=None,
+            metrics_port=options.metrics_port, host="127.0.0.1", extra_routes=debug_routes(options),
+        )
+        obs.start()
+        env = SimpleNamespace(controller=rt.provisioner, solver=rt.dense_solver, kube=kube, cluster=rt.cluster)
+        rec = instrument(env, dev)
+        names = {p.name for p in pods}
+
+        def write_batch():
+            t0 = time.perf_counter()
+            for pod in pods:
+                kube.create(pod)
+            return t0, time.perf_counter()
+
+        run = drive_runtime_round(rt, env, dev, names, write_batch, RUNTIME_DEADLINE_S)
+        alive = [t.name for t in rt.threads() if t.is_alive()]
+        released, holds, got = runtime_reads(rt, kube, run, catalog, dev)
+        rounds = []
+        for entry in TRACER.traces():
+            tree = TRACER.span_tree(entry["trace_id"]) if entry["root"] == "provision" else None
+            if tree is not None and tree["attributes"].get("pods", 0) > 0:
+                rounds.append({"trace_id": entry["trace_id"], "spans": entry["spans"], "attributes": tree["attributes"], "missing": trace_chain(tree), "durations_ms": span_durations(tree), "launch_nodes": sum(1 for c in next((c for c in tree["children"] if c["name"] == "launch"), {"children": []})["children"] if c["name"] == "launch-node")})
+        scrapes = {}
+        for scraper in ("pod_metrics", "provisioner_metrics", "node_metrics"):
+            t0 = time.perf_counter()
+            getattr(rt, scraper).scrape()
+            scrapes[scraper] = (time.perf_counter() - t0) * 1e3
+        status, body, scrape_ms = http_get(port, "/metrics")
+        text = body.decode()
+        families = sorted({line.split()[2] for line in text.splitlines() if line.startswith("# TYPE ")})
+        launch_failures = sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines() if line.startswith("karpenter_provisioning_launch_failures_total")) - failures_before
+        debug = {path: http_get(port, path)[0] for path in ("/debug", "/debug/traces", "/debug/decisions", "/debug/locks")}
+        snapshot = WITNESS.snapshot()
+        by_lock = {}
+        for key, counter in counters.items():
+            for (lock,), value in counter.values().items():
+                delta = value - before[key].get((lock,), 0)
+                if delta:
+                    by_lock.setdefault(lock, {})[key] = delta
+        for lock, held in snapshot["max_hold_seconds"].items():
+            by_lock.setdefault(lock, {})["max_hold_ms"] = held * 1e3
+        ring = len(DECISIONS)
+        dropped = tracing.DECISIONS_DROPPED.value() - dropped_before
+        edges, cycles = witness.EDGES.value(), witness.CYCLES.value()
+    finally:
+        gc.callbacks.remove(pauses)
+        del DECISIONS.record
+        if obs is not None:
+            obs.stop()
+        TRACER.disable()
+        TRACER.reset()
+        DECISIONS.reset()
+        WITNESS.disable()
+    on_standing = sum(len(n[1]) for n in got["standing"])
+    launched_types = dict(sorted(Counter(t for t, *_rest in got["launched"]).items()))
+    untraced = {k: untraced_line[k] for k in ("launched_types", "pods_nominated_onto_standing", "price_per_hour")}
+    traced = {"launched_types": launched_types, "pods_nominated_onto_standing": on_standing, "price_per_hour": got["price_per_hour"]}
+    wait_ms = (run["done"] - run["t0"]) * 1e3
+    schedules = rec["schedule"]
+    line = {
+        "phase": name,
+        "config": name,
+        "card": card_name,
+        "pods": pods_n,
+        "standing_nodes": standing,
+        "types": HEADLINE_TYPES,
+        "min_batch": rt.dense_solver.min_batch,
+        "construct_ms": construct_ms,
+        "start_ms": run["start_ms"],
+        "create_ms": (run["created"] - run["t0"]) * 1e3,
+        "pods_to_last_nomination_ms": wait_ms,
+        "untraced_pods_to_last_nomination_ms": untraced_line["pods_to_last_nomination_ms"],
+        "telemetry_share_of_pod_wait": (wait_ms - untraced_line["pods_to_last_nomination_ms"]) / wait_ms,
+        "stop_ms": run["stop_ms"],
+        "rounds": len(rec["get_pods_ms"]),
+        "phases_ms": schedules[0]["phases_ms"] if schedules else None,
+        "schedule_ms": [s["wall_ms"] for s in schedules],
+        "get_pods_ms": rec["get_pods_ms"],
+        "launch": rec["launch"],
+        "traces": rounds,
+        "decisions": dict(decisions),
+        "decision_ring": ring,
+        "decisions_dropped": dropped,
+        "metrics": {"status": status, "ms": scrape_ms, "bytes": len(body), "families": len(families), "launch_failures": launch_failures},
+        "debug_status": debug,
+        "scrape_ms": scrapes,
+        "gc": {"ms": pauses.ms, "full": pauses.full, "longest_ms": pauses.longest_ms},
+        "witness": {"locks": by_lock, "edges": edges, "cycles": cycles, "cycle_list": snapshot["cycles"], "long_hold_threshold_s": snapshot["long_hold_threshold_seconds"]},
+        "outcome": traced,
+        "untraced_outcome": untraced,
+        "kernel_launches": run["launches"],
+        "kernel_holds": holds,
+        "broken": run["broken"],
+        "healthy": run["healthy"],
+        "threads_alive_after_stop": alive,
+        "lease_released": released,
+    }
+    emit(line)
+    new_pods = pods_n - on_standing
+    wanted = [
+        "karpenter_provisioning_launch_failures_total", "karpenter_reconcile_duration_seconds",
+        "karpenter_allocation_controller_scheduling_duration_seconds", "karpenter_cloudprovider_duration_seconds",
+        "karpenter_lockwitness_acquisitions_total", "karpenter_lockwitness_edges", "karpenter_lockwitness_cycles",
+    ]
+    check(run["healthy"], f"{name}: the Runtime turned unhealthy")
+    check(names <= run["nominated"], f"{name}: {len(names - run['nominated'])} of {pods_n} pods never nominated within {RUNTIME_DEADLINE_S} s")
+    check(rounds and not rounds[0]["missing"], f"{name}: the round's trace lacks {rounds[0]['missing'] if rounds else 'a provision root'}")
+    check(rounds and rounds[0]["launch_nodes"] == len(got["launched"]), f"{name}: {rounds[0]['launch_nodes'] if rounds else 0} launch-node spans for {len(got['launched'])} launches")
+    check(decisions.get("placed-existing", 0) == on_standing and decisions.get("placed-new", 0) == new_pods, f"{name}: decisions {dict(decisions)} against {on_standing} onto standing and {new_pods} onto new nodes")
+    check(ring == min(pods_n, tracing.DEFAULT_DECISION_RING) and dropped == sum(decisions.values()) - ring, f"{name}: the decision ring holds {ring} and counted {dropped} dropped of {sum(decisions.values())}")
+    check(status == 200 and all(f in families for f in wanted), f"{name}: /metrics answered {status}; missing {[f for f in wanted if f not in families]}")
+    check(launch_failures == 0, f"{name}: /metrics counts {launch_failures} launch failures")
+    check(all(v == 200 for v in debug.values()), f"{name}: debug routes answered {debug}")
+    check(not snapshot["cycles"] and cycles == 0, f"{name}: lock-order cycles {snapshot['cycles']}")
+    check(run["launches"]["bucket_type_cost"] >= 1 and run["launches"]["warm_fill_counts"] >= 1, f"{name}: the window launched {run['launches']}")
+    check(holds and all(h["identical"] for h in holds), f"{name}: a kernel call differs from its plain version: {[h for h in holds if not h['identical']]}")
+    check(traced == untraced, f"{name}: the traced round's outcome {traced} differs from the untraced round's {untraced}")
+    check(not any(run["broken"].values()), f"{name}: the round broke placements: {run['broken']}")
+    check(not alive, f"{name}: threads alive after stop(): {alive}")
+    check(released, f"{name}: the Lease was not released")
     return line
 
 
@@ -3109,6 +3431,7 @@ def runtime_round_http(dev, card_name, memory_line) -> dict:
         "node_post_ms_total": sum(wire["node_posts_ms"]),
         "node_post_ms_max": max(wire["node_posts_ms"]) if wire["node_posts_ms"] else None,
         "first_pod_to_last_node_created_ms": (max(node_times) - t0) * 1e3 if node_times else None,
+        "nodes_in_cluster_after_last_nomination_ms": run["nodes_known_ms"],
         "requests": dict(sorted(wire["requests"].items())),
         "requests_by_thread": dict(sorted(wire["requests_by_thread"].items())),
         "lists_by_thread": dict(sorted(wire["lists_by_thread"].items())),
@@ -3656,6 +3979,9 @@ def main() -> int:
     # warnings only
     runtime_boot(card_name)
     runtime_line = runtime_round(dev, card_name)
+    # 12c'. the same cell with the telemetry on: tracing, the lock witness
+    # and /metrics, held to the untraced round's outcome
+    traced_line = runtime_round_traced(dev, card_name, runtime_line)
     sidecar_line = solver_sidecar(dev, card_name)
 
     # 12d. the wire: the Runtime's cell over HTTP against an apiserver
@@ -3749,6 +4075,7 @@ def main() -> int:
                 "disruption_launches": disruption_launches("bucket_type_cost"),
                 "interruption_launches": interruption_launches("bucket_type_cost"),
                 "runtime_launches": runtime_launches("bucket_type_cost"),
+                "traced_launches": traced_line["kernel_launches"]["bucket_type_cost"],
                 "sidecar_launches": sidecar_line["kernel_launches"]["bucket_type_cost"],
                 "sidecar_grpc_launches": sidecar_line["grpc"]["kernel_launches"]["bucket_type_cost"],
                 "http_launches": http_launches("bucket_type_cost"),
@@ -3781,6 +4108,7 @@ def main() -> int:
                 "disruption_launches": disruption_launches("warm_fill_counts"),
                 "interruption_launches": interruption_launches("warm_fill_counts"),
                 "runtime_launches": runtime_launches("warm_fill_counts"),
+                "traced_launches": traced_line["kernel_launches"]["warm_fill_counts"],
                 "sidecar_launches": sidecar_line["kernel_launches"]["warm_fill_counts"],
                 "sidecar_grpc_launches": sidecar_line["grpc"]["kernel_launches"]["warm_fill_counts"],
                 "http_launches": http_launches("warm_fill_counts"),

@@ -23,21 +23,36 @@ explicit invalidation plumbing.
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, Optional, Set
 
-from .errors import Pool
+from ..analysis import WITNESS, guarded_by
+from ..metrics import REGISTRY
+from .errors import Pool, pool_label
 
 UNAVAILABLE_OFFERING_TTL = 180.0
 
+# ICE observations by pool, incremented wherever a launch path observes the
+# cloud refusing a pool (provider typed-error handler, fake provider,
+# partial-fulfillment shortfall entries)
+INSUFFICIENT_CAPACITY_TOTAL = REGISTRY.counter(
+    "karpenter_cloudprovider_insufficient_capacity_total",
+    "Insufficient-capacity launch observations, by (type/zone/capacity-type) pool",
+    ("pool",),
+)
+OFFERINGS_UNAVAILABLE = REGISTRY.gauge(
+    "karpenter_offerings_unavailable",
+    "Offerings currently quarantined by the unavailable-offerings cache",
+)
 
+
+@guarded_by("_lock", "_pools", "_version")
 class UnavailableOfferings:
     """TTL'd set of (instance_type, zone, capacity_type) pools to avoid."""
 
     def __init__(self, clock, ttl: float = UNAVAILABLE_OFFERING_TTL):
         self.clock = clock
         self.ttl = ttl
-        self._lock = threading.Lock()
+        self._lock = WITNESS.lock("cloud.unavailable-offerings")
         self._pools: Dict[Pool, float] = {}  # pool -> expiry on the clock
         self._version = 0  # bumps on every mark AND every observed expiry
 
@@ -56,6 +71,7 @@ class UnavailableOfferings:
             self._pools[key] = expiry
             if fresh:
                 self._version += 1
+                OFFERINGS_UNAVAILABLE.set(float(len(self._pools)))
 
     def mark_pools(self, pools, ttl: Optional[float] = None) -> None:
         for type_name, zone, capacity_type in pools:
@@ -71,6 +87,7 @@ class UnavailableOfferings:
             if expiry < now:
                 del self._pools[key]
                 self._version += 1
+                OFFERINGS_UNAVAILABLE.set(float(len(self._pools)))
                 return False
             return True
 
@@ -80,6 +97,7 @@ class UnavailableOfferings:
             del self._pools[k]
         if expired:
             self._version += 1
+            OFFERINGS_UNAVAILABLE.set(float(len(self._pools)))
 
     def version(self) -> int:
         """Monotonic change counter, bumping on marks and (lazily observed)
@@ -102,10 +120,10 @@ class UnavailableOfferings:
             if self._pools:
                 self._version += 1
             self._pools.clear()
-
+            OFFERINGS_UNAVAILABLE.set(0.0)
 
 
 def count_insufficient_capacity(pools) -> None:
-    """Record ICE observations for `pools`. The reference counts them per
-    pool in a registry counter; the port has no registry yet (ROADMAP A8),
-    so this is a no-op kept for its callers."""
+    """Record ICE observations for `pools` in the per-pool counter."""
+    for pool in pools:
+        INSUFFICIENT_CAPACITY_TOTAL.inc(pool=pool_label(tuple(pool)))

@@ -15,7 +15,8 @@ the protocol), mirroring the reference's remote-API client obligations
     throttle's Retry-After as the floor), 5xx, and transport errors, bounded
     by max_attempts AND a per-request deadline so one logical call can never
     stall its controller loop longer than the budget;
-  - observability: `retries` counts every retried attempt;
+  - observability: karpenter_cloudapi_retries_total{code} counts every
+    retried attempt by the failure class that caused it;
   - pagination for the instance-type catalog;
   - a typed error taxonomy: structured error bodies map back to
     InsufficientCapacityError (with per-pool extraction) and
@@ -26,9 +27,6 @@ the protocol), mirroring the reference's remote-API client obligations
     a retry after a lost response replays the SAME token and the service
     returns the original instance — a mid-call timeout can never
     double-launch (EC2 ClientToken semantics).
-
-The port's copy of karpenter_tpu/cloudprovider/simulated/apiclient.py. The
-registry counter of retries by failure class is left out (ROADMAP A8a).
 """
 
 from __future__ import annotations
@@ -41,6 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from urllib.parse import quote, urlparse
 
 from ...logsetup import get_logger
+from ...metrics import REGISTRY
 from ...utils.clock import Clock
 from .backend import (
     FleetInstance,
@@ -106,6 +105,11 @@ class CloudAPIClient:
         self._sleep = sleep if sleep is not None else self.clock.sleep
         self._rng = random.Random(0x5EED)
         self.retries = 0  # observable: total retried attempts
+        self.retries_total = REGISTRY.counter(
+            "karpenter_cloudapi_retries_total",
+            "Cloud API attempts retried, by the failure class that caused the retry",
+            ("code",),
+        )
 
     # -- transport -----------------------------------------------------------
 
@@ -142,16 +146,16 @@ class CloudAPIClient:
                 status, parsed, headers = self._once(method, path, body)
             except OSError as err:  # connection refused/reset, timeout
                 last_error = err
-                self._backoff(attempt, None, started)
+                self._backoff(attempt, None, started, code="transport")
                 continue
             if status == 429:
                 last_error = CloudAPIError("throttled", status=429, code="throttled")
-                self._backoff(attempt, headers.get("Retry-After"), started)
+                self._backoff(attempt, headers.get("Retry-After"), started, code="throttled")
                 continue
             if status >= 500:
                 message = (parsed.get("error") or {}).get("message", "internal error")
                 last_error = CloudAPIError(message, status=status, code="internal")
-                self._backoff(attempt, None, started)
+                self._backoff(attempt, None, started, code="internal")
                 continue
             if status == 401:
                 raise AuthError("unauthorized: check the cloud API bearer token", status=401, code="unauthorized")
@@ -172,12 +176,13 @@ class CloudAPIClient:
             code=getattr(last_error, "code", None) or "exhausted",
         )
 
-    def _backoff(self, attempt: int, retry_after: Optional[str], started: float) -> None:
+    def _backoff(self, attempt: int, retry_after: Optional[str], started: float, code: str = "transport") -> None:
         """Sleep before the retry the caller is about to make: exponential
         cap with FULL jitter (uniform over [0, cap] — the aws-sdk
         FullJitter recipe that decorrelates a thundering herd better than
         any fixed fraction), a throttle's Retry-After as the floor, and the
         whole thing clamped to the remaining request deadline."""
+        self.retries_total.inc(code=code)
         cap = min(BACKOFF_CAP, self.backoff_base * (2**attempt))
         delay = self._rng.uniform(0.0, cap)
         if retry_after is not None:

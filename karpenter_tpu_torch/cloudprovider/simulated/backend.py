@@ -6,19 +6,15 @@ simulation backend the 'real-style' provider implementation runs against:
 instance-type catalog, per-zone subnets, spot/on-demand price books,
 create-fleet with insufficient-capacity pools and injectable errors, launch
 templates, and full call capture for tests.
-
-The port's copy of karpenter_tpu/cloudprovider/simulated/backend.py; its
-lock is a plain threading.Lock (the reference's lock-order witness and
-guarded-by annotation are left out).
 """
 
 from __future__ import annotations
 
 import itertools
-import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
+from ...analysis import WITNESS, guarded_by
 from ..errors import InsufficientCapacityError, ResponseLostError, TransientCloudError
 
 
@@ -165,13 +161,32 @@ def default_catalog() -> List[InstanceTypeInfo]:
     return unique
 
 
+@guarded_by(
+    "_lock",
+    "instances",
+    "fleet_tokens",
+    "token_launches",
+    "_double_launches_evicted",
+    "pending_reclaims",
+    "launch_templates",
+    "od_prices",
+    "spot_prices",
+    "create_fleet_calls",
+    "terminate_calls",
+    "describe_calls",
+    "insufficient_capacity_pools",
+    "capacity_pools",
+    "next_error",
+    "_drop_response",
+    "api_latency",
+)
 class CloudBackend:
     def __init__(self, catalog: Optional[List[InstanceTypeInfo]] = None, zones: Sequence[str] = ("zone-a", "zone-b", "zone-c"), clock=None):
         from ...utils.clock import Clock
         from .notifications import NotificationQueue
 
         self.clock = clock or Clock()
-        self._lock = threading.Lock()
+        self._lock = WITNESS.lock("cloud.backend")
         # the SQS-analog interruption feed (notifications.py): every
         # lifecycle event below lands here; consumers poll it in-process or
         # over the HTTP transport (api.py /v1/queue routes)

@@ -23,10 +23,6 @@ contract of the reference's per-item CreateFleet error extraction). The
 exhausted pools every item reports (including pools a SUCCESSFUL launch
 skipped on its way to a pricier one) stream to `on_unavailable`, the
 negative-offering-cache feed.
-
-The port's copy of karpenter_tpu/cloudprovider/simulated/fleet.py; its
-lock is a plain threading.Lock (the reference's lock-order witness and
-guarded-by annotation are left out).
 """
 
 from __future__ import annotations
@@ -36,6 +32,7 @@ import uuid
 from dataclasses import replace
 from typing import Callable, Dict, List, Optional, Tuple
 
+from ...analysis import WITNESS, guarded_by
 from ..errors import InsufficientCapacityError, TransientCloudError
 from .backend import CloudBackend, FleetInstance, FleetRequest
 
@@ -61,6 +58,7 @@ def _request_key(request: FleetRequest) -> Tuple:
     )
 
 
+@guarded_by("_lock", "_pending")
 class CreateFleetBatcher:
     def __init__(self, backend: CloudBackend, window: float = BATCH_WINDOW_SECONDS, on_unavailable: Optional[Callable] = None):
         self.backend = backend
@@ -69,7 +67,7 @@ class CreateFleetBatcher:
         # from every item — typed ICEs AND the pools successful launches
         # skipped; the provider wires this into its UnavailableOfferings
         self.on_unavailable = on_unavailable
-        self._lock = threading.Lock()
+        self._lock = WITNESS.lock("cloud.fleetbatcher")
         self._pending: Dict[Tuple, _Batch] = {}
 
     def _report_unavailable(self, pools) -> None:

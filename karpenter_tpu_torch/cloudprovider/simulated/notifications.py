@@ -29,10 +29,6 @@ lives in controllers/interruption/messages.py):
 
 Timestamps are in the owning clock's timeline (the backend's Clock), so
 FakeClock suites drive deadline races deterministically.
-
-The port's copy of karpenter_tpu/cloudprovider/simulated/notifications.py;
-its lock is a plain threading.Lock under the arrival Condition (the
-reference's lock-order witness and guarded-by annotation are left out).
 """
 
 from __future__ import annotations
@@ -41,6 +37,8 @@ import itertools
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+from ...analysis import WITNESS, guarded_by
 
 DEFAULT_VISIBILITY_TIMEOUT = 30.0
 DEFAULT_MAX_RECEIVE_COUNT = 3
@@ -75,6 +73,16 @@ class ReceivedMessage:
     body: dict = field(default_factory=dict)
 
 
+@guarded_by(
+    "_lock",
+    "_messages",
+    "_dead_letters",
+    "sent_total",
+    "deleted_total",
+    "redelivered_total",
+    "expired_total",
+    aliases=("_arrival",),
+)
 class NotificationQueue:
     def __init__(
         self,
@@ -89,7 +97,7 @@ class NotificationQueue:
         self.visibility_timeout = visibility_timeout
         self.max_receive_count = max_receive_count
         self.max_depth = max_depth
-        self._lock = threading.Lock()
+        self._lock = WITNESS.lock("cloud.notifications")
         self._arrival = threading.Condition(self._lock)
         self._messages: Dict[str, QueueMessage] = {}  # insertion-ordered
         self._dead_letters: List[QueueMessage] = []

@@ -3,19 +3,20 @@
     python -m karpenter_tpu_torch.cmd.controller --health-probe-port 8081 [--apiserver-url URL]
 
 Boots the runtime, on the card, against a cluster backend and a cloud
-provider, serves the health and readiness probes from the moment the
-process is up, and stops on SIGINT or SIGTERM.
+provider, serves the health and readiness probes and /metrics from the
+moment the process is up, and stops on SIGINT or SIGTERM.
 
 The port's copy of karpenter_tpu/cmd/controller.py. Backend selection
 mirrors client-go's config loading: --apiserver-url (or
 $KUBERNETES_APISERVER_URL, or the in-cluster $KUBERNETES_SERVICE_HOST with
 a mounted serviceaccount token) selects the real-protocol HTTP client at
 the configured QPS/burst budget; otherwise the in-memory simulation backend
-runs. The debug surfaces'
-flags raise through the Runtime (ROADMAP A8). Nothing listens on
---metrics-port until /metrics is ported (ROADMAP A8); `main` logs a warning
-naming the port at boot, so a deployment that scrapes it sees why. A runtime whose loop dies
-ends the process: `main` leaves its wait, and `Runtime.stop()` re-raises.
+runs. --metrics-port serves /metrics, the /debug index and, behind
+their flags, the tracing routes (--enable-tracing: /debug/traces,
+/debug/decisions) and the lock witness's (--enable-lock-witness:
+/debug/locks). The other debug surfaces' flags raise through the Runtime
+(ROADMAP A8b, A7). A runtime whose loop dies ends the process: `main`
+leaves its wait, and `Runtime.stop()` re-raises.
 """
 
 from __future__ import annotations
@@ -72,22 +73,51 @@ def build_kube_backend(options):
     return KubeCluster(), ""
 
 
+def debug_routes(options) -> dict:
+    """The metrics listener's routes beside /metrics: each debug surface
+    its flag turns on, and the /debug index of them."""
+    from ..observability import debug_index_route
+
+    extra_routes = {}
+    # /debug index rows: every wired debug endpoint with the one-line
+    # description its OWN module declares next to its routes() — path and
+    # description can only drift together, inside one file
+    debug_descriptions = {}
+    if options.enable_tracing:
+        # decision-tracing read surface: /debug/traces (+ ?id, ?format=chrome)
+        # and /debug/decisions (+ ?pod=, ?outcome=, ?limit=) on the metrics port
+        from .. import tracing
+
+        extra_routes.update(tracing.routes())
+        debug_descriptions.update(tracing.route_descriptions())
+    if options.enable_lock_witness:
+        # lock-order witness read surface: acquisition-order graph, cycle
+        # (potential-deadlock) list, hold times on the metrics port
+        from ..analysis import witness
+
+        extra_routes.update(witness.routes())
+        debug_descriptions.update(witness.route_descriptions())
+    extra_routes["/debug"] = debug_index_route(debug_descriptions)
+    return extra_routes
+
+
 def main(argv=None) -> int:
     from ..cloudprovider.fake import FakeCloudProvider
-    from ..logsetup import get_logger
     from ..observability import ObservabilityServer
     from ..runtime import Runtime
     from ..utils.clock import Clock
     from ..utils.options import parse
 
     options = parse(argv)
+    if options.enable_lock_witness:
+        # BEFORE the kube backend exists: witnessing happens at lock
+        # creation, and kube.store is the most-shared lock in the process —
+        # Runtime's own enable (for embedded callers) would come too late
+        from ..analysis.witness import WITNESS
+
+        WITNESS.enable()
     kube, url = build_kube_backend(options)
     runtime = Runtime(kube=kube, cloud_provider=FakeCloudProvider(), options=options)
-    get_logger("controller").warning(
-        "metrics port %d: nothing listens on it, /metrics is not ported yet (ROADMAP A8); "
-        "the health probes serve on port %d",
-        options.metrics_port, options.health_probe_port,
-    )
 
     # the handlers go in before the probes answer: a SIGTERM sent once the
     # process reports ready must take the graceful path
@@ -98,13 +128,15 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGINT, handle)
     signal.signal(signal.SIGTERM, handle)
-    # probes serve from the moment the process is up — BEFORE
+    # probes + /metrics serve from the moment the process is up — BEFORE
     # runtime.start(), which blocks on leader election: a standby replica
     # must still answer kubelet probes (controllers.go:167-181)
     obs = ObservabilityServer(
         healthy=runtime.healthy,
         ready=lambda: runtime.ready() and runtime.healthy(),
         health_port=options.health_probe_port,
+        metrics_port=options.metrics_port,
+        extra_routes=debug_routes(options),
     )
     obs.start()
     clock = Clock()

@@ -19,13 +19,11 @@ the solver's min_batch pods runs through K2 (the fill onto the other nodes)
 and, when it needs a new node, K1.
 
 The port's copy of karpenter_tpu/controllers/consolidation/controller.py.
-Left out with the telemetry (ROADMAP A8): the trace spans around a pass,
-the what-if and the action, and the metrics registry's families of
-ConsolidationMetrics, which keeps its plain tallies. One change of cost, not
-of outcome: a pass reads every candidate's pods from one scan of the store
-(`_pods_by_node`), where the reference scans the whole store per candidate,
-twice (kube.pods_on_node in _is_empty and _disruption_cost): on 2,000 nodes
-of 72 pods that is 4,000 scans of 144,000 pods a pass.
+One change of cost, not of outcome: a pass reads every candidate's pods from
+one scan of the store (`_pods_by_node`), where the reference scans the whole
+store per candidate, twice (kube.pods_on_node in _is_empty and
+_disruption_cost): on 2,000 nodes of 72 pods that is 4,000 scans of 144,000
+pods a pass.
 """
 
 from __future__ import annotations
@@ -40,6 +38,7 @@ from ...cloudprovider.types import CloudProvider, NodeRequest
 from ...events import Recorder
 from ...kube.cluster import KubeCluster
 from ...scheduler import SchedulerOptions
+from ...tracing import TRACER
 from ...utils import pod as podutils
 from ..state.cluster import Cluster, StateNode
 from ...logsetup import get_logger
@@ -67,24 +66,42 @@ class ConsolidationAction:
 
 @dataclass
 class ConsolidationMetrics:
-    """Per-controller tallies (the reference's consolidation/metrics.go:35-72
-    families, kept as plain numbers until the metrics registry is ported;
-    tests/test_torch_consolidation.py's cluster_record holds them to the JAX
-    package's)."""
+    """Per-controller tallies, mirrored into the Prometheus registry
+    (the reference's consolidation/metrics.go:35-72 families)."""
 
     evaluations: int = 0
     nodes_terminated: int = 0
     nodes_created: int = 0
     actions: List[str] = field(default_factory=list)
 
+    def __post_init__(self):
+        from ...metrics import REGISTRY
+
+        self._eval_duration = REGISTRY.histogram(
+            "karpenter_consolidation_evaluation_duration_seconds",
+            "Duration of consolidation evaluation passes",
+        )
+        self._nodes_created = REGISTRY.counter(
+            "karpenter_consolidation_nodes_created", "Replacement nodes launched by consolidation"
+        )
+        self._nodes_terminated = REGISTRY.counter(
+            "karpenter_consolidation_nodes_terminated", "Nodes terminated by consolidation"
+        )
+        self._actions_performed = REGISTRY.counter(
+            "karpenter_consolidation_actions_performed", "Consolidation actions performed", ("action",)
+        )
+
     def record_created(self, n: int = 1) -> None:
         self.nodes_created += n
+        self._nodes_created.inc(n)
 
     def record_terminated(self, n: int = 1) -> None:
         self.nodes_terminated += n
+        self._nodes_terminated.inc(n)
 
     def record_action(self, action: str) -> None:
         self.actions.append(action)
+        self._actions_performed.inc(action=action)
 
 
 class ConsolidationController:
@@ -158,7 +175,11 @@ class ConsolidationController:
 
     def process_cluster(self) -> ConsolidationAction:
         self.metrics.evaluations += 1
-        return self._process_cluster()
+        with TRACER.span("consolidate") as sp:
+            with self.metrics._eval_duration.time():
+                action = self._process_cluster()
+            sp.set(action=action.type.value, reason=action.reason)
+            return action
 
     def _process_cluster(self) -> ConsolidationAction:
         # finish a replacement that was waiting on readiness; the wait is
@@ -316,47 +337,48 @@ class ConsolidationController:
         from ..disruption.methods import METHOD_CONSOLIDATION, DisruptionCommand
 
         self.metrics.evaluations += 1
-        if self._uninitialized_node_exists():
-            return []
-        candidates = [c for c in self.candidate_nodes() if c.name not in exclude]
-        if not candidates:
-            return []
-        commands = []
-        pods_by_node = self._pods_by_node()
-        empty = [c for c in candidates if self._is_empty(c, pods_by_node)]
-        if empty:
-            # ONE command per node, not one grouped command: a command
-            # larger than the provisioner's budget could never clear the
-            # in_flight + len(nodes) <= limit gate and would livelock in
-            # the queue; per-node commands let the budget pace them
-            for c in empty:
+        with self.metrics._eval_duration.time():
+            if self._uninitialized_node_exists():
+                return []
+            candidates = [c for c in self.candidate_nodes() if c.name not in exclude]
+            if not candidates:
+                return []
+            commands = []
+            pods_by_node = self._pods_by_node()
+            empty = [c for c in candidates if self._is_empty(c, pods_by_node)]
+            if empty:
+                # ONE command per node, not one grouped command: a command
+                # larger than the provisioner's budget could never clear the
+                # in_flight + len(nodes) <= limit gate and would livelock in
+                # the queue; per-node commands let the budget pace them
+                for c in empty:
+                    commands.append(
+                        DisruptionCommand(
+                            method=METHOD_CONSOLIDATION,
+                            nodes=[c.node],
+                            provisioner_name=c.node.metadata.labels.get(lbl.PROVISIONER_NAME_LABEL, ""),
+                            reason="empty nodes",
+                            created_at=self.clock.now(),
+                            # the decision is ONLY sound while the node holds
+                            # no reschedulable pods; execution must re-check
+                            require_empty=True,
+                        )
+                    )
+                return commands
+            candidate, action = self._first_beneficial_action(candidates, pdb or PDBLimits(self.kube), pods_by_node)
+            if action.type != ActionType.NO_ACTION:
                 commands.append(
                     DisruptionCommand(
                         method=METHOD_CONSOLIDATION,
-                        nodes=[c.node],
-                        provisioner_name=c.node.metadata.labels.get(lbl.PROVISIONER_NAME_LABEL, ""),
-                        reason="empty nodes",
+                        nodes=action.nodes,
+                        provisioner_name=candidate.node.metadata.labels.get(lbl.PROVISIONER_NAME_LABEL, ""),
+                        reason=action.reason,
+                        replacements=[action.replacement] if action.replacement is not None else [],
+                        candidate_price=self._node_price(candidate) if action.replacement is not None else None,
                         created_at=self.clock.now(),
-                        # the decision is ONLY sound while the node holds
-                        # no reschedulable pods; execution must re-check
-                        require_empty=True,
                     )
                 )
             return commands
-        candidate, action = self._first_beneficial_action(candidates, pdb or PDBLimits(self.kube), pods_by_node)
-        if action.type != ActionType.NO_ACTION:
-            commands.append(
-                DisruptionCommand(
-                    method=METHOD_CONSOLIDATION,
-                    nodes=action.nodes,
-                    provisioner_name=candidate.node.metadata.labels.get(lbl.PROVISIONER_NAME_LABEL, ""),
-                    reason=action.reason,
-                    replacements=[action.replacement] if action.replacement is not None else [],
-                    candidate_price=self._node_price(candidate) if action.replacement is not None else None,
-                    created_at=self.clock.now(),
-                )
-            )
-        return commands
 
     # -- the simulated scheduling decision --------------------------------------
 
@@ -365,11 +387,14 @@ class ConsolidationController:
         (controller.go:430-498)."""
         reschedulable = [p for p in pods if not podutils.is_owned_by_daemonset(p) and not podutils.is_terminal(p)]
         state_nodes = self.cluster.nodes_snapshot()
-        results = self.provisioner_controller.schedule(
-            reschedulable,
-            state_nodes,
-            opts=SchedulerOptions(simulation_mode=True, exclude_nodes=[candidate.name]),
-        )
+        # the simulated solve's span tree (incl. the dense phase children)
+        # nests under this, so a slow consolidation pass is attributable
+        with TRACER.span("simulate", candidate=candidate.name, pods=len(reschedulable)):
+            results = self.provisioner_controller.schedule(
+                reschedulable,
+                state_nodes,
+                opts=SchedulerOptions(simulation_mode=True, exclude_nodes=[candidate.name]),
+            )
         if results.unschedulable:
             return ConsolidationAction(ActionType.NO_ACTION, reason="pods would not reschedule")
         if not results.new_nodes or all(not n.pods for n in results.new_nodes):
@@ -411,6 +436,10 @@ class ConsolidationController:
     def perform(self, action: ConsolidationAction) -> None:
         if action.type == ActionType.NO_ACTION:
             return
+        with TRACER.span("perform", action=action.type.value, nodes=len(action.nodes)):
+            self._perform(action)
+
+    def _perform(self, action: ConsolidationAction) -> None:
         if action.type == ActionType.REPLACE:
             # cordon the outgoing node before launching so new pods cannot
             # land on it while the replacement converges (controller.go:310-312)

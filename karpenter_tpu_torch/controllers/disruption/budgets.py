@@ -11,18 +11,14 @@ starts executing (before any cordon) and released only once the node object
 is gone, so "nodes simultaneously disrupted" can never exceed the limit even
 while drains are in flight. Involuntary disruption (the interruption
 controller) never consults this ledger — capacity loss is not rate-limited.
-
-The port's copy of karpenter_tpu/controllers/disruption/budgets.py; the
-ledger's lock is a plain threading.Lock (the reference's lock-order witness
-and guarded-by annotation are left out).
 """
 
 from __future__ import annotations
 
 import math
-import threading
 from typing import Dict, Optional, Set
 
+from ...analysis import WITNESS, guarded_by
 from ...api.provisioner import Provisioner, parse_budget_nodes
 from ...utils import cron
 
@@ -56,6 +52,7 @@ def allowed_disruptions(provisioner: Provisioner, total_nodes: int, now: float) 
     return limit
 
 
+@guarded_by("_lock", "_charged")
 class BudgetTracker:
     """The atomic in-flight ledger, one charge per disrupted node. All
     methods charge through the single disruption orchestrator pass, so the
@@ -63,7 +60,7 @@ class BudgetTracker:
     threads (metrics scrapes, tests)."""
 
     def __init__(self):
-        self._lock = threading.Lock()  # guards _charged
+        self._lock = WITNESS.lock("disruption.budgets")
         self._charged: Dict[str, Set[str]] = {}  # provisioner -> node names
 
     def in_flight(self, provisioner_name: str) -> int:

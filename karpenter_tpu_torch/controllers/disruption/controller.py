@@ -22,26 +22,28 @@ Termination remains the sole drain executor — execution here ends at
 kube.delete (the drain handoff). Involuntary disruption (the interruption
 controller) never passes through this queue and is never budget-blocked.
 
-The port's copy of karpenter_tpu/controllers/disruption/controller.py.
-Left out with the telemetry (ROADMAP A8): the metrics registry's gauges and
-counters and the disrupt -> validate -> launch-replacement -> drain-handoff
-trace; the finished commands and the budget-blocked transitions are kept
-as plain tallies (`commands`, `budget_blocked`), and the commands' trace
-fields stay unused. One deliberate difference: the reference logs and
-swallows an exception raised by a method's or consolidation's propose();
-here it leaves reconcile(), since a what-if solve on the card can raise a
-kernel or device fault that must not hide behind a log line.
+Each executed command is one trace: disrupt -> validate ->
+launch-replacement -> drain-handoff (the root stays open across passes while
+a replacement initializes; tracing.py open_span/close_span).
+
+The port's copy of karpenter_tpu/controllers/disruption/controller.py. One
+deliberate difference: the reference logs and swallows an exception raised
+by a method's or consolidation's propose(); here it leaves reconcile(),
+since a what-if solve on the card can raise a kernel or device fault that
+must not hide behind a log line.
 """
 
 from __future__ import annotations
 
 from collections import deque
-from typing import Deque, Dict, List, Optional, Set, Tuple
+from typing import Deque, Dict, List, Optional, Set
 
 from ...api import labels as lbl
 from ...cloudprovider.types import NodeRequest
 from ...events import Recorder
 from ...logsetup import get_logger
+from ...metrics import REGISTRY
+from ...tracing import TRACER
 from .budgets import BudgetTracker, allowed_disruptions
 from .eligibility import PDBLimits, pod_ineligible_reason
 from .methods import (
@@ -59,21 +61,6 @@ OUTCOME_INVALIDATED = "invalidated"
 OUTCOME_LAUNCH_FAILED = "launch-failed"
 OUTCOME_REPLACEMENT_TIMED_OUT = "replacement-timed-out"
 OUTCOME_REPLACEMENT_VANISHED = "replacement-vanished"
-
-
-class Tally:
-    """A labelled count, the plain counterpart of a registry counter:
-    `inc(method=..., outcome=...)`, `value(method=..., outcome=...)`."""
-
-    def __init__(self):
-        self._counts: Dict[Tuple, int] = {}
-
-    def inc(self, **labels) -> None:
-        key = tuple(sorted(labels.items()))
-        self._counts[key] = self._counts.get(key, 0) + 1
-
-    def value(self, **labels) -> int:
-        return self._counts.get(tuple(sorted(labels.items())), 0)
 
 
 class DisruptionController:
@@ -120,10 +107,40 @@ class DisruptionController:
         self._queue: Deque[DisruptionCommand] = deque()
         self._pending: Optional[DisruptionCommand] = None
         self._pending_deadline = 0.0
-        # commands finished, by method and outcome; commands deferred on an
-        # exhausted budget, by provisioner (counted on the transition only)
-        self.commands = Tally()
-        self.budget_blocked = Tally()
+        self._gauged_provisioners: Set[str] = set()
+        self.commands = REGISTRY.counter(
+            "karpenter_disruption_commands",
+            "Disruption commands finished, by method and outcome",
+            ("method", "outcome"),
+        )
+        self.budget_blocked = REGISTRY.counter(
+            "karpenter_disruption_budget_blocked_total",
+            "Disruption commands deferred because the provisioner's budget was exhausted",
+            ("provisioner",),
+        )
+        self.eligible_nodes = REGISTRY.gauge(
+            "karpenter_disruption_eligible_nodes",
+            "Nodes currently eligible for voluntary disruption",
+            ("provisioner",),
+        )
+        self.ineligible_nodes = REGISTRY.gauge(
+            "karpenter_disruption_ineligible_nodes",
+            "Owned nodes currently ineligible for voluntary disruption (do-not-disrupt, PDBs, uninitialized)",
+            ("provisioner",),
+        )
+        self.queue_depth = REGISTRY.gauge(
+            "karpenter_disruption_queue_depth", "Commands waiting in the disruption queue"
+        )
+        self.nodes_disrupting = REGISTRY.gauge(
+            "karpenter_disruption_nodes_disrupting",
+            "Nodes currently charged against their provisioner's disruption budget",
+            ("provisioner",),
+        )
+        self.recoveries = REGISTRY.counter(
+            "karpenter_disruption_recoveries_total",
+            "Crash-restart reconstruction actions, by what the recovered marker required",
+            ("action",),
+        )
 
     # -- restart reconstruction ------------------------------------------------
 
@@ -146,6 +163,7 @@ class DisruptionController:
                     # still in flight (release happens, as always, when the
                     # node object is gone)
                     self.tracker.try_charge(provisioner_name, node.name, None)
+                    self.recoveries.inc(action="recharged")
                     summary["recharged"].append(node.name)
                 else:
                     # crashed between charge and delete: the command died
@@ -157,6 +175,7 @@ class DisruptionController:
                     ):
                         node.spec.unschedulable = False
                     self.kube.update(node)
+                    self.recoveries.inc(action="released")
                     summary["released"].append(node.name)
                 continue
             targets = node.metadata.annotations.get(lbl.REPLACEMENT_FOR_ANNOTATION)
@@ -173,6 +192,7 @@ class DisruptionController:
                 # re-proposed command will launch its own replacement — this
                 # one would leak as empty nominated capacity
                 self.kube.delete(node)
+                self.recoveries.inc(action="reaped")
                 summary["reaped"].append(node.name)
             else:
                 # the drain finished (or the node is already real capacity):
@@ -180,6 +200,7 @@ class DisruptionController:
                 del node.metadata.annotations[lbl.REPLACEMENT_FOR_ANNOTATION]
                 self.kube.update(node)
                 self.cluster.nominate_node_for_pod(node.name)
+                self.recoveries.inc(action="adopted")
                 summary["adopted"].append(node.name)
         if any(summary.values()):
             log.info(
@@ -200,6 +221,7 @@ class DisruptionController:
         self._propose(pdb)
         if self._pending is None:
             self._drain_queue(pdb)
+        self.queue_depth.set(float(len(self._queue)))
 
     # -- budget bookkeeping ----------------------------------------------------
 
@@ -210,6 +232,7 @@ class DisruptionController:
             for node_name in self.tracker.charged_nodes(provisioner_name):
                 if self.kube.get_node(node_name) is None:
                     self.tracker.release(provisioner_name, node_name)
+            self.nodes_disrupting.set(float(self.tracker.in_flight(provisioner_name)), provisioner=provisioner_name)
 
     def _owned_node_count(self, provisioner_name: str) -> int:
         count = 0
@@ -253,6 +276,13 @@ class DisruptionController:
         if self.consolidation is not None and self.consolidation.should_run():
             commands.extend(self.consolidation.propose(pdb, exclude=busy))
         busy = set(busy)
+        eligible: Dict[str, int] = {}
+        ineligible: Dict[str, int] = {}
+        # zero out provisioners reported last pass but absent this one, so a
+        # settled cluster's gauges drop back instead of pinning stale counts
+        for name in self._gauged_provisioners:
+            eligible.setdefault(name, 0)
+            ineligible.setdefault(name, 0)
         for cmd in commands:
             if any(name in busy for name in cmd.node_names()):
                 continue
@@ -262,10 +292,22 @@ class DisruptionController:
                 if reason is not None:
                     break
             if reason is not None:
+                ineligible[cmd.provisioner_name] = ineligible.get(cmd.provisioner_name, 0) + len(cmd.nodes)
                 log.debug("disruption %s: %s ineligible: %s", cmd.method, cmd.node_names(), reason)
                 continue
+            eligible[cmd.provisioner_name] = eligible.get(cmd.provisioner_name, 0) + len(cmd.nodes)
             busy.update(cmd.node_names())
             self._queue.append(cmd)
+        for name, count in eligible.items():
+            self.eligible_nodes.set(float(count), provisioner=name)
+        for name, count in ineligible.items():
+            self.ineligible_nodes.set(float(count), provisioner=name)
+        # remember every provisioner with a NONZERO gauge in either family —
+        # a dict-merge would let one family's zero mask the other's count
+        self._gauged_provisioners = {
+            name for name in set(eligible) | set(ineligible)
+            if eligible.get(name, 0) + ineligible.get(name, 0) > 0
+        }
 
     # -- the serialized queue ---------------------------------------------------
 
@@ -281,16 +323,17 @@ class DisruptionController:
 
     def _block_on_budget(self, cmd: DisruptionCommand) -> None:
         """Defer, don't fail: the command sleeps BUDGET_RETRY_PERIOD and
-        retries once budget frees up. The tally ticks only on the
+        retries once budget frees up. The counter ticks only on the
         transition into blocked — a drain holding the budget for minutes is
-        one signal, not one per pass."""
+        one signal, and (tracing on) one trace, not one per pass."""
         if cmd.blocked_until == 0.0:
             self.budget_blocked.inc(provisioner=cmd.provisioner_name)
         cmd.blocked_until = self.clock.now() + self.BUDGET_RETRY_PERIOD
         self._queue.append(cmd)
 
     def _execute(self, cmd: DisruptionCommand, pdb: PDBLimits) -> None:
-        # budget prescreen before the charge. A GONE provisioner
+        # budget prescreen BEFORE the trace root opens: repeat blocked
+        # attempts must not churn the bounded trace ring. A GONE provisioner
         # deliberately skips the prescreen — validation below invalidates
         # the command (blocking on its zero budget would cycle forever)
         limit = None
@@ -302,27 +345,41 @@ class DisruptionController:
                 # the queue (and in every pass's busy set) indefinitely
                 invalid = self._validate(cmd, pdb)
                 if invalid is not None:
+                    cmd.trace_span = TRACER.open_span(
+                        "disrupt", controller="disruption", method=cmd.method,
+                        nodes=",".join(cmd.node_names()), provisioner=cmd.provisioner_name, reason=cmd.reason,
+                    )
+                    cmd.trace_ctx = TRACER.ctx_of(cmd.trace_span)
                     self._finish(cmd, OUTCOME_INVALIDATED, invalid)
                     return
                 self._block_on_budget(cmd)
                 return
         cmd.blocked_until = 0.0
-        invalid = self._validate(cmd, pdb)
-        blocked = False
-        if invalid is None:
-            charged: List[str] = []
-            for name in cmd.node_names():
-                if self.tracker.try_charge(cmd.provisioner_name, name, limit):
-                    charged.append(name)
-                else:
-                    for done in charged:
-                        self.tracker.release(cmd.provisioner_name, done)
-                    blocked = True
-                    break
+        cmd.trace_span = TRACER.open_span(
+            "disrupt", controller="disruption", method=cmd.method,
+            nodes=",".join(cmd.node_names()), provisioner=cmd.provisioner_name, reason=cmd.reason,
+        )
+        cmd.trace_ctx = TRACER.ctx_of(cmd.trace_span)
+        with TRACER.span("validate", parent=cmd.trace_ctx, method=cmd.method) as sp:
+            invalid = self._validate(cmd, pdb)
+            blocked = False
+            if invalid is None:
+                charged: List[str] = []
+                for name in cmd.node_names():
+                    if self.tracker.try_charge(cmd.provisioner_name, name, limit):
+                        charged.append(name)
+                    else:
+                        for done in charged:
+                            self.tracker.release(cmd.provisioner_name, done)
+                        blocked = True
+                        break
+            sp.set(invalid=invalid or "", budget_blocked=blocked)
         if invalid is not None:
             self._finish(cmd, OUTCOME_INVALIDATED, invalid)
             return
         if blocked:
+            TRACER.close_span(cmd.trace_span, outcome="budget-blocked")
+            cmd.trace_span = cmd.trace_ctx = None
             self._block_on_budget(cmd)
             return
         # the charge is durable from here: stamp the candidates so a restart
@@ -402,35 +459,38 @@ class DisruptionController:
         the launch failed (command finished, charges released). The handler
         wraps only the provider's create and the store's create, never the
         card."""
-        launched: List[str] = []
-        try:
-            for vn in cmd.replacements:
-                node = self.cloud_provider.create(
-                    NodeRequest(template=vn.template, instance_type_options=vn.instance_type_options)
+        with TRACER.span("launch-replacement", parent=cmd.trace_ctx, replacements=len(cmd.replacements)) as sp:
+            launched: List[str] = []
+            try:
+                for vn in cmd.replacements:
+                    node = self.cloud_provider.create(
+                        NodeRequest(template=vn.template, instance_type_options=vn.instance_type_options)
+                    )
+                    # durable link to the candidates: a restarted controller
+                    # reaps this launch if they still exist (its command died
+                    # with the process) or adopts it if they are gone
+                    node.metadata.annotations[lbl.REPLACEMENT_FOR_ANNOTATION] = ",".join(cmd.node_names())
+                    self.kube.create(node)
+                    # protect the replacement from other methods while it warms
+                    self.cluster.nominate_node_for_pod(node.name)
+                    launched.append(node.name)
+            except Exception as err:  # noqa: BLE001 - capacity errors self-heal next pass
+                log.warning(
+                    "disruption %s: replacement launch failed for %s (unwinding %d partial launch(es)): %s",
+                    cmd.method, ", ".join(cmd.node_names()), len(launched), err,
                 )
-                # durable link to the candidates: a restarted controller
-                # reaps this launch if they still exist (its command died
-                # with the process) or adopts it if they are gone
-                node.metadata.annotations[lbl.REPLACEMENT_FOR_ANNOTATION] = ",".join(cmd.node_names())
-                self.kube.create(node)
-                # protect the replacement from other methods while it warms
-                self.cluster.nominate_node_for_pod(node.name)
-                launched.append(node.name)
-        except Exception as err:  # noqa: BLE001 - capacity errors self-heal next pass
-            log.warning(
-                "disruption %s: replacement launch failed for %s (unwinding %d partial launch(es)): %s",
-                cmd.method, ", ".join(cmd.node_names()), len(launched), err,
-            )
-            for name in launched:
-                ghost = self.kube.get_node(name)
-                if ghost is not None:
-                    self.kube.delete(ghost)
-            for name in cmd.node_names():
-                self.tracker.release(cmd.provisioner_name, name)
-            self._clear_disrupting(cmd)
-            self._finish(cmd, OUTCOME_LAUNCH_FAILED, f"replacement launch failed: {err}")
-            return False
-        cmd.launched = launched
+                sp.set(error=str(err))
+                for name in launched:
+                    ghost = self.kube.get_node(name)
+                    if ghost is not None:
+                        self.kube.delete(ghost)
+                for name in cmd.node_names():
+                    self.tracker.release(cmd.provisioner_name, name)
+                self._clear_disrupting(cmd)
+                self._finish(cmd, OUTCOME_LAUNCH_FAILED, f"replacement launch failed: {err}")
+                return False
+            cmd.launched = launched
+            sp.set(launched=",".join(launched))
         log.info(
             "disruption %s: launched replacement(s) %s for %s (%s); waiting for initialization before drain",
             cmd.method, ", ".join(launched), ", ".join(cmd.node_names()), cmd.reason,
@@ -495,23 +555,25 @@ class DisruptionController:
             if replacement is not None and lbl.REPLACEMENT_FOR_ANNOTATION in replacement.metadata.annotations:
                 del replacement.metadata.annotations[lbl.REPLACEMENT_FOR_ANNOTATION]
                 self.kube.update(replacement)
-        for stale in cmd.nodes:
-            node = self.kube.get_node(stale.name)
-            if node is None:
-                continue
-            if not node.spec.unschedulable:
-                node.spec.unschedulable = True
-                self.kube.update(node)
-            self.recorder.terminating_node(node, f"disruption {cmd.method}: {cmd.reason}")
-            self.kube.delete(node)
-            if self.termination is not None:
-                refreshed = self.kube.get_node(node.name)
-                if refreshed is not None:
-                    self.termination.reconcile(refreshed)
+        with TRACER.span("drain-handoff", parent=cmd.trace_ctx, nodes=",".join(cmd.node_names())):
+            for stale in cmd.nodes:
+                node = self.kube.get_node(stale.name)
+                if node is None:
+                    continue
+                if not node.spec.unschedulable:
+                    node.spec.unschedulable = True
+                    self.kube.update(node)
+                self.recorder.terminating_node(node, f"disruption {cmd.method}: {cmd.reason}")
+                self.kube.delete(node)
+                if self.termination is not None:
+                    refreshed = self.kube.get_node(node.name)
+                    if refreshed is not None:
+                        self.termination.reconcile(refreshed)
         log.info("disruption %s: disrupting %s (%s)", cmd.method, ", ".join(cmd.node_names()), cmd.reason)
         self._finish(cmd, OUTCOME_DISRUPTED, cmd.reason)
 
     def _finish(self, cmd: DisruptionCommand, outcome: str, reason: str) -> None:
         cmd.outcome = outcome
         self.commands.inc(method=cmd.method, outcome=outcome)
-        log.debug("disruption %s of %s: %s (%s)", cmd.method, ", ".join(cmd.node_names()), outcome, reason)
+        TRACER.close_span(cmd.trace_span, outcome=outcome, detail=reason)
+        cmd.trace_span = cmd.trace_ctx = None

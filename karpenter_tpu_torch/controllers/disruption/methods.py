@@ -69,8 +69,7 @@ class DisruptionCommand:
     # price of the candidate at decision time; consolidation-replace commands
     # re-check non-increasing pricing against this just before execution
     candidate_price: Optional[float] = None
-    # the reference's open "disrupt" trace span; unused until the tracer is
-    # ported (ROADMAP A8)
+    # open "disrupt" root span (tracing on): children attach across passes
     trace_span: object = None
     trace_ctx: object = None
 

@@ -23,10 +23,6 @@ The sweep runs at startup and on an interval, in BOTH directions:
 
 Counters per direction (karpenter_gc_collected_total{direction}) plus a
 sweep counter make crash-recovery convergence observable and testable.
-
-The port's copy of karpenter_tpu/controllers/gc/controller.py; its two
-registry counters are plain tallies (the disruption controller's `Tally`,
-same names and labels) until the port has a metrics registry (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -35,7 +31,7 @@ from typing import List
 
 from ...api import labels as lbl
 from ...logsetup import get_logger
-from ..disruption.controller import Tally
+from ...metrics import REGISTRY
 
 log = get_logger("gc")
 
@@ -66,11 +62,15 @@ class GarbageCollectionController:
         self.termination = termination
         self.clock = clock or (kube.clock if kube is not None else None) or Clock()
         self.registration_grace = registration_grace
-        # objects reconciled away by the sweep, by direction (orphaned-
-        # instance: cloud instance with no node; ghost-node: node whose
-        # instance is gone), and sweeps completed
-        self.collected = Tally()
-        self.sweeps = Tally()
+        self.collected = REGISTRY.counter(
+            "karpenter_gc_collected_total",
+            "Objects reconciled away by the GC sweep, by direction "
+            "(orphaned-instance: cloud instance with no node; ghost-node: node whose instance is gone)",
+            ("direction",),
+        )
+        self.sweeps = REGISTRY.counter(
+            "karpenter_gc_sweeps_total", "GC reconciliation sweeps completed"
+        )
 
     # -- the sweep -----------------------------------------------------------
 

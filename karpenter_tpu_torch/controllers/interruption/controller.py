@@ -30,14 +30,9 @@ Every handled message is deleted by receipt handle; the new counters
 (messages_received{kind}, messages_deleted, message_parse_errors,
 actions_performed{action}, dead_letter_depth) make the loop observable.
 
-The port's copy of karpenter_tpu/controllers/interruption/controller.py.
-Left out with the telemetry (ROADMAP A8): the metrics registry (its four
-counters are plain tallies, the disruption controller's `Tally`, with the
-same names and labels, and the dead-letter gauge a plain value), the
-notice -> cordon -> re-solve -> launch-replacement -> drain-handoff trace,
-and the lock-order witness (a plain threading.Lock). One deliberate
-difference: the reference logs and swallows any exception of a message's
-handling; here an exception raised by the proactive re-solve
+The port's copy of karpenter_tpu/controllers/interruption/controller.py. One
+deliberate difference: the reference logs and swallows any exception of a
+message's handling; here an exception raised by the proactive re-solve
 (`provisioner.schedule`, which runs the solve on the card) leaves
 poll_once(), after the victim's one-solve claim is cleared and with the
 message left undeleted for redelivery, so a kernel or device fault never
@@ -47,17 +42,18 @@ still logged and left for redelivery.
 
 from __future__ import annotations
 
-import threading
 from typing import List, Optional
 
+from ...analysis import WITNESS, guarded_by
 from ...api import labels as lbl
 from ...api.objects import NO_SCHEDULE, Node, Taint
 from ...events import Recorder
 from ...kube.cluster import KubeCluster
 from ...logsetup import get_logger
+from ...metrics import REGISTRY
 from ...scheduler import SchedulerOptions
+from ...tracing import TRACER
 from ...utils import pod as podutils
-from ..disruption.controller import Tally
 from ..state.cluster import Cluster
 from .messages import (
     ACTION_CORDON,
@@ -82,6 +78,7 @@ class _ReSolveFault(Exception):
     poll_once()'s per-message handler."""
 
 
+@guarded_by("_lock", "_handled", "_replaced")
 class InterruptionController:
     MAX_MESSAGES = 10
 
@@ -108,18 +105,29 @@ class InterruptionController:
         self.cloud_provider = cloud_provider
         self.recorder = recorder or Recorder()
         self.clock = clock or (kube.clock if kube is not None else None) or Clock()
-        self._lock = threading.Lock()
+        self._lock = WITNESS.lock("interruption.controller")
         self._handled: dict = {}  # message_id -> expiry (duplicate suppression)
         self._replaced: dict = {}  # node name -> expiry (one proactive solve per victim)
-        # messages received, by parsed kind ('malformed' for parse
-        # failures); messages deleted after handling; payloads that failed
-        # to parse (left to dead-letter); actions taken, by action; and the
-        # depth of the queue's dead-letter list at the last poll
-        self.messages_received = Tally()
-        self.messages_deleted = Tally()
-        self.message_parse_errors = Tally()
-        self.actions_performed = Tally()
-        self.dead_letter_depth = 0.0
+        self.messages_received = REGISTRY.counter(
+            "karpenter_interruption_messages_received",
+            "Interruption queue messages received, by parsed kind ('malformed' for parse failures)",
+            ("kind",),
+        )
+        self.messages_deleted = REGISTRY.counter(
+            "karpenter_interruption_messages_deleted", "Interruption queue messages deleted after handling"
+        )
+        self.message_parse_errors = REGISTRY.counter(
+            "karpenter_interruption_message_parse_errors",
+            "Interruption queue payloads that failed to parse (left to dead-letter)",
+        )
+        self.actions_performed = REGISTRY.counter(
+            "karpenter_interruption_actions_performed",
+            "Actions taken on interruption notices",
+            ("action",),
+        )
+        self.dead_letter_depth = REGISTRY.gauge(
+            "karpenter_interruption_dead_letter_depth", "Depth of the interruption queue's dead-letter list"
+        )
 
     # -- the poll loop body --------------------------------------------------
 
@@ -146,7 +154,7 @@ class InterruptionController:
             if fault is not None:
                 raise fault
         try:
-            self.dead_letter_depth = float(self.queue.dead_letter_depth())
+            self.dead_letter_depth.set(float(self.queue.dead_letter_depth()))
         except Exception as err:  # noqa: BLE001 - observability only
             log.debug("dead-letter depth scrape failed (gauge unchanged): %s", err)
         return len(messages)
@@ -179,19 +187,28 @@ class InterruptionController:
             self._mark_handled(received.message_id)
             self._delete(received)
             return
-        if msg.kind == "spot_interruption":
-            # the pool the cloud is reclaiming FROM is the worst candidate
-            # for the replacement: quarantine it in the unavailable-
-            # offerings cache before the proactive re-solve prices the
-            # replacement universe
-            self._mark_reclaimed_offering(node)
-        self.recorder.node_interrupted(node, msg.kind, self._describe(msg))
-        if action == ACTION_GARBAGE_COLLECT:
-            self._garbage_collect(node)
-        elif action == ACTION_CORDON:
-            self._cordon(node)
-        elif action == ACTION_CORDON_AND_DRAIN:
-            self._cordon_and_drain(node, msg)
+        # one trace per acted-on notice: cordon -> re-solve -> replacement
+        # launch -> drain handoff all share the trace ID, and the deadline
+        # attrs make the 2-minute warning budget auditable span by span
+        with TRACER.span(
+            "interruption-notice", controller="interruption", kind=msg.kind, instance=msg.instance_id,
+            node=node.name, action=action,
+            deadline_remaining_s=round(msg.deadline - self.clock.now(), 3) if msg.deadline else None,
+        ):
+            if msg.kind == "spot_interruption":
+                # the pool the cloud is reclaiming FROM is the worst
+                # candidate for the replacement: quarantine it in the
+                # unavailable-offerings cache before the proactive re-solve
+                # prices the replacement universe
+                self._mark_reclaimed_offering(node)
+            self.recorder.node_interrupted(node, msg.kind, self._describe(msg))
+            if action == ACTION_GARBAGE_COLLECT:
+                self._garbage_collect(node)
+            elif action == ACTION_CORDON:
+                with TRACER.span("cordon", node=node.name):
+                    self._cordon(node)
+            elif action == ACTION_CORDON_AND_DRAIN:
+                self._cordon_and_drain(node, msg)
         self.actions_performed.inc(action=action)
         self._mark_handled(received.message_id)
         self._delete(received)
@@ -288,7 +305,8 @@ class InterruptionController:
         return True
 
     def _cordon_and_drain(self, node: Node, msg: InterruptionMessage) -> None:
-        self._cordon(node)
+        with TRACER.span("cordon", node=node.name):
+            self._cordon(node)
         if node.metadata.deletion_timestamp is None and not self._replacement_in_flight(node.name):
             # the proactive solve, BEFORE the drain starts: replacement
             # capacity launches while the warning window ticks. A transient
@@ -313,11 +331,12 @@ class InterruptionController:
         """Termination-controller handoff: the delete starts the cordon/
         drain/finalize protocol it owns; reconcile now rather than waiting
         for the lifecycle loop's next tick."""
-        self.kube.delete(node)
-        if self.termination is not None:
-            refreshed = self.kube.get_node(node.name)
-            if refreshed is not None:
-                self.termination.reconcile(refreshed)
+        with TRACER.span("drain-handoff", node=node.name):
+            self.kube.delete(node)
+            if self.termination is not None:
+                refreshed = self.kube.get_node(node.name)
+                if refreshed is not None:
+                    self.termination.reconcile(refreshed)
 
     def _replacement_in_flight(self, node_name: str) -> bool:
         now = self.clock.now()
@@ -343,14 +362,17 @@ class InterruptionController:
         if not pods:
             return 0
         state_nodes = self.cluster.nodes_snapshot()
-        try:
-            results = self.provisioner.schedule(
-                pods, state_nodes, opts=SchedulerOptions(simulation_mode=True, exclude_nodes=[node.name])
-            )
-        except Exception as err:
-            # the re-solve runs on the card: its fault leaves poll_once()
-            raise _ReSolveFault() from err
-        launched = self.provisioner.launch_nodes(results)
+        with TRACER.span("re-solve", node=node.name, pods=len(pods)):
+            try:
+                results = self.provisioner.schedule(
+                    pods, state_nodes, opts=SchedulerOptions(simulation_mode=True, exclude_nodes=[node.name])
+                )
+            except Exception as err:
+                # the re-solve runs on the card: its fault leaves poll_once()
+                raise _ReSolveFault() from err
+        with TRACER.span("launch-replacement", node=node.name) as sp:
+            launched = self.provisioner.launch_nodes(results)
+            sp.set(launched=len(launched))
         self.recorder.interruption_replacement_launched(node, len(pods))
         log.info(
             "proactive re-solve for %s: %d pod(s) -> %d replacement node(s) launched, %d onto existing capacity",

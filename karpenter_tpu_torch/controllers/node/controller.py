@@ -17,7 +17,7 @@ nodes running four sub-reconcilers with a single update at the end
 
 The port's copy of karpenter_tpu/controllers/node/controller.py; the
 lifecycle journal's "initialized" event is left out with the journal
-(ROADMAP A8).
+(ROADMAP A8b).
 """
 
 from __future__ import annotations

@@ -7,27 +7,22 @@ immediate-flush path keeps tests deterministic.
 
 This is the same batching discipline the dense solver wants anyway: one
 large solve per window beats many small dispatches (host<->device latency).
-
-The port's copy of karpenter_tpu/controllers/provisioning/batcher.py: the
-condition is a plain threading.Condition; the lock-order witness and the
-guarded-by annotation of the reference are left out.
 """
 
 from __future__ import annotations
 
-import threading
-
+from ...analysis import WITNESS, guarded_by
 from ...config import Config
 
 
+@guarded_by("_cond", "_triggered", "_immediate", "_trigger_time")
 class Batcher:
     def __init__(self, config: Config, clock=None):
         from ...utils.clock import Clock
 
         self.config = config
         self.clock = clock or Clock()
-        # guards _triggered, _immediate and _trigger_time
-        self._cond = threading.Condition()
+        self._cond = WITNESS.condition("provisioning.batcher")
         self._triggered = False
         self._immediate = False
         self._trigger_time = 0.0

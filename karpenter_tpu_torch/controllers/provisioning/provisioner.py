@@ -11,8 +11,8 @@ scheduler does that once the node joins; nomination events plus the
 cluster-state nomination TTL prevent double-provisioning in the meantime.
 
 The port's copy of karpenter_tpu/controllers/provisioning/provisioner.py.
-Left out: the telemetry (metrics, trace spans, the pod journal, the flight
-recorder and the decision log; ROADMAP A8). Three deliberate differences
+Left out: the pod and node journal events and the flight recorder's record
+ids (ROADMAP A8b). Three deliberate differences
 from the reference:
 
 - its batch loop logs a failed round and goes on; the port's ends at the
@@ -40,9 +40,11 @@ from ...cloudprovider.types import CloudProvider, NodeRequest
 from ...config import Config
 from ...events import Recorder
 from ...kube.cluster import Conflict, KubeCluster
+from ...metrics import REGISTRY
 from ...cloudprovider.errors import InsufficientCapacityError
 from ...scheduler import SchedulerOptions, build_scheduler
 from ...scheduler.scheduler import SchedulingResults
+from ...tracing import DECISIONS, OUTCOME_FAILED, TRACER, DecisionRecord
 from ...utils import pod as podutils
 from ...utils import resources as res
 from ..state.cluster import Cluster
@@ -90,6 +92,18 @@ class ProvisionerController:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.last_results: Optional[SchedulingResults] = None
+        # same family the Runtime loops feed for every other controller
+        self.reconcile_duration = REGISTRY.histogram(
+            "karpenter_reconcile_duration_seconds",
+            "Duration of controller reconcile passes",
+            ("controller",),
+        )
+        self.launch_failures = REGISTRY.counter(
+            "karpenter_provisioning_launch_failures_total",
+            "Node launches that failed, by failure class",
+            ("reason",),
+        )
+        self.last_trace_id: Optional[str] = None  # trace of the latest round (tracing on)
         # the exception that ended the batch loop (None while it runs, and
         # after a clean stop); stop() re-raises it
         self.error: Optional[Exception] = None
@@ -165,7 +179,10 @@ class ProvisionerController:
     # -- the provisioning round ------------------------------------------------
 
     def provision(self) -> SchedulingResults:
-        results = self._provision_round()
+        with TRACER.span("provision", controller="provisioning") as root:
+            with self.reconcile_duration.time(controller="provisioning"):
+                results = self._provision_round(root)
+            self.last_trace_id = getattr(root, "trace_id", None)
         self.last_results = results
         return results
 
@@ -179,7 +196,7 @@ class ProvisionerController:
     # re-probe well within the unavailable-offering TTL
     ICE_BACKOFF_SECONDS = 10.0
 
-    def _provision_round(self) -> SchedulingResults:
+    def _provision_round(self, root) -> SchedulingResults:
         if self.wait_for_cluster_sync:
             deadline = self.clock.now() + 10.0
             while not self.cluster.synchronized():
@@ -190,7 +207,9 @@ class ProvisionerController:
         state_nodes = self.cluster.nodes_snapshot()
         # batch: collect + constrain the pending pods (PVC validation and
         # volume-topology injection live inside get_pods)
-        pods = self.get_pods()
+        with TRACER.span("batch") as sp:
+            pods = self.get_pods()
+            sp.set(pods=len(pods), state_nodes=len(state_nodes))
         start = self.clock.now()
         results = self.schedule(pods, state_nodes)
         ice_failed: List[object] = []
@@ -209,10 +228,11 @@ class ProvisionerController:
             retry_pods = [p for vn in ice_failed for p in vn.pods]
             # the round's placements are nominated, not bound: the re-solve
             # counts them, or it would hand their capacity out again
-            retry_results = self.schedule(retry_pods, self._nominated_snapshot(placed), nominated=placed)
-            any_unschedulable |= bool(retry_results.unschedulable)
-            ice_failed = []
-            launched += self.launch_nodes(retry_results, ice_failures=ice_failed, placed=placed)
+            with TRACER.span("ice-resolve", attempt=attempt + 1, pods=len(retry_pods)):
+                retry_results = self.schedule(retry_pods, self._nominated_snapshot(placed), nominated=placed)
+                any_unschedulable |= bool(retry_results.unschedulable)
+                ice_failed = []
+                launched += self.launch_nodes(retry_results, ice_failures=ice_failed, placed=placed)
         if ice_failed:
             self._park_ice_failures(ice_failed)
         # requeue-with-backoff liveness: ANY pod left unschedulable this
@@ -221,6 +241,12 @@ class ProvisionerController:
         # pod event needed
         self._unschedulable_retry_at = (
             self.clock.now() + self.ice_backoff_seconds if any_unschedulable else None
+        )
+        root.set(
+            pods=len(pods),
+            launched=len(launched),
+            on_existing=sum(len(v.pods) for v in results.existing_nodes),
+            unschedulable=len(results.unschedulable),
         )
         if pods:
             log.info(
@@ -249,14 +275,25 @@ class ProvisionerController:
     def _park_ice_failures(self, failed_nodes) -> None:
         """Terminal rung of the escalation ladder: every re-solve attempt
         still hit insufficient capacity. Mark each pod unschedulable — an
-        event, and a backoff that keeps the pod out of the next batches
-        until the unavailable-offering TTL has a chance to restore a pool."""
+        event, a per-pod decision-log record naming the failure, and a
+        backoff that keeps the pod out of the next batches until the
+        unavailable-offering TTL has a chance to restore a pool."""
         retry_at = self.clock.now() + self.ice_backoff_seconds
         for vn in failed_nodes:
             for pod in vn.pods:
                 self.recorder.pod_failed_to_schedule(
                     pod, "insufficient capacity: every offering exhausted; backing off"
                 )
+                if TRACER.enabled:
+                    DECISIONS.record(
+                        DecisionRecord(
+                            pod=pod.metadata.name,
+                            outcome=OUTCOME_FAILED,
+                            provisioner=vn.provisioner_name,
+                            trace_id=TRACER.current_trace_id() or "",
+                            error="insufficient capacity: escalation exhausted (next-offering, next-type, re-solve)",
+                        )
+                    )
                 while len(self._ice_backoff) >= 4096:
                     del self._ice_backoff[next(iter(self._ice_backoff))]
                 self._ice_backoff[(pod.namespace, pod.metadata.name)] = retry_at
@@ -324,17 +361,18 @@ class ProvisionerController:
             instance_types = {
                 p.name: apply_kubelet_max_pods(p, self.cloud_provider.get_instance_types(p)) for p in provisioners
             }
-            results = self.remote_solver.solve(
-                provisioners,
-                instance_types,
-                pods,
-                daemonset_pods=self.daemonset_pods(),
-                state_nodes=state_nodes,
-                kube=self.kube,
-                simulation_mode=bool(opts and opts.simulation_mode),
-                exclude_nodes=list(opts.exclude_nodes) if opts else [],
-                nominated=nominated,
-            )
+            with TRACER.span("solve-remote", pods=len(pods)):
+                results = self.remote_solver.solve(
+                    provisioners,
+                    instance_types,
+                    pods,
+                    daemonset_pods=self.daemonset_pods(),
+                    state_nodes=state_nodes,
+                    kube=self.kube,
+                    simulation_mode=bool(opts and opts.simulation_mode),
+                    exclude_nodes=list(opts.exclude_nodes) if opts else [],
+                    nominated=nominated,
+                )
             if not (opts and opts.simulation_mode):
                 for pod, err in results.unschedulable.items():
                     self.recorder.pod_failed_to_schedule(pod, err)
@@ -386,6 +424,17 @@ class ProvisionerController:
         hit a typed InsufficientCapacityError: the fallback re-solve input.
         `placed` (caller-owned too) collects a (node name, pods) pair for
         each launched node and each existing node nominated pods."""
+        with TRACER.span("launch") as sp:
+            launched = self._launch_nodes(results, ice_failures, placed)
+            sp.set(nodes=len(launched))
+        return launched
+
+    def _launch_nodes(
+        self,
+        results: SchedulingResults,
+        ice_failures: Optional[List[object]] = None,
+        placed: Optional[List[tuple]] = None,
+    ) -> List[str]:
         provisioners = {p.name: p for p in self.kube.list_provisioners()}
         to_launch = [vn for vn in results.new_nodes if vn.pods]
 
@@ -419,28 +468,41 @@ class ProvisionerController:
             approved.append(vn)
 
         # fan out the cloud Create calls — one slow or failing launch neither
-        # serializes nor aborts its siblings (provisioner.go:172-190)
+        # serializes nor aborts its siblings (provisioner.go:172-190). The
+        # ambient span is thread-local, so the pool workers parent their
+        # launch-node spans under an explicitly captured context.
+        parent_ctx = TRACER.current_context()
         if len(approved) <= 1:
-            names = [self._launch_one(vn, ice_failures) for vn in approved]
+            names = [self._launch(vn, parent_ctx, ice_failures) for vn in approved]
         else:
             from concurrent.futures import ThreadPoolExecutor
 
             with ThreadPoolExecutor(max_workers=min(len(approved), self.LAUNCH_WORKERS)) as pool:
-                names = list(pool.map(lambda vn: self._launch_one(vn, ice_failures), approved))
+                names = list(pool.map(lambda vn: self._launch(vn, parent_ctx, ice_failures), approved))
         launched = [n for n in names if n is not None]
         if placed is not None:
             placed += [(name, vn.pods) for name, vn in zip(names, approved) if name is not None]
         # nominate pods onto existing nodes they were scheduled against
-        for view in results.existing_nodes:
-            if view.pods:
-                self.cluster.nominate_node_for_pod(view.node.name)
-                for pod in view.pods:
-                    self.recorder.nominate_pod(pod, view.node)
-                if placed is not None:
-                    placed.append((view.node.name, view.pods))
+        with TRACER.span("bind") as sp:
+            nominated = 0
+            for view in results.existing_nodes:
+                if view.pods:
+                    self.cluster.nominate_node_for_pod(view.node.name)
+                    for pod in view.pods:
+                        self.recorder.nominate_pod(pod, view.node)
+                        nominated += 1
+                    if placed is not None:
+                        placed.append((view.node.name, view.pods))
+            sp.set(nominated=nominated)
         return launched
 
-    def _launch_one(self, virtual_node, ice_failures: Optional[List[object]] = None) -> Optional[str]:
+    def _launch(self, virtual_node, parent_ctx=None, ice_failures: Optional[List[object]] = None) -> Optional[str]:
+        with TRACER.span(
+            "launch-node", parent=parent_ctx, provisioner=virtual_node.provisioner_name, pods=len(virtual_node.pods)
+        ) as sp:
+            return self._launch_one(virtual_node, sp, ice_failures)
+
+    def _launch_one(self, virtual_node, sp, ice_failures: Optional[List[object]] = None) -> Optional[str]:
         try:
             node = self.cloud_provider.create(
                 NodeRequest(template=virtual_node.template, instance_type_options=virtual_node.instance_type_options)
@@ -451,6 +513,8 @@ class ProvisionerController:
             # fallback re-solve (list.append is atomic — pool workers share
             # the caller's list safely)
             log.warning("insufficient capacity for provisioner %s: %s", virtual_node.provisioner_name, e)
+            sp.set(error=str(e), insufficient_capacity=True)
+            self.launch_failures.inc(reason="insufficient_capacity")
             if ice_failures is not None:
                 ice_failures.append(virtual_node)
             for pod in virtual_node.pods:
@@ -458,6 +522,8 @@ class ProvisionerController:
             return None
         except Exception as e:  # noqa: BLE001 - capacity errors self-heal next batch
             log.warning("node launch failed for provisioner %s: %s", virtual_node.provisioner_name, e)
+            sp.set(error=str(e))
+            self.launch_failures.inc(reason="other")
             for pod in virtual_node.pods:
                 self.recorder.pod_failed_to_schedule(pod, f"launch failed: {e}")
             return None
@@ -468,6 +534,18 @@ class ProvisionerController:
             # silent: the log names the node so a leader-flap double-register
             # is attributable instead of vanishing into a bare `pass`
             log.info("node %s already registered (create conflict absorbed)", node.name)
+        sp.set(node=node.name, instance_type=node.metadata.labels.get(lbl.LABEL_INSTANCE_TYPE, ""))
+        if TRACER.enabled:
+            # the scheduler recorded placed-new against the placeholder
+            # hostname; the audit record should name the real instance.
+            # Matching on the placeholder means launches fed by simulated
+            # solves (which recorded nothing) back-fill nothing.
+            DECISIONS.update_node(
+                [p.name for p in virtual_node.pods],
+                node.name,
+                node.metadata.labels.get(lbl.LABEL_INSTANCE_TYPE, ""),
+                placeholder=getattr(virtual_node, "_hostname", ""),
+            )
         self.recorder.launching_node(node, f"for {len(virtual_node.pods)} pod(s)")
         self.cluster.nominate_node_for_pod(node.name)
         for pod in virtual_node.pods:

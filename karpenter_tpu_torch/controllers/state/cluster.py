@@ -13,18 +13,16 @@ matrices ([N, R] available, [N, K] labels) for existing-node fill and
 whole-cluster repack, and its delta journal (ir/delta.py) is the feed of the
 incremental solve engine (solver/incremental.py).
 
-The port's copy of karpenter_tpu/controllers/state/cluster.py: the lock is a
-plain threading.RLock; the lock-order witness and the guarded-by
-annotations of the reference are left out. Counting a pod on a node is
-StateNode.add_pod, so the provisioner can count the pods a round nominated
-on a snapshot.
+The port's copy of karpenter_tpu/controllers/state/cluster.py. Counting a
+pod on a node is StateNode.add_pod, so the provisioner can count the pods a
+round nominated on a snapshot.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Callable, Dict, List, Optional
 
+from ...analysis import WITNESS, guarded_by, requires_lock
 from ...api import labels as lbl
 from ...api.objects import Node, Pod
 from ...cloudprovider.types import CloudProvider
@@ -115,6 +113,18 @@ def _pod_key(pod: Pod) -> str:
     return f"{pod.metadata.namespace}/{pod.metadata.name}"
 
 
+@guarded_by(
+    "_lock",
+    "_nodes",
+    "_bindings",
+    "_pods",
+    "_anti_affinity_pods",
+    "_nominated",
+    "_consolidation_epoch",
+    "_last_node_deletion",
+    "_last_node_creation",
+    "_node_deletion_seq",
+)
 class Cluster:
     def __init__(self, kube: KubeCluster, cloud_provider: Optional[CloudProvider] = None, clock=None, nomination_ttl: float = 20.0):
         from ...utils.clock import Clock
@@ -123,8 +133,7 @@ class Cluster:
         self.cloud_provider = cloud_provider
         self.clock = clock or kube.clock or Clock()
         self.nomination_ttl = nomination_ttl
-        # guards every attribute below; helpers that mutate them run under it
-        self._lock = threading.RLock()
+        self._lock = WITNESS.rlock("state.cluster")
         self._nodes: Dict[str, StateNode] = {}
         self._bindings: Dict[str, str] = {}  # pod key -> node name
         self._pods: Dict[str, Pod] = {}  # pod key -> pod (bound pods)
@@ -165,6 +174,7 @@ class Cluster:
                 return
             self._update_node(node)
 
+    @requires_lock
     def _update_node(self, node: Node) -> None:
         existing = self._nodes.get(node.name)
         state = StateNode(self, node)
@@ -183,6 +193,7 @@ class Cluster:
         self.delta_journal.record(node.name, ir_delta.NODE_ADDED)
         self._bump_epoch()
 
+    @requires_lock
     def _populate_capacity(self, state: StateNode) -> None:
         """Initialized nodes are trusted verbatim. Uninitialized ones fall
         back to instance-type data — including per-resource restoration of
@@ -214,6 +225,7 @@ class Cluster:
         state.allocatable = allocatable
         state.available = dict(allocatable)
 
+    @requires_lock
     def _populate_volume_limits(self, state: StateNode) -> None:
         csi = self.kube.get_csi_node(state.name)
         state.volume_limits = limits_from_csi_node(csi)
@@ -246,6 +258,7 @@ class Cluster:
                 prefetched = _NOT_FETCHED
             self._update_pod(pod, prefetched)
 
+    @requires_lock
     def _update_pod(self, pod: Pod, prefetched_node=_NOT_FETCHED) -> None:
         key = _pod_key(pod)
         old_node = self._bindings.get(key)
@@ -280,6 +293,7 @@ class Cluster:
             state.add_pod(pod)
         self._bump_epoch()
 
+    @requires_lock
     def _remove_pod(self, pod: Pod) -> None:
         key = _pod_key(pod)
         node_name = self._bindings.pop(key, None)
@@ -366,6 +380,7 @@ class Cluster:
 
     # -- consolidation bookkeeping ----------------------------------------------
 
+    @requires_lock
     def _bump_epoch(self) -> None:
         self._consolidation_epoch += 1
 

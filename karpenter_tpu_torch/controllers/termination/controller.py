@@ -7,10 +7,8 @@ terminal, stuck-terminating pods skipped, :122-168), then delete the cloud
 instance and strip the finalizer so the API object is garbage collected
 (:101-119).
 
-The port's copy of karpenter_tpu/controllers/termination/controller.py.
-Left out with the telemetry (ROADMAP A8): the termination-time summary of
-the metrics registry, the trace spans and the lifecycle journal's
-"terminated" event. The durations stay in `termination_durations`.
+The port's copy of karpenter_tpu/controllers/termination/controller.py,
+without the lifecycle journal's "terminated" event (ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -24,6 +22,7 @@ from ...events import Recorder
 from ...logsetup import get_logger
 from ...kube.cluster import KubeCluster
 from ...scheduling.taints import Taints
+from ...tracing import TRACER
 from ...utils import pod as podutils
 from .eviction import EvictionQueue
 
@@ -41,8 +40,13 @@ class TerminationController:
         self.recorder = recorder or Recorder()
         self.clock = clock or kube.clock or Clock()
         self.eviction_queue = EvictionQueue(kube, self.recorder, clock=self.clock)
-        # seconds from deletion timestamp until finalizer removal, per node
-        self.termination_durations: List[float] = []
+        self.termination_durations: List[float] = []  # metrics summary source
+        from ...metrics import REGISTRY
+
+        # the reference's termination_time_seconds summary (controller.go:52-60)
+        self._termination_summary = REGISTRY.summary(
+            "karpenter_nodes_termination_time_seconds", "Seconds from deletion timestamp until finalizer removal"
+        )
 
     def reconcile_all(self) -> None:
         for node in list(self.kube.list_nodes()):
@@ -52,16 +56,25 @@ class TerminationController:
     def reconcile(self, node: Node) -> None:
         if lbl.TERMINATION_FINALIZER not in node.metadata.finalizers:
             return
-        self.cordon(node)
-        if not self.drain(node):
-            log.debug("draining %s: pods still evicting", node.name)
-            return  # pods still evicting; re-reconcile later
-        self.cloud_provider.delete(node)
-        self.kube.finalize(node)
+        with TRACER.span("terminate", controller="termination", node=node.name) as sp:
+            with TRACER.span("cordon", node=node.name):
+                self.cordon(node)
+            with TRACER.span("drain", node=node.name) as drain_sp:
+                drained = self.drain(node)
+                drain_sp.set(drained=drained)
+            if not drained:
+                sp.set(outcome="pods-still-evicting")
+                log.debug("draining %s: pods still evicting", node.name)
+                return  # pods still evicting; re-reconcile later
+            with TRACER.span("finalize", node=node.name):
+                self.cloud_provider.delete(node)
+                self.kube.finalize(node)
+            sp.set(outcome="terminated")
         log.info("terminated node %s: drained, instance deleted, finalizer removed", node.name)
         if node.metadata.deletion_timestamp is not None:
             duration = self.clock.now() - node.metadata.deletion_timestamp
             self.termination_durations.append(duration)
+            self._termination_summary.observe(duration)
         self.recorder.terminating_node(node, "deleted node and cloud instance")
 
     def cordon(self, node: Node) -> None:

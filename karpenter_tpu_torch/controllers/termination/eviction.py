@@ -9,24 +9,21 @@ its own next-attempt time, so a drain pass skips pods still backing off and
 keeps evicting the others (the reference's workqueue delivers the same
 property by re-adding failures via AddRateLimited while the Start loop keeps
 consuming, eviction.go:71-90).
-
-The port's copy of karpenter_tpu/controllers/termination/eviction.py; the
-lock is a plain threading.Lock (the reference's lock-order witness and
-guarded-by annotation are left out).
 """
 
 from __future__ import annotations
 
-import threading
 from collections import deque
 from typing import Deque, Dict, Optional, Set
 
+from ...analysis import WITNESS, guarded_by
 from ...api.objects import Pod
 from ...events import Recorder
 from ...kube.cluster import KubeCluster
 from ...utils import pod as podutils
 
 
+@guarded_by("_lock", "_queue", "_queued", "_failures", "_not_before")
 class EvictionQueue:
     BASE_DELAY = 0.1  # evictionQueueBaseDelay (eviction.go:37)
     MAX_DELAY = 10.0  # evictionQueueMaxDelay (eviction.go:38)
@@ -37,8 +34,7 @@ class EvictionQueue:
         self.kube = kube
         self.recorder = recorder or Recorder()
         self.clock = clock or kube.clock or Clock()
-        # guards the queue, the queued set, the failure counts and the backoffs
-        self._lock = threading.Lock()
+        self._lock = WITNESS.lock("termination.eviction")
         self._queue: Deque[Pod] = deque()
         self._queued: Set[str] = set()
         self._failures: Dict[str, int] = {}

@@ -20,7 +20,8 @@ controllers is always a decoded wire copy — reference semantics, where
 mutating a local object never changes the cluster until written back.
 
 The port's copy of karpenter_tpu/kube/client.py. Left out: the conflict
-counter (ROADMAP A8a) and the relist's journal event (A8b).
+counter, defined in kube/chaos.py (ROADMAP A7), and the relist's journal
+event (A8b).
 """
 
 from __future__ import annotations

@@ -13,14 +13,12 @@ reason).
 
 The port's copy of karpenter_tpu/kube/cluster.py keeps the store, the watch,
 the resync list and the watch-gap mechanics. The control-plane fault plan
-(injected conflicts and stale reads) and its conflict counters are left out:
-chaos injection and telemetry belong to later slices. The store lock is a
-plain threading.RLock.
+(injected conflicts and stale reads) and its conflict counter are left out
+(ROADMAP A7), and so are the watch gap's journal events (A8b).
 """
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -58,10 +56,11 @@ def _key(obj) -> tuple:
 
 class KubeCluster:
     def __init__(self, clock=None):
+        from ..analysis import WITNESS
         from ..utils.clock import Clock
 
         self.clock = clock or Clock()
-        self._lock = threading.RLock()
+        self._lock = WITNESS.rlock("kube.store")
         self._objects: Dict[str, Dict[tuple, object]] = {}
         self._watchers: Dict[str, List[Callable[[WatchEvent], None]]] = {}
         self._version = 0

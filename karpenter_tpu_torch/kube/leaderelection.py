@@ -11,13 +11,13 @@ serializes the race — exactly the client-go leaderelection loop.
 Flap hardening (the control-plane fault domain): the run loop reports BOTH
 transitions — `on_started_leading` and `on_stopped_leading` — so a holder
 whose lease is stolen or whose renew fails steps its loops down before the
-successor's recovery acts; every lost transition is counted, and a legal
-competing writer can steal the lease outright (`steal_lease`) to prove it.
+successor's recovery acts; every lost transition is counted
+(`karpenter_leader_flaps_total`), and a legal competing writer can steal the
+lease outright (`steal_lease`) to prove it.
 
 The port's copy of karpenter_tpu/kube/leaderelection.py. Left out: the
-control-plane fault plan's hooks (ROADMAP A7) and the flap counter's
-registry family and journal events (A8): each elector counts its lost
-transitions in a plain `flaps` tally.
+control-plane fault plan's hooks (ROADMAP A7) and the `lease-acquired` /
+`lease-lost` journal events (A8b).
 """
 
 from __future__ import annotations
@@ -27,12 +27,21 @@ from typing import Callable, Optional
 
 from ..api.objects import Lease, LeaseSpec, ObjectMeta
 from ..logsetup import get_logger
+from ..metrics import REGISTRY
 from .cluster import Conflict, NotFound
 
 log = get_logger("leaderelection")
 
 LEASE_NAME = "karpenter-leader-election"
 LEASE_NAMESPACE = "kube-system"
+
+LEADER_FLAPS = REGISTRY.counter(
+    "karpenter_leader_flaps_total",
+    "Leadership transitions LOST by an elector (failed renew, stolen lease, or"
+    " transport outage): each one pauses the old leader's singleton loops and"
+    " forces the next acquisition to run recovery before acting.",
+)
+
 
 class LeaseElector:
     """client-go leaderelection.LeaderElector analog (defaults from
@@ -60,10 +69,6 @@ class LeaseElector:
         self._leading = threading.Event()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        # leadership transitions LOST (failed renew, stolen lease, transport
-        # outage): each pauses the singleton loops and forces the next
-        # acquisition to run recovery before acting
-        self.flaps = 0
         # the CAS verb: a stale write must surface as Conflict (losing the
         # round), never be transparently retried over the winner
         self._cas_update = getattr(kube, "update_no_retry", kube.update)
@@ -155,7 +160,7 @@ class LeaseElector:
                     # old leader's loops pause before any successor's
                     # recovery can act on the cluster
                     log.warning("leader election: %s lost the lease", self.identity)
-                    self.flaps += 1
+                    LEADER_FLAPS.inc()
                     self._leading.clear()
                     fire(on_stopped_leading, "stopped-leading")
                 self._stop.wait(self.renew_period)

@@ -1,10 +1,11 @@
 """Runtime bootstrap: assemble and run the full controller manager.
 
-Equivalent of pkg/controllers/controllers.go:86-248 — builds the
-cluster-state cache and every controller; registers admission; runs
-reconciliation loops on threads with leader-election gating for the
-singleton loops (provisioning, lifecycle, disruption, gc, pricing refresh,
-interruption); answers the health and readiness probes.
+Equivalent of pkg/controllers/controllers.go:86-248 — builds the cloud
+provider (wrapped in the metrics decorator), cluster-state cache, and every
+controller; registers admission; runs reconciliation loops on threads with
+leader-election gating for the singleton loops (provisioning, lifecycle,
+disruption, gc, pricing refresh, interruption); answers the health and
+readiness probes and feeds the metrics registry.
 
 Leader election in a single-process in-memory deployment degenerates to a
 local lock, but the gating seam is identical: followers run the state cache
@@ -14,13 +15,11 @@ The port's copy of karpenter_tpu/runtime.py. The dense solver runs on the
 card (`device="cuda"`, the default; "cpu" runs the plain versions of the
 kernels): with dense_min_batch <= 0 the crossover is measured at boot by
 timing K1's probe round trip. Left out until their ROADMAP items come: the
-cloud provider's metrics decorator, the registry histograms and trace
-spans around each pass, the metrics loop and its scrapers, the SLO
-accountant, flight recorder, journal and capsules, the lock witness, the
-thread census and invariant monitor, the solver breaker (A8, A7) and the
-informer-coherence witness (A7). Each option that would turn one of them
-on, or set the breaker's threshold or backoff away from its default,
-raises NotImplementedError at construction, naming its item.
+SLO accountant and its scraper, the flight recorder, journal and capsules,
+live profiling, the thread census and invariant monitor (A8b), the solver
+breaker and the informer-coherence witness (A7). Each option that would
+turn one of them on, or set the breaker's threshold or backoff away from
+its default, raises NotImplementedError at construction, naming its item.
 
 Two deliberate differences from the reference (ROADMAP C), so that no
 failure hides behind a log line: a loop (or the post-election recovery)
@@ -36,10 +35,12 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from . import webhooks
+from .cloudprovider.metrics import decorate
 from .cloudprovider.types import CloudProvider
 from .config import Config, watch_config
 from .controllers.consolidation import ConsolidationController
 from .controllers.counter import CounterController
+from .controllers.metrics import NodeMetricsScraper, PodMetricsController, ProvisionerMetricsController
 from .controllers.node import NodeController
 from .controllers.provisioning import ProvisionerController, ProvisioningReconciler
 from .controllers.state.cluster import Cluster
@@ -47,20 +48,20 @@ from .controllers.termination import TerminationController
 from .events import DedupeRecorder, Recorder
 from .kube.cluster import KubeCluster
 from .logsetup import configure as configure_logging, get_logger, set_level
+from .metrics import REGISTRY
+from .tracing import TRACER
 from .utils.options import Options
 
 log = get_logger("runtime")
 
 # option -> (is it on?, what it needs): each raises until its item is ported
 _UNPORTED = (
-    ("enable_tracing", lambda o: o.enable_tracing, "decision tracing (tracing.py, ROADMAP A8)"),
-    ("enable_solver_telemetry", lambda o: o.enable_solver_telemetry, "the solver flight recorder (flight.py, ROADMAP A8)"),
-    ("enable_journal", lambda o: o.enable_journal, "the lifecycle journal (journal.py, ROADMAP A8)"),
-    ("enable_capsules", lambda o: o.enable_capsules, "incident capsules (capsule.py, ROADMAP A8)"),
-    ("enable_slo", lambda o: o.enable_slo, "SLO accounting (slo.py, ROADMAP A8)"),
-    ("enable_lock_witness", lambda o: o.enable_lock_witness, "the lock-order witness (analysis/witness.py, ROADMAP A8)"),
-    ("enable_profiling", lambda o: o.enable_profiling, "live profiling (profiling.py, ROADMAP A8)"),
-    ("invariants_interval", lambda o: o.invariants_interval > 0, "the invariant monitor (invariants.py, ROADMAP A8)"),
+    ("enable_solver_telemetry", lambda o: o.enable_solver_telemetry, "the solver flight recorder (flight.py, ROADMAP A8b)"),
+    ("enable_journal", lambda o: o.enable_journal, "the lifecycle journal (journal.py, ROADMAP A8b)"),
+    ("enable_capsules", lambda o: o.enable_capsules, "incident capsules (capsule.py, ROADMAP A8b)"),
+    ("enable_slo", lambda o: o.enable_slo, "SLO accounting (slo.py, ROADMAP A8b)"),
+    ("enable_profiling", lambda o: o.enable_profiling, "live profiling (profiling.py, ROADMAP A8b)"),
+    ("invariants_interval", lambda o: o.invariants_interval > 0, "the invariant monitor (invariants.py, ROADMAP A8b)"),
     ("coherence_interval", lambda o: o.coherence_interval > 0, "the informer-coherence witness (kube/coherence.py, ROADMAP A7)"),
     ("solver_hbm_budget_bytes", lambda o: o.solver_hbm_budget_bytes != 0, "the HBM-pressure chunked dispatch (solver/faults.py, ROADMAP A7)"),
     ("solver_breaker_threshold", lambda o: o.solver_breaker_threshold != Options.solver_breaker_threshold, "the solver circuit breaker (solver/faults.py, ROADMAP A7)"),
@@ -87,6 +88,18 @@ class Runtime:
     def __post_init__(self):
         check_ported(self.options)
         configure_logging(self.options.log_level)
+        if self.options.enable_lock_witness:
+            # must flip BEFORE any component constructs its locks below:
+            # witnessing happens at lock creation, and a disabled witness
+            # hands out plain (never-wrapped) locks
+            from .analysis.witness import WITNESS
+
+            WITNESS.enable()
+        if self.options.enable_tracing:
+            # the process-wide tracer (tracing.py): spans from every
+            # controller pass land in one bounded ring served over
+            # /debug/traces on the metrics port
+            TRACER.enable(capacity=self.options.trace_ring_size)
         self.config = Config(self.options.batch_max_duration, self.options.batch_idle_duration, self.options.log_level)
         # live log-level reload, the config-logging ConfigMap analog
         # (controllers.go:240-248): a config update re-levels the tree
@@ -96,6 +109,7 @@ class Runtime:
         # cluster, so a stopped/crashed Runtime must detach what it attached
         self._config_unwatch = watch_config(self.kube, self.config)
         self.recorder = DedupeRecorder(Recorder(), clock=self.kube.clock)
+        self.cloud_provider = decorate(self.cloud_provider)
         webhooks.register(self.kube, self.cloud_provider)
         self.cluster = Cluster(self.kube, self.cloud_provider, clock=self.kube.clock)
         if self.dense_solver is None and self.options.dense_solver_enabled:
@@ -139,7 +153,9 @@ class Runtime:
         self._recovery_thread: Optional[threading.Thread] = None
         # serializes the recovery thread's check-and-open against the lost
         # callback's bump-and-close
-        self._gate_lock = threading.Lock()
+        from .analysis.witness import WITNESS as _WITNESS
+
+        self._gate_lock = _WITNESS.lock("runtime.leader-gate")
         self.provisioner = ProvisionerController(
             self.kube, self.cluster, self.cloud_provider, config=self.config,
             recorder=self.recorder, dense_solver=self.dense_solver,
@@ -182,8 +198,9 @@ class Runtime:
                 recorder=self.recorder, clock=self.kube.clock,
             )
         # interruption subsystem: enabled by --interruption-queue against a
-        # provider that exposes a notification source; the reference gates
-        # its SQS controllers on aws.interruptionQueueName the same way
+        # provider that exposes a notification source (the metrics decorator
+        # forwards notification_source to the inner provider); the reference
+        # gates its SQS controllers on aws.interruptionQueueName the same way
         self.interruption = None
         if self.options.interruption_queue:
             source_fn = getattr(self.cloud_provider, "notification_source", None)
@@ -201,8 +218,12 @@ class Runtime:
                     termination=self.termination, recorder=self.recorder, clock=self.kube.clock,
                     # offering-health feed: a reclaimed spot pool is
                     # quarantined before the proactive replacement solve
+                    # (the metrics decorator forwards the provider hook)
                     cloud_provider=self.cloud_provider,
                 )
+        self.pod_metrics = PodMetricsController(self.kube)
+        self.provisioner_metrics = ProvisionerMetricsController(self.kube)
+        self.node_metrics = NodeMetricsScraper(self.cluster)
         # restart state reconstruction, phase 1: re-list the API into the
         # state cache (the informer re-list), so a successor process starts
         # from the API's truth
@@ -224,13 +245,32 @@ class Runtime:
         self._threads: List[threading.Thread] = []
         # exceptions that ended a loop or the recovery, first first
         self._errors: List[Exception] = []
-        # passes run, by controller (the reconcile histogram's plain tally)
+        # passes run by this runtime, by controller (the registry's
+        # histogram below is process-wide)
         self.passes: Dict[str, int] = {}
+        self.solve_duration = REGISTRY.histogram(
+            "karpenter_allocation_controller_scheduling_duration_seconds",
+            "Duration of provisioning scheduling rounds",
+        )
+        # one observation (and one span, when tracing is on) per controller
+        # pass — the controller-runtime reconcile histogram analog; the
+        # provisioning controller feeds the same family from its own round
+        self.reconcile_duration = REGISTRY.histogram(
+            "karpenter_reconcile_duration_seconds",
+            "Duration of controller reconcile passes",
+            ("controller",),
+        )
 
     def _pass(self, controller: str, fn):
-        """One reconcile pass of one controller."""
+        """One reconcile pass of one controller: a span (trace root when no
+        ambient trace) + the per-controller duration histogram. Idle passes
+        (no child spans) are not retained — at ~3 empty traces/sec from the
+        lifecycle loop they would evict every interesting trace from the
+        bounded ring within minutes; the histogram still observes them."""
         self.passes[controller] = self.passes.get(controller, 0) + 1
-        return fn()
+        with TRACER.span("reconcile", controller=controller, drop_childless=True):
+            with self.reconcile_duration.time(controller=controller):
+                return fn()
 
     # -- health --------------------------------------------------------------
 
@@ -343,6 +383,7 @@ class Runtime:
             self._spawn(self._disruption_loop, "disruption")
         else:
             self._spawn(self._consolidation_loop, "consolidation")
+        self._spawn(self._metrics_loop, "metrics-scraper")
         # leader-gated per pass (not merely at spawn): a leader whose lease
         # is stolen mid-run pauses these loops at their next tick
         self._spawn(self._pricing_loop, "pricing-refresh")
@@ -444,6 +485,13 @@ class Runtime:
                 continue
             self._pass("gc", self.gc.reconcile)
 
+    def _metrics_loop(self) -> None:
+        # never leader-gated: followers keep serving metrics
+        while not self._stop.wait(timeout=5.0):
+            self._pass("pod-metrics", self.pod_metrics.scrape)
+            self._pass("provisioner-metrics", self.provisioner_metrics.scrape)
+            self._pass("node-metrics", self.node_metrics.scrape)
+
     def _pricing_loop(self) -> None:
         while not self._stop.wait(timeout=self.options.pricing_refresh_period):
             if not self._may_act():
@@ -465,8 +513,9 @@ class Runtime:
                 return
 
     def refresh_pricing_once(self) -> bool:
-        """One pricing-refresh tick against providers that support it
-        (providers without price books are a no-op). Returns True when the
+        """One pricing-refresh tick against providers that support it (the
+        metrics decorator forwards refresh_pricing to the inner provider;
+        providers without price books are a no-op). Returns True when the
         books changed and the catalog was invalidated. A failed refresh is
         logged and retried next period: it runs no solve."""
         refresh = getattr(self.cloud_provider, "refresh_pricing", None)
@@ -492,6 +541,10 @@ class Runtime:
             self._pass("disruption", self.disruption.reconcile)
         elif self.consolidation.should_run():
             self._pass("consolidation", self.consolidation.process_cluster)
+        self._pass("pod-metrics", self.pod_metrics.scrape)
+        self._pass("provisioner-metrics", self.provisioner_metrics.scrape)
+        self._pass("node-metrics", self.node_metrics.scrape)
 
     def provision_once(self):
-        return self.provisioner.trigger_and_wait()
+        with self.solve_duration.time():
+            return self.provisioner.trigger_and_wait()

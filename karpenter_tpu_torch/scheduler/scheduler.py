@@ -13,6 +13,9 @@ host-side add() protocol in the solver-chosen order (cheap — one pass, no
 search), and only the remainder falls into the sequential relaxation loop.
 An exception from the dense solve propagates: the batch is never silently
 rescheduled on the host.
+
+The port's copy of karpenter_tpu/scheduler/scheduler.py, without the flight
+recorder's solve-latency feed (ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -25,6 +28,15 @@ from ..api.objects import PREFER_NO_SCHEDULE, Pod
 from ..api.provisioner import Provisioner
 from ..cloudprovider.types import InstanceType
 from ..scheduling.nodetemplate import NodeTemplate
+from ..tracing import (
+    DECISIONS,
+    OUTCOME_FAILED,
+    OUTCOME_PLACED_EXISTING,
+    OUTCOME_PLACED_NEW,
+    TRACER,
+    DecisionRecord,
+    classify_rejection,
+)
 from ..utils import resources as res
 from .existingnode import ExistingNodeView
 from .node import IncompatibleError, VirtualNode, catalog_filter_cache
@@ -94,6 +106,14 @@ class Scheduler:
         }
         self.nodes: List[VirtualNode] = []
         self.existing_nodes: List[ExistingNodeView] = []
+        # per-pod rejection tallies for the decision audit (tracing.py):
+        # allocated only when the tracer is on and this is a REAL solve —
+        # simulated runs (consolidation / interruption what-ifs) place
+        # nothing, so records from them would be noise, and the disabled
+        # path must not allocate per-pod state (the overhead guarantee)
+        self._rejections: Optional[Dict[str, Dict[str, int]]] = (
+            {} if TRACER.enabled and not opts.simulation_mode else None
+        )
         self._calculate_existing_nodes(state_nodes)
 
     def _calculate_existing_nodes(self, state_nodes) -> None:
@@ -123,14 +143,25 @@ class Scheduler:
     # -- solve ---------------------------------------------------------------
 
     def solve(self, pods: Sequence[Pod]) -> SchedulingResults:
+        with TRACER.span("solve", pods=len(pods), simulation=self.opts.simulation_mode) as sp:
+            results = self._solve(pods)
+            sp.set(
+                new_nodes=len([n for n in results.new_nodes if n.pods]),
+                on_existing=sum(len(v.pods) for v in results.existing_nodes),
+                unschedulable=len(results.unschedulable),
+            )
+            return results
+
+    def _solve(self, pods: Sequence[Pod]) -> SchedulingResults:
+        errors: Dict[Pod, str] = {}
         queue_pods = list(pods)
+
         # dense fast path: one batch solve proposes placements and commits
         # them through the exact host protocol; the host loop below takes
         # the pods it returns
         if self.dense_solver is not None:
             queue_pods = self.dense_solver.presolve(self, queue_pods)
 
-        errors: Dict[Pod, str] = {}
         q = Queue(queue_pods)
         while True:
             pod = q.pop()
@@ -157,7 +188,58 @@ class Scheduler:
         unschedulable = {pod: errors.get(pod, "did not schedule") for pod in q.remaining()}
         if not self.opts.simulation_mode:
             self._record_results(unschedulable)
+        if self._rejections is not None:
+            self._record_decisions(unschedulable)
         return SchedulingResults(new_nodes=self.nodes, existing_nodes=self.existing_nodes, unschedulable=unschedulable)
+
+    def _record_decisions(self, unschedulable: Dict[Pod, str]) -> None:
+        """Per-pod audit records (tracing.py DecisionLog): what each pod got
+        and what rejected it along the way. placed-new records carry the
+        placeholder hostname; the launch path back-fills the real node."""
+        trace_id = TRACER.current_trace_id() or ""
+        for view in self.existing_nodes:
+            labels = view.node.metadata.labels
+            for pod in view.pods:
+                DECISIONS.record(
+                    DecisionRecord(
+                        pod=pod.name,
+                        outcome=OUTCOME_PLACED_EXISTING,
+                        node=view.node.name,
+                        instance_type=labels.get(lbl.LABEL_INSTANCE_TYPE, ""),
+                        provisioner=labels.get(lbl.PROVISIONER_NAME_LABEL, ""),
+                        trace_id=trace_id,
+                        rejections=self._rejections.pop(pod.uid, {}),
+                    )
+                )
+        for node in self.nodes:
+            chosen = node.instance_type_options[0].name() if node.instance_type_options else ""
+            for pod in node.pods:
+                DECISIONS.record(
+                    DecisionRecord(
+                        pod=pod.name,
+                        outcome=OUTCOME_PLACED_NEW,
+                        node=getattr(node, "_hostname", ""),
+                        instance_type=chosen,
+                        provisioner=node.provisioner_name,
+                        trace_id=trace_id,
+                        rejections=self._rejections.pop(pod.uid, {}),
+                    )
+                )
+        for pod, err in unschedulable.items():
+            DECISIONS.record(
+                DecisionRecord(
+                    pod=pod.name,
+                    outcome=OUTCOME_FAILED,
+                    trace_id=trace_id,
+                    error=err,
+                    rejections=self._rejections.pop(pod.uid, {}),
+                )
+            )
+
+    def _note_rejection(self, pod: Pod, err) -> None:
+        buckets = self._rejections.setdefault(pod.uid, {})
+        key = classify_rejection(str(err))
+        buckets[key] = buckets.get(key, 0) + 1
 
     def _record_results(self, unschedulable: Dict[Pod, str]) -> None:
         if self.recorder is None:
@@ -172,11 +254,14 @@ class Scheduler:
 
     def _add(self, pod: Pod) -> Optional[str]:
         # 1. in-flight real nodes first (scheduler.go:191-195)
+        track = self._rejections is not None
         for node_view in self.existing_nodes:
             try:
                 node_view.add(pod)
                 return None
-            except IncompatibleError:
+            except IncompatibleError as e:
+                if track:
+                    self._note_rejection(pod, e)
                 continue
 
         # 2. planned virtual nodes, emptiest first (scheduler.go:198-205).
@@ -192,7 +277,9 @@ class Scheduler:
             try:
                 node.add(pod)
                 return None
-            except IncompatibleError:
+            except IncompatibleError as e:
+                if track:
+                    self._note_rejection(pod, e)
                 continue
 
         # 3. open a new node from the first workable template (weight order)
@@ -216,6 +303,8 @@ class Scheduler:
                 node.add(pod)
             except IncompatibleError as e:
                 node.release()  # drop the probe node's phantom hostname domain
+                if track:
+                    self._note_rejection(pod, e)
                 errs.append(f"incompatible with provisioner {template.provisioner_name!r}, {e}")
                 continue
             self.nodes.append(node)

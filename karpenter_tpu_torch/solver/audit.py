@@ -37,8 +37,11 @@ discards the audited pass's encoding (and the cube cache on cube-stale).
 The auditor is an object the caller creates and hands to the DenseSolver
 (`auditor=`), not a process-wide singleton. Its audit interval is a
 constructor argument (the Runtime passes --residency-audit-interval; left
-unset, it is INTERVAL at construction). Like the engine, it lives in the single-threaded provisioning loop. A readback that fails raises out of the
-solve. Counters are plain attributes (`divergences`, `audits`, `heals`).
+unset, it is INTERVAL at construction). Like the engine, it lives in the
+single-threaded provisioning loop; its counts are updated under a witnessed
+`solver.audit` lock, as the reference's are. A readback that fails raises
+out of the solve. Each auditor counts in plain attributes (`divergences`,
+`audits`, `heals`) and in the registry's families.
 """
 
 from __future__ import annotations
@@ -52,7 +55,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..analysis.guards import guarded_by
+from ..analysis.witness import WITNESS
 from ..ir.encode import encode_warm_views
+from ..metrics import REGISTRY
 from ..ops.rebase import gather_rows
 from ..utils.seeds import split_seed
 
@@ -74,6 +80,30 @@ INTERVAL = 1
 SAMPLE_ROWS = 8
 SHADOW_EVERY = 8
 SHADOW_BUDGET_BYTES = 16 * 2**20
+
+# registered at import so gen_docs sees the families without a live auditor
+RESIDENCY_DIVERGENCES = REGISTRY.counter(
+    "karpenter_solver_residency_divergences_total",
+    "Resident-state divergences the residency auditor detected, by kind:"
+    " 'row-drift' (host mirror row damaged), 'missed-delta' (truth moved but"
+    " the DeltaJournal never named the node), 'cube-stale' (cached"
+    " availability cube disagrees with its host source), 'device-corrupt'"
+    " (resident device buffer disagrees with the mirror's f32 projection).",
+    ("kind",),
+)
+RESIDENCY_HEALS = REGISTRY.counter(
+    "karpenter_solver_residency_heals_total",
+    "Auto-heals the residency auditor issued: audits that found at least one"
+    " divergence, invalidated the engine's resident state (reason 'audit'),"
+    " and discarded the audited pass's encoding so the fresh full re-encode"
+    " path owns the next placement.",
+)
+AUDIT_PASSES = REGISTRY.counter(
+    "karpenter_solver_residency_audit_passes_total",
+    "Residency audits executed (cadenced provision passes that re-encoded a"
+    " seeded row sample — or a full shadow — from cluster truth and compared"
+    " it against the engine's resident state).",
+)
 
 
 def _row_digest(enc, i: int) -> str:
@@ -106,6 +136,16 @@ def _differing_fields(fresh, j: int, mirror, i: int) -> List[str]:
     return out
 
 
+@guarded_by(
+    "_lock",
+    "audits",
+    "heals",
+    "divergences",
+    "_truth_digest",
+    "_last_epoch",
+    "last_divergence",
+    "clean_streak",
+)
 class ResidencyAuditor:
     """Audits one engine's resident state. DenseSolver consults
     `maybe_audit` once per real provision pass, right after the engine
@@ -115,6 +155,7 @@ class ResidencyAuditor:
     draw."""
 
     def __init__(self, seed: int = 0, interval: Optional[int] = None):
+        self._lock = WITNESS.lock("solver.audit")
         self.seed = int(seed)
         self.interval = INTERVAL if interval is None else int(interval)
         self.passes = 0
@@ -219,24 +260,28 @@ class ResidencyAuditor:
             kinds.append(KIND_CUBE_STALE)
         row_names = sorted({f["row"] for f in findings} | set(device_rows))
 
-        self.audits += 1
-        self._truth_digest.update(fresh_digests)
-        self._last_epoch = engine.journal.current_epoch()
-        if not kinds:
-            self.clean_streak += 1
-            return None
-        self.clean_streak = 0
-        for kind in kinds:
-            self.divergences[kind] = self.divergences.get(kind, 0) + 1
-        self.heals += 1
-        self.last_divergence = {
-            "audit": audit_index,
-            "rows": row_names,
-            "kinds": sorted(set(kinds)),
-            "findings": findings + [{"row": n, "kind": KIND_DEVICE_CORRUPT, "fields": ["head_dev"]} for n in device_rows],
-            "cube_stale": cube_stale,
-            "journal_window": sorted(window) if window is not None else None,
-            "shadow": len(idx) == len(views),
-        }
+        with self._lock:
+            self.audits += 1
+            AUDIT_PASSES.inc()
+            self._truth_digest.update(fresh_digests)
+            self._last_epoch = engine.journal.current_epoch()
+            if not kinds:
+                self.clean_streak += 1
+                return None
+            self.clean_streak = 0
+            for kind in kinds:
+                self.divergences[kind] = self.divergences.get(kind, 0) + 1
+                RESIDENCY_DIVERGENCES.inc(kind=kind)
+            self.heals += 1
+            RESIDENCY_HEALS.inc()
+            self.last_divergence = {
+                "audit": audit_index,
+                "rows": row_names,
+                "kinds": sorted(set(kinds)),
+                "findings": findings + [{"row": n, "kind": KIND_DEVICE_CORRUPT, "fields": ["head_dev"]} for n in device_rows],
+                "cube_stale": cube_stale,
+                "journal_window": sorted(window) if window is not None else None,
+                "shadow": len(idx) == len(views),
+            }
         engine.invalidate("audit")
         return {"kinds": sorted(set(kinds)), "rows": row_names, "cube_stale": cube_stale}

@@ -40,6 +40,11 @@ opened node (scheduler.go:263-284).
 Pods whose constraints the dense IR can't express return to the caller for
 the exact host loop. Nothing here falls back from the device: a device
 failure propagates.
+
+With tracing on, each solve records its phases (encode, fill, device with
+mask and assemble under it, commit) as child spans of the ambient solve
+span; the flight recorder's attributes on the device span are not ported
+(ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from ..ops.feasibility import availability_counts
 from ..ops.warmfill import AdmissionSurface
 from ..scheduling.requirement import Requirement
 from ..scheduling.requirements import Requirements
+from ..tracing import TRACER
 from ..utils import resources as res
 from ..utils.options import DENSE_MIN_BATCH_DEFAULT as MIN_BATCH_DEFAULT
 
@@ -315,6 +321,8 @@ class DenseSolver:
         self._view_free_memo.clear()
         self._view_accepts_memo.clear()
 
+        assemble_before = self.stats.assemble_seconds  # delta -> this solve's assemble child span
+        mask_before = self.stats.mask_seconds  # delta -> this solve's mask child span
         t0 = time.perf_counter()
         zones = scheduler.topology.domains.get(lbl.LABEL_TOPOLOGY_ZONE, ())
         capacity_types = scheduler.topology.domains.get(lbl.LABEL_CAPACITY_TYPE, ())
@@ -420,6 +428,27 @@ class DenseSolver:
         leftover.extend(problem.pods[row] for row in fallback_rows)
         self.stats.pods_committed += committed
         self.stats.pods_to_host += len(leftover)
+        if TRACER.enabled:
+            # the measured phase boundaries as completed child spans under the
+            # ambient solve span (tracing.py record_span): the per-solve half
+            # of the DenseSolveStats story, so device vs host time is visible
+            # per trace, not just aggregated per bench run
+            TRACER.record_span("encode", t0, t_encoded - t0, {"pods": problem.P, "groups": len(problem.groups)})
+            TRACER.record_span("fill", t_encoded, t1 - t_encoded, {"on_existing": existing_committed})
+            device_ctx = TRACER.record_span("device", t1, t2 - t1, {"buckets": len(buckets)})
+            mask = self.stats.mask_seconds - mask_before
+            if mask > 0 and device_ctx is not None:
+                # offering-availability cube reduction (a device matmul at
+                # the head of the device phase): quarantined pools are
+                # routed around HERE, visible per trace
+                TRACER.record_span(
+                    "mask", t1, mask, {"masked_offerings": problem.masked_offerings}, parent=device_ctx
+                )
+            assemble = self.stats.assemble_seconds - assemble_before
+            if assemble > 0 and device_ctx is not None:
+                # host-side assembly hidden under the device round trip
+                TRACER.record_span("assemble", max(t1, t2 - assemble), assemble, parent=device_ctx)
+            TRACER.record_span("commit", t2, t3 - t2, {"committed": committed, "to_host": len(leftover)})
         return leftover
 
     @staticmethod

@@ -62,6 +62,7 @@ import torch
 from ..device import resolve_device
 from ..ir.delta import DeltaJournal
 from ..ir.encode import WarmViewEncoding, encode_warm_views
+from ..metrics import REGISTRY
 from ..ops.rebase import pad_views, rebase_view_state
 
 log = logging.getLogger("karpenter_tpu_torch.solver.incremental")
@@ -75,6 +76,24 @@ MAX_DIRTY_FRACTION = 0.5
 PASS_FULL = "full"
 PASS_DELTA = "delta"
 PASS_BYPASS = "bypass"
+
+INCREMENTAL_PASSES = REGISTRY.counter(
+    "karpenter_solver_incremental_passes_total",
+    "Incremental-engine provision passes by kind: 'delta' (resident state"
+    " rebased in place, encode skipped), 'full' (resident state rebuilt —"
+    " cold start, catalog change, journal gap, fault invalidation, or bulk"
+    " churn), 'bypass' (nothing to manage; fresh path untouched).",
+    ("kind",),
+)
+INCREMENTAL_INVALIDATIONS = REGISTRY.counter(
+    "karpenter_solver_incremental_invalidations_total",
+    "Resident-state invalidations forcing a full re-encode, by reason:"
+    " 'cold', 'catalog', 'gap', 'grow', 'bulk', a fault seam"
+    " ('fault-breaker', 'fault-flavor', 'fault-chunked', 'fault-host',"
+    " 'fault-device'), or 'audit' (the residency auditor found divergence"
+    " and healed by forcing the fresh full re-encode path).",
+    ("reason",),
+)
 
 
 @dataclass
@@ -147,7 +166,7 @@ class IncrementalEngine:
             # nothing resident to protect; drop state so a later non-empty
             # pass starts clean rather than diffing against a stale map
             self._resident = None
-            self.passes[PASS_BYPASS] += 1
+            self._note(PASS_BYPASS)
             return AdvanceResult(None, PASS_BYPASS, "", time.perf_counter() - t0, 0)
 
         # checkpoint AFTER the views snapshot: over-dirtying (a mutation
@@ -160,8 +179,9 @@ class IncrementalEngine:
         reason = self._full_reason(names, ckey, epoch)
         if reason is not None:
             enc = self._rebuild(views, names, ckey, epoch, reason)
-            self.passes[PASS_FULL] += 1
+            self._note(PASS_FULL)
             self.invalidations[reason] = self.invalidations.get(reason, 0) + 1
+            INCREMENTAL_INVALIDATIONS.inc(reason=reason)
             return AdvanceResult(enc, PASS_FULL, reason, time.perf_counter() - t0, len(views))
 
         res = self._resident
@@ -169,8 +189,12 @@ class IncrementalEngine:
         dirty_names = self._dirty_names  # set by _full_reason's probe
         dirty_idx = [i for i, n in enumerate(names) if n in dirty_names or n not in res.row_of]
         enc, rebase_seconds = self._apply_delta(views, names, dirty_idx, epoch, ckey)
-        self.passes[PASS_DELTA] += 1
+        self._note(PASS_DELTA)
         return AdvanceResult(enc, PASS_DELTA, "", time.perf_counter() - t0, len(dirty_idx), rebase_seconds)
+
+    def _note(self, kind: str) -> None:
+        self.passes[kind] += 1
+        INCREMENTAL_PASSES.inc(kind=kind)
 
     # -- classification ----------------------------------------------------
 

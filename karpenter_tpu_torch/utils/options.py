@@ -6,12 +6,9 @@ profiling, provider tuning — validated at boot.
 The port's copy of karpenter_tpu/utils/options.py, whole: every flag and its
 environment fallback. The Runtime (runtime.py) raises NotImplementedError,
 naming the ROADMAP item, for each option whose feature the port has not
-brought over yet (the telemetry switches, the coherence and invariant
+brought over yet (the recorders' switches, the coherence and invariant
 loops, the HBM budget, the solver breaker's threshold and backoff) when it
-is set away from its default. The one exception is --metrics-port, which
-the sidecar deployment passes: nothing binds it until /metrics is ported
-(ROADMAP A8), and the controller entry point logs a warning saying so at
-boot.
+is set away from its default.
 """
 
 from __future__ import annotations

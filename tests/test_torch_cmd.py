@@ -140,8 +140,8 @@ class TestBuildKubeBackend:
 
 class TestControllerMain:
     def test_unported_flag_raises_before_binding(self):
-        with pytest.raises(NotImplementedError, match="enable_tracing: .*ROADMAP A8"):
-            controller.main(["--enable-tracing", "--health-probe-port", "1"])
+        with pytest.raises(NotImplementedError, match="enable_journal: .*ROADMAP A8b"):
+            controller.main(["--enable-journal", "--health-probe-port", "1"])
 
     def test_without_a_card_the_runtime_raises(self, monkeypatch):
         import torch
@@ -177,10 +177,11 @@ _CPU_CONTROLLER = (
 
 
 def test_controller_process_boots_answers_probes_and_stops_on_sigterm():
-    port = _free_port()
+    port, metrics_port = _free_port(), _free_port()
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.Popen(
-        [sys.executable, "-c", _CPU_CONTROLLER, "--health-probe-port", str(port), "--log-level", "info"],
+        [sys.executable, "-c", _CPU_CONTROLLER, "--health-probe-port", str(port), "--metrics-port", str(metrics_port),
+         "--log-level", "info"],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
     try:
@@ -191,6 +192,7 @@ def test_controller_process_boots_answers_probes_and_stops_on_sigterm():
             time.sleep(0.1)
         assert proc.poll() is None, proc.communicate()[1]
         assert (_status(port, "/healthz"), _status(port, "/readyz")) == (200, 200)
+        assert (_status(metrics_port, "/metrics"), _status(metrics_port, "/debug")) == (200, 200)
         proc.send_signal(signal.SIGTERM)
         out, err = proc.communicate(timeout=30)
     finally:
@@ -200,7 +202,6 @@ def test_controller_process_boots_answers_probes_and_stops_on_sigterm():
     assert proc.returncode == 0, err
     assert "measured dense routing crossover: dispatch rt" in err and "-> min_batch 64" in err
     assert "dense_solver=cpu" in err and "leader election won" in err
-    assert "metrics port 8080: nothing listens on it" in err
 
 
 class TestSolverServiceMain:
@@ -290,17 +291,17 @@ def _node_types(client) -> list:
 
 
 def _deployment_shaped(s: _Side, procs: _Procs) -> dict:
-    """test_e2e_process.py:66 without its /metrics and capsule checks: the
+    """test_e2e_process.py:66 without its capsule checks (ROADMAP A8b): the
     webhook registers itself against the apiserver, the controller serves
-    its probes, admission enforces through the registered objects, and the
-    controller process provisions a pod."""
+    its probes and /metrics, admission enforces through the registered
+    objects, and the controller process provisions a pod."""
     srv = s.APIServer().start()
     procs.stops.append(srv.stop)
-    health_port = _free_port()
+    health_port, metrics_port = _free_port(), _free_port()
     procs.spawn(s.webhook + ["--port", "0"], env_extra={"KUBERNETES_APISERVER_URL": srv.url})
     procs.spawn(
         s.controller + ["--disable-dense-solver", "--batch-max-duration", "0.3", "--batch-idle-duration", "0.05",
-                        "--health-probe-port", str(health_port), "--metrics-port", str(_free_port())],
+                        "--health-probe-port", str(health_port), "--metrics-port", str(metrics_port)],
         env_extra={"KUBERNETES_APISERVER_URL": srv.url},
     )
     client = s.HttpKubeClient(srv.url)
@@ -314,6 +315,8 @@ def _deployment_shaped(s: _Side, procs: _Procs) -> dict:
     assert cfg.webhooks[0]["clientConfig"]["url"].endswith("/validate")
     assert _wait_for(lambda: _status(health_port, "/healthz") == 200, message="healthz")
     assert _wait_for(lambda: _status(health_port, "/readyz") == 200, message="readyz")
+    with urllib.request.urlopen(f"http://127.0.0.1:{metrics_port}/metrics", timeout=5) as resp:
+        assert resp.status == 200 and "karpenter" in resp.read().decode()
     with pytest.raises(s.ApiStatusError) as err:
         client.create(s.make_provisioner(name="bad", requirements=[s.bad_requirement]))
     client.create(s.make_provisioner())

@@ -134,9 +134,8 @@ class SKit(DKit):
         return self._sim(self.GCEnv())
 
     def dead_letter_gauge(self, controller) -> float:
-        """The dead-letter depth the last poll saw: the reference's gauge,
-        the port's plain value."""
-        return controller.dead_letter_depth.value() if self.side == "ref" else controller.dead_letter_depth
+        """The dead-letter depth the last poll saw (each package's gauge)."""
+        return controller.dead_letter_depth.value()
 
 
 def controller_tallies(interruption) -> dict:
@@ -538,12 +537,6 @@ class TestInterruptionCatalog:
             fresh = env.kube.get_node(node.name)
             assert fresh is None or fresh.metadata.deletion_timestamp is not None
             final = sim_record(env, k)
-            if k.side == "port":
-                # the reference's restarted controller counts into the same
-                # process-wide registry as the first; the port's has its own
-                for key, value in controller_tallies(restarted).items():
-                    if value:
-                        final["tallies"][key] = final["tallies"].get(key, 0) + value
             return [crashed, sorted(instances_after_crash), final]
 
         sboth(scenario, mode)

@@ -26,6 +26,7 @@ from __future__ import annotations
 import importlib
 import inspect
 import itertools
+import sys
 import types
 from pathlib import Path
 
@@ -58,17 +59,24 @@ def port_env_with(provisioners=None, instance_types_list=None, dense=False):
     return env
 
 
-def port_copy(name: str) -> types.ModuleType:
-    """tests/<name>.py executed with SUBSTITUTIONS applied, as a module of
-    its own."""
+def port_copy(name: str, extra=(), inject=None) -> types.ModuleType:
+    """tests/<name>.py executed with SUBSTITUTIONS, then the module's own
+    `extra` (old, new) pairs, applied, as a module of its own; `inject`
+    names go into its namespace first."""
     path = REPO / "tests" / f"{name}.py"
     source = path.read_text()
     for old, new in SUBSTITUTIONS:
         source = source.replace(old, new)
-    assert "karpenter_tpu." not in source.replace("karpenter_tpu_torch.", ""), f"tests/{name}.py: an import of the JAX package survived"
+    for old, new in extra:
+        assert old in source, f"tests/{name}.py: nothing to substitute for {old!r}"
+        source = source.replace(old, new)
+    rest = source.replace("karpenter_tpu_torch", "")
+    assert "karpenter_tpu." not in rest and "karpenter_tpu import" not in rest, f"tests/{name}.py: an import of the JAX package survived"
     module = types.ModuleType(f"tests._port_copy_{name}")
     module.__file__ = str(path)
     module.port_env_with = port_env_with
+    module.__dict__.update(inject or {})
+    sys.modules[module.__name__] = module  # dataclasses resolve annotations through it
     exec(compile(source, str(path), "exec"), module.__dict__)
     return module
 
