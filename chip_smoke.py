@@ -90,6 +90,23 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     bind), the decision records must equal the nominations, /metrics must
     answer with the telemetry's families, the witness must find no
     lock-order cycle, and the outcome must equal the untraced round's;
+    runtime_round_recorded runs it with the recorders on (flight.py,
+    journal.py, slo.py with the SLO scraper, capsule.py, profiling.py,
+    invariants.py, kube/coherence.py: --enable-solver-telemetry,
+    --enable-journal, --enable-capsules, --enable-slo, --enable-profiling,
+    --invariants-interval, --coherence-interval, /metrics served), binds
+    the batch, and holds one flight record per dense solve (its phases, a
+    cuda dispatch, a device-memory peak from torch.cuda.memory_stats, no
+    kernel build), every batch pod's six journal transitions, the
+    waterfall's and the SLO's 10,000 pending durations, a clean invariant
+    monitor and coherence witness, no capsule, and the outcome of the plain
+    round; then the SLO scraper's compute_drift, the ideal repack of every
+    bound pod as a cold dense solve through K1 (its K1 call held, its ideal
+    cost equal to the plain versions'), a device trace of
+    /debug/pprof/trace and of maybe_profile_round naming both kernels, and
+    a planted device-corrupt divergence in the incremental engine's
+    resident head that fires exactly one residency-divergence capsule,
+    read back by `python -m karpenter_tpu_torch.cmd.capsule inspect`;
     solver_sidecar hands the
     overflow round's request, pickled as serve()'s gRPC handler takes it,
     to a SolverServer on the card (K2, then K1) and holds the plan equal to
@@ -234,6 +251,62 @@ SHUTDOWN_DEADLINE_S = 60.0
 RUNTIME_ROUND = ("runtime_round", HEADLINE_PODS, 300)
 RUNTIME_ROUND_TRACED = ("runtime_round_traced", HEADLINE_PODS, 300)
 RUNTIME_DEADLINE_S = 120.0
+# the recorders (PR 13): runtime_round's cell with every recorder on
+RUNTIME_ROUND_RECORDED = ("runtime_round_recorded", HEADLINE_PODS, 300)
+RECORDED_INTERVAL_S = 1.0  # the invariant monitor's and the coherence witness's
+RECORDED_JOURNAL_RING = 131072  # every batch pod's six transitions and the nodes'
+RECORDED_POD_EVENTS = ("created", "queued", "batch-admitted", "solved", "nominated", "bound")
+RECORDED_DEBUG_ROUTES = (
+    "/debug", "/debug/solver", "/debug/journal", "/debug/waterfall", "/debug/slo", "/debug/capsules",
+    "/debug/invariants", "/debug/coherence", "/debug/pprof/",
+)
+# the families of the recorders' modules (flight, journal, capsule, slo,
+# invariants, kube/coherence)
+RECORDER_FAMILIES = (
+    "karpenter_jax_compilations_total", "karpenter_jax_compile_seconds_total", "karpenter_solver_hbm_peak_bytes",
+    "karpenter_solver_hbm_live_bytes", "karpenter_flight_records_stored", "karpenter_flight_records_dropped",
+    "karpenter_solver_solve_duration_seconds", "karpenter_journal_events_total", "karpenter_journal_events_stored",
+    "karpenter_journal_events_dropped", "karpenter_journal_spool_rotations_total", "karpenter_waterfall_segment_seconds",
+    "karpenter_capsule_captures_total", "karpenter_capsule_suppressed_total", "karpenter_capsule_spool_evictions_total",
+    "karpenter_capsule_spool_bytes", "karpenter_slo_burn_rate", "karpenter_slo_pod_pending_duration_seconds",
+    "karpenter_slo_node_ready_duration_seconds", "karpenter_slo_pending_pods", "karpenter_slo_cluster_cost_per_hour",
+    "karpenter_slo_ideal_cost_per_hour", "karpenter_slo_cost_drift_ratio", "karpenter_slo_nodes_churned_total",
+    "karpenter_slo_pods_displaced_total", "karpenter_invariant_violations_total", "karpenter_invariant_samples_total",
+    "karpenter_invariant_leaked_threads", "karpenter_invariant_leaked_watches", "karpenter_informer_divergences_total",
+    "karpenter_coherence_checks_total",
+)
+KERNEL_SYMBOLS = ("bucket_cost_kernel", "warm_fill_kernel")  # K1's and K2's __global__ names
+PROFILED_ROUND = (2000, 30)  # pods, standing nodes: K2 fills the nodes, K1 prices the rest
+PROFILE_TRACE_S = 1
+PROFILER_START_S = 30.0
+PLANTED = (300, 9500)  # standing nodes, churn seed
+# recorded_profiling in a fresh process of its own: a metrics listener with
+# --enable-profiling's routes, then the two traced rounds; prints one JSON
+# object (argv: device, profile directory, min_batch)
+PROFILING_CHILD = r"""
+import json, os, sys, torch
+import chip_smoke
+from karpenter_tpu_torch.cmd.controller import debug_routes
+from karpenter_tpu_torch.observability import ObservabilityServer
+from karpenter_tpu_torch.profiling import ENV_DIR
+from karpenter_tpu_torch.utils.options import parse
+
+device, profile_dir, min_batch = torch.device(sys.argv[1]), sys.argv[2], int(sys.argv[3])
+os.environ[ENV_DIR] = profile_dir
+port = chip_smoke.free_port()
+options = parse(["--enable-profiling", "--metrics-port", str(port)])
+obs = ObservabilityServer(
+    healthy=lambda: True, ready=lambda: True, health_port=None, metrics_port=port, host="127.0.0.1",
+    extra_routes=debug_routes(options),
+)
+obs.start()
+try:
+    out = chip_smoke.recorded_profiling(device, port, profile_dir, min_batch)
+finally:
+    obs.stop()
+print(json.dumps(out))
+"""
+PROFILING_CHILD_TIMEOUT_S = 600.0
 LOOP_PASS_DEADLINE_S = 10.0
 SIDECAR = ("solver_sidecar", HEADLINE_PODS, 300)
 SIDECAR_TRIALS = 3
@@ -2379,7 +2452,7 @@ def runtime_outcome(kube, placed, prices) -> dict:
     return {"launched": sorted(launched), "standing": sorted(standing), "price_per_hour": price}
 
 
-def drive_runtime_round(rt, env, dev, names, write_batch, deadline_s: float) -> dict:
+def drive_runtime_round(rt, env, dev, names, write_batch, deadline_s: float, before_stop=None) -> dict:
     """One round of a Runtime cell: start() the Runtime (elected and
     recovered when it returns), write the batch through `write_batch` (which
     returns the instants its first write began and its last one ended), wait
@@ -2389,8 +2462,10 @@ def drive_runtime_round(rt, env, dev, names, write_batch, deadline_s: float) -> 
     went to is in the Runtime's Cluster, and stop() it. Every K1 and K2 call from
     start() to stop() is captured (`captures`, for hold_kernel_calls); each
     launch call's placements land in `placed`, the instant it returned in
-    `ends`. The seams are put back whatever happens, and the Runtime is
-    stopped."""
+    `ends`. `before_stop(run)`, where given, runs with the Runtime still
+    up and the kernel calls still captured, just before stop(); what it
+    returns is the run's "before_stop". The seams are put back whatever
+    happens, and the Runtime is stopped."""
     from karpenter_tpu_torch.solver import dense as dense_module
     from karpenter_tpu_torch.solver import warmfill as fill_module
 
@@ -2436,6 +2511,7 @@ def drive_runtime_round(rt, env, dev, names, write_batch, deadline_s: float) -> 
             time.sleep(0.05)
         nodes_known_ms = (time.perf_counter() - done) * 1e3
         broken = broken_placements(env, by_node)
+        extra = before_stop({"placed": placed, "captures": captures, "names": names}) if before_stop is not None else None
         t_stop = time.perf_counter()
         stopped = True
         rt.stop()  # re-raises what ended a loop, if anything did
@@ -2448,7 +2524,7 @@ def drive_runtime_round(rt, env, dev, names, write_batch, deadline_s: float) -> 
         "placed": placed, "ends": ends, "captures": captures, "start_ms": start_ms, "recovered": recovered,
         "t0": t0, "created": created, "done": done, "nominated": nominated, "launches": launches,
         "passes": passes, "healthy": healthy, "broken": broken, "t_stop": t_stop, "stop_ms": stop_ms,
-        "nodes_known_ms": nodes_known_ms,
+        "nodes_known_ms": nodes_known_ms, "before_stop": extra,
     }
 
 
@@ -2843,6 +2919,526 @@ def runtime_round_traced(dev, card_name, untraced_line) -> dict:
     check(run["launches"]["bucket_type_cost"] >= 1 and run["launches"]["warm_fill_counts"] >= 1, f"{name}: the window launched {run['launches']}")
     check(holds and all(h["identical"] for h in holds), f"{name}: a kernel call differs from its plain version: {[h for h in holds if not h['identical']]}")
     check(traced == untraced, f"{name}: the traced round's outcome {traced} differs from the untraced round's {untraced}")
+    check(not any(run["broken"].values()), f"{name}: the round broke placements: {run['broken']}")
+    check(not alive, f"{name}: threads alive after stop(): {alive}")
+    check(released, f"{name}: the Lease was not released")
+    return line
+
+
+def bind_placed(kube, placed) -> int:
+    """The kube-scheduler's part: bind every pod a round placed, by name, to
+    the node it went to. Returns the bindings made."""
+    pods = {p.name: p for p in kube.list_pods()}
+    bound = 0
+    for node_name, pod_list in placed:
+        for placed_pod in pod_list:
+            pod = pods.get(placed_pod.name)
+            if pod is not None and not pod.spec.node_name:
+                kube.bind_pod(pod, node_name)
+                bound += 1
+    return bound
+
+
+def trace_kernels(path) -> dict:
+    """A Chrome trace's device events (category "kernel"), and how many of
+    them name K1's and K2's kernel symbols."""
+    from pathlib import Path
+
+    from collections import Counter
+
+    doc = json.loads(Path(path).read_text())
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    device = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    return {
+        "device_events": len(device),
+        **{symbol: sum(symbol in str(e.get("name", "")) for e in device) for symbol in KERNEL_SYMBOLS},
+        "categories": dict(Counter(str(e.get("cat", "")) for e in events)),
+    }
+
+
+def recorded_profiled_runtime(dev, min_batch: int, tag: str, extra_args=()):
+    """A Runtime (leader election off, the dense solver at `min_batch`) on a
+    fresh store of PROFILED_ROUND's size, its batch created: one
+    provision_once() launches K2 onto the standing nodes and K1 for the
+    rest."""
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.runtime import Runtime
+    from karpenter_tpu_torch.utils.options import parse
+
+    pods_n, standing = PROFILED_ROUND
+    kube, pods = runtime_store(pods_n, standing, tag)
+    options = parse(["--no-leader-elect", "--dense-min-batch", str(min_batch), *extra_args])
+    rt = Runtime(kube=kube, cloud_provider=FakeCloudProvider(instance_types(HEADLINE_TYPES)), options=options, device=dev)
+    for pod in pods:
+        kube.create(pod)
+    return rt
+
+
+def recorded_profiling(dev, port: int, profile_dir, min_batch: int) -> dict:
+    """The profiler on the card: a Runtime with --enable-profiling, whose
+    provision_once() maybe_profile_round wraps in a host profile and a
+    device trace under `profile_dir`; then /debug/pprof/trace?seconds=
+    PROFILE_TRACE_S on the metrics listener at `port`, with one
+    provision_once() of a fresh Runtime started once the profiler is on.
+    Each trace's device events by kernel symbol. The profiler may drop a
+    session's device events (as profiled_device_ms finds), so each is taken
+    on a fresh Runtime up to TRACE_ATTEMPTS times, until a trace names both
+    kernels; every attempt is in the result."""
+    from pathlib import Path
+
+    from karpenter_tpu_torch.profiling import TRACE_FILE
+
+    def both(kernels) -> bool:
+        return kernels is not None and all(kernels[s] >= 1 for s in KERNEL_SYMBOLS)
+
+    rounds, lives = [], []
+    for attempt in range(TRACE_ATTEMPTS):
+        before = set(Path(profile_dir).glob("provision-*"))
+        rt = recorded_profiled_runtime(dev, min_batch, f"rtq{attempt}", ("--enable-profiling",))
+        try:
+            read_launches()
+            rt.provision_once()
+            sync(dev)
+            launches = read_launches()
+        finally:
+            rt.stop()
+        written = set(Path(profile_dir).glob("provision-*")) - before
+        profs = [f for f in written if f.suffix == ".prof"]
+        traces = [f / TRACE_FILE for f in written if f.is_dir() and (f / TRACE_FILE).exists()]
+        rounds.append({
+            "launches": launches, "prof_files": len(profs), "prof_bytes": sum(f.stat().st_size for f in profs),
+            "device_traces": len(traces), "trace_bytes": sum(f.stat().st_size for f in traces),
+            "kernels": trace_kernels(traces[0]) if traces else None,
+        })
+        if both(rounds[-1]["kernels"]):
+            break
+    for attempt in range(TRACE_ATTEMPTS):
+        rt = recorded_profiled_runtime(dev, min_batch, f"rtl{attempt}")
+        try:
+            got = {}
+            getter = threading.Thread(target=lambda: got.update(trace=http_get(port, f"/debug/pprof/trace?seconds={PROFILE_TRACE_S}")))
+            getter.start()
+            deadline = time.perf_counter() + PROFILER_START_S
+            while not torch.autograd.profiler._is_profiler_enabled and time.perf_counter() < deadline:
+                time.sleep(0.005)
+            started = torch.autograd.profiler._is_profiler_enabled
+            read_launches()
+            t0 = time.perf_counter()
+            rt.provision_once()
+            sync(dev)
+            round_ms = (time.perf_counter() - t0) * 1e3
+            launches = read_launches()
+            getter.join(timeout=PROFILE_TRACE_S + 120)
+            status, body, request_ms = got.get("trace", (0, b"", 0.0))
+            written = body.decode().strip().rsplit(" ", 1)[-1] if status == 200 else ""
+            trace = Path(written) / TRACE_FILE if written else None
+            lives.append({
+                "status": status, "request_ms": request_ms, "profiler_started": started, "round_ms": round_ms,
+                "launches": launches, "trace_bytes": trace.stat().st_size if trace is not None and trace.exists() else 0,
+                "kernels": trace_kernels(trace) if trace is not None and trace.exists() else None,
+            })
+        finally:
+            rt.stop()
+        if both(lives[-1]["kernels"]):
+            break
+    return {"round": rounds[-1], "live": lives[-1], "round_attempts": rounds, "live_attempts": lives}
+
+
+def planted_divergence(dev, spool) -> dict:
+    """tests/test_torch_audit.py's planted device-corrupt case on the card:
+    PLANTED's standing nodes under one seeded churn, a persistent
+    DenseSolver with the incremental engine and the residency auditor on
+    `dev`; a cold pass and a clean delta pass, then a pass whose resident
+    head gets one element perturbed on the card right after the engine
+    advances (a row the audit samples). The audit must report device-corrupt
+    and the capsule engine, polled after each pass, capture exactly one
+    residency-divergence capsule, spooled under `spool`; `python -m
+    karpenter_tpu_torch.cmd.capsule inspect` reads it back."""
+    from pathlib import Path
+
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.capsule import CAPSULE, TRIGGER_RESIDENCY, capsule_errors
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.controllers.state.cluster import Cluster
+    from karpenter_tpu_torch.kube.cluster import KubeCluster
+    from karpenter_tpu_torch.scheduler import build_scheduler
+    from karpenter_tpu_torch.solver import DenseSolver
+    from karpenter_tpu_torch.solver.audit import KIND_DEVICE_CORRUPT, ResidencyAuditor
+    from karpenter_tpu_torch.solver.incremental import IncrementalEngine
+
+    nodes, seed = PLANTED
+    provider = FakeCloudProvider(instance_types(40))
+    kube = KubeCluster()
+    churn = testing.Churn(kube, seed, "pd", min_nodes=8)
+    churn.seed_nodes(nodes)
+    cluster = Cluster(kube, None)
+    engine = IncrementalEngine(cluster.delta_journal, device=dev)
+    auditor = ResidencyAuditor(seed=3)
+    solver = DenseSolver(min_batch=1, device=dev, incremental=engine, auditor=auditor)
+    armed, planted = [], []
+    advance = engine.advance
+
+    def advancing(views, ckey):
+        adv = advance(views, ckey)
+        if armed:
+            armed.pop()
+            res = engine._resident
+            row = auditor.sample(len(res.names), auditor.audits)[0]
+            res.head_dev[row, 0] += 1.0
+            planted.append(res.names[row])
+        return adv
+
+    engine.advance = advancing
+
+    def solve(step) -> int:
+        pods = testing.rename(
+            [testing.make_pod(labels={"app": "planted"}, requests={"cpu": 0.25, "memory": "256Mi"}) for _ in range(8)], f"pd{step}"
+        )
+        scheduler = build_scheduler(
+            testing.campaign_provisioners(), provider, pods, cluster=cluster,
+            state_nodes=cluster.nodes_snapshot(), dense_solver=solver,
+        )
+        results = scheduler.solve(pods)
+        sync(dev)
+        return sum(len(n.pods) for n in results.new_nodes) + sum(len(v.pods) for v in results.existing_nodes)
+
+    read_launches()
+    placed = [solve(0)]
+    churn.step()
+    placed.append(solve(1))
+    clean = {"divergences": dict(auditor.divergences), "capsules": CAPSULE.poll()}
+    churn.step()
+    armed.append(True)
+    placed.append(solve(2))
+    launches = read_launches()
+    captured = CAPSULE.poll()
+    rows = CAPSULE.index()
+    files = sorted(Path(spool).glob(f"CAPSULE_{TRIGGER_RESIDENCY}_*.json"))
+    doc = json.loads(files[0].read_text()) if files else None
+    inspect = subprocess.run(
+        [sys.executable, "-m", "karpenter_tpu_torch.cmd.capsule", "inspect", str(files[0])] if files else [sys.executable, "-c", "raise SystemExit(9)"],
+        capture_output=True, text=True, timeout=120, cwd=Path(__file__).resolve().parent,
+    )
+    return {
+        "standing_nodes": nodes,
+        "placed": placed,
+        "clean": clean,
+        "planted_row": planted,
+        "divergences": dict(auditor.divergences),
+        "last_divergence_kinds": (auditor.last_divergence or {}).get("kinds"),
+        "audits": auditor.audits,
+        "heals": auditor.heals,
+        "launches": launches,
+        "captured": captured,
+        "capsules": [{"id": r["id"], "trigger": r["trigger"], "detail": r["detail"]} for r in rows],
+        "capsule_files": [f.name for f in files],
+        "capsule_bytes": files[0].stat().st_size if files else 0,
+        "capsule_errors": capsule_errors(doc) if doc is not None else ["no capsule file"],
+        "inspect_rc": inspect.returncode,
+        "inspect_out": inspect.stdout.splitlines()[:3],
+        "expected_kind": KIND_DEVICE_CORRUPT,
+    }
+
+
+def runtime_round_recorded(dev, card_name, plain_line) -> dict:
+    """runtime_round's cell with the recorders on: parse() defaults plus
+    --enable-solver-telemetry --enable-journal --enable-capsules
+    --enable-slo --enable-profiling (KARPENTER_TPU_PROFILE_DIR set to a
+    fresh directory), --invariants-interval and --coherence-interval of
+    RECORDED_INTERVAL_S, the capsules spooled and /metrics served with
+    cmd/controller.debug_routes. The round goes through
+    drive_runtime_round; once the batch is nominated, every pod is bound to
+    its node (the kube-scheduler's part) while the Runtime runs, and the
+    phase waits for an invariant sample and a coherence check after it.
+    Then, the Runtime stopped: the SLO scraper's compute_drift (the ideal
+    repack of every bound pod onto an empty cluster, a cold dense solve on
+    the card through K1), again with the plain versions; the profiler on
+    the card (recorded_profiling, in a fresh process: PROFILING_CHILD); and
+    a planted divergence (planted_divergence). Held: the outcome equal to `plain_line`'s; every
+    K1/K2 call bit for bit, compute_drift's included; one flight record per
+    dense solve, each with its phases, dispatch "cuda", a peak of device
+    memory above zero and no kernel build; the journal holding each batch
+    pod's six transitions; the waterfall's and the SLO's pending-duration
+    counts equal to the batch; the invariant monitor clean, and after
+    stop() no leaked thread or watch; no coherence divergence; no capsule
+    in the clean round; the planted divergence's one capsule, read back
+    clean; both device traces naming K1's and K2's symbols; /metrics
+    rendering every registered family."""
+    import gc
+    import os
+    import tempfile
+    from collections import Counter
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from karpenter_tpu_torch import capsule, flight, invariants, journal, profiling, slo
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.cmd.controller import debug_routes
+    from karpenter_tpu_torch.kube import coherence
+    from karpenter_tpu_torch.metrics import REGISTRY
+    from karpenter_tpu_torch.observability import ObservabilityServer
+    from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
+    from karpenter_tpu_torch.runtime import Runtime
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+    from karpenter_tpu_torch.utils.options import parse
+
+    name, pods_n, standing = RUNTIME_ROUND_RECORDED
+    work = Path(tempfile.mkdtemp(prefix="karpenter-recorded-"))
+    profile_dir, spool = work / "profiles", work / "capsules"
+    port = free_port()
+    options = parse([
+        "--dense-min-batch", "0", "--enable-solver-telemetry", "--enable-journal", "--enable-capsules",
+        "--enable-slo", "--enable-profiling", "--invariants-interval", str(RECORDED_INTERVAL_S),
+        "--coherence-interval", str(RECORDED_INTERVAL_S), "--metrics-port", str(port),
+        "--journal-ring-size", str(RECORDED_JOURNAL_RING), "--capsule-spool", str(spool),
+    ])
+    JOURNAL, FLIGHT, CAPSULE, SLO, MONITOR, CENSUS = journal.JOURNAL, flight.FLIGHT, capsule.CAPSULE, slo.SLO, invariants.MONITOR, invariants.CENSUS
+    for recorder in (JOURNAL, FLIGHT, CAPSULE, SLO):
+        recorder.reset()
+    env_before = os.environ.get(profiling.ENV_DIR)
+    os.environ[profiling.ENV_DIR] = str(profile_dir)
+    builds_before = flight._TALLY.snapshot()[0]
+    divergences_before = coherence.divergences_total()
+    clean_before = coherence.CHECKS.value(result=coherence.RESULT_CLEAN)
+    leaked_before = CENSUS.leaked()
+    obs = None
+    pauses = GcPauses()
+    gc.callbacks.append(pauses)
+    try:
+        kube, pods = runtime_store(pods_n, standing, "rtr")
+        catalog = instance_types(HEADLINE_TYPES)
+        t_boot = time.perf_counter()
+        rt = Runtime(kube=kube, cloud_provider=FakeCloudProvider(catalog), options=options, device=dev)
+        construct_ms = (time.perf_counter() - t_boot) * 1e3
+        obs = ObservabilityServer(
+            healthy=rt.healthy, ready=lambda: rt.ready() and rt.healthy(), health_port=None,
+            metrics_port=options.metrics_port, host="127.0.0.1", extra_routes=debug_routes(options, rt),
+        )
+        obs.start()
+        env = SimpleNamespace(controller=rt.provisioner, solver=rt.dense_solver, kube=kube, cluster=rt.cluster)
+        rec = instrument(env, dev)
+        names = {p.name for p in pods}
+
+        def write_batch():
+            t0 = time.perf_counter()
+            for pod in pods:
+                kube.create(pod)
+            return t0, time.perf_counter()
+
+        def while_up(run):
+            """Bind the batch, wait for an invariant sample and a coherence
+            check after it, then read the metrics listener."""
+            t0 = time.perf_counter()
+            bound = bind_placed(kube, run["placed"])
+            bind_ms = (time.perf_counter() - t0) * 1e3
+            samples = MONITOR.report()["samples"]
+            checks = sum(coherence.CHECKS.values().values())
+            deadline = time.perf_counter() + 10 * RECORDED_INTERVAL_S + 10
+            while time.perf_counter() < deadline and rt.healthy() and not (
+                MONITOR.report()["samples"] > samples and sum(coherence.CHECKS.values().values()) > checks
+            ):
+                time.sleep(0.05)
+            status, body, scrape_ms = http_get(port, "/metrics")
+            text = body.decode()
+            families = {line.split()[2] for line in text.splitlines() if line.startswith("# TYPE ")}
+            registered = {family for family, *_rest in REGISTRY.families()}
+            debug = {path: http_get(port, path)[0] for path in RECORDED_DEBUG_ROUTES}
+            return {
+                "bound": bound, "bind_ms": bind_ms, "report": MONITOR.report(), "metrics_status": status,
+                "metrics_ms": scrape_ms, "metrics_bytes": len(body), "families": families, "debug": debug,
+                "unrendered": sorted(registered - families),
+            }
+
+        run = drive_runtime_round(rt, env, dev, names, write_batch, RUNTIME_DEADLINE_S, before_stop=while_up)
+        up = run["before_stop"]
+        alive = [t.name for t in rt.threads() if t.is_alive()]
+        released, holds, got = runtime_reads(rt, kube, run, catalog, dev)
+        leaked = CENSUS.leaked()
+        owners = CENSUS.snapshot()["owners"]
+        watchers = kube.watcher_count()
+        report = MONITOR.report()
+        CAPSULE.poll()
+        capsules_clean = CAPSULE.captures_total()
+        owner = rt._census_owner
+        builds_round = flight._TALLY.snapshot()[0] - builds_before
+        records_round = [r.to_dict() for r in FLIGHT.records()]
+        round_solves = sum(s["dense_batches"] for s in rec["schedule"])
+
+        # compute_drift: the scraper's ideal repack of every bound pod, once
+        # with the kernels (its K1 call captured), once with the plain versions
+        drift_captures = []
+        seams = dense_module.bucket_cost_packed, fill_module.admission_counts
+        capture_kernel_calls(drift_captures)
+        try:
+            rt.slo_metrics.scrape()
+            cluster_cost = slo.CLUSTER_COST.value()
+            read_launches()
+            drift_captures.clear()
+            t0 = time.perf_counter()
+            ratio = rt.slo_metrics.compute_drift(actual_cost=cluster_cost)
+            sync(dev)
+            drift_ms = (time.perf_counter() - t0) * 1e3
+            drift_launches = read_launches()
+        finally:
+            dense_module.bucket_cost_packed, fill_module.admission_counts = seams
+        ideal = slo.IDEAL_COST.value()
+        drift_holds = hold_kernel_calls(drift_captures, dev)
+        drift_k1 = [c for c in drift_captures if c[0] == "bucket_type_cost"]
+        drift_k1_ms, drift_k1_why = (
+            profiled_device_ms(functools.partial(dense_module.bucket_cost_packed, *drift_k1[0][1]), KERNEL_ITERS, "bucket_cost_kernel")
+            if drift_k1 else (None, "compute_drift made no K1 call")
+        )
+        dense_module.bucket_cost_packed, fill_module.admission_counts = bucket_type_cost_packed, plain_admission_counts
+        try:
+            read_launches()  # the timing's launches above
+            t0 = time.perf_counter()
+            plain_ratio = rt.slo_metrics.compute_drift(actual_cost=cluster_cost)
+            sync(dev)
+            plain_drift_ms = (time.perf_counter() - t0) * 1e3
+            plain_drift_launches = read_launches()
+        finally:
+            dense_module.bucket_cost_packed, fill_module.admission_counts = seams
+        plain_ideal = slo.IDEAL_COST.value()
+        records = [r.to_dict() for r in FLIGHT.records()]
+        solves = sum(s["dense_batches"] for s in rec["schedule"])
+
+        # the batch's journal and the pending-duration counts
+        events = JOURNAL.events(limit=10 * RECORDED_JOURNAL_RING)
+        per_pod = Counter(e["entity"] for e in events if e["kind"] == "pod" and e["entity"] in names)
+        transitions = Counter(e["event"] for e in events if e["kind"] == "pod" and e["entity"] in names)
+        journal_bytes = sum(len(json.dumps(e)) + 1 for e in events)
+        stats = JOURNAL.stats()
+        waterfall = JOURNAL.waterfall_index()
+        waterfall_count = sum(journal.WATERFALL_SEGMENT.count(**labels) for labels in journal.WATERFALL_SEGMENT.series() if labels.get("segment") == "bind")
+        pending_count = sum(slo.PENDING_LATENCY.count(**labels) for labels in slo.PENDING_LATENCY.series())
+
+        # in a fresh process: after this script's earlier CUDA-only profiler
+        # sessions, a session on the metrics server's thread kept no device
+        # events (PERF.md §7)
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", PROFILING_CHILD, dev.type, str(profile_dir), str(rt.dense_solver.min_batch)],
+            capture_output=True, text=True, timeout=PROFILING_CHILD_TIMEOUT_S, cwd=Path(__file__).resolve().parent,
+        )
+        check(child.returncode == 0, f"{name}: the profiling child exited {child.returncode}: {child.stderr[-3000:]}")
+        profiled = {**json.loads(child.stdout.strip().splitlines()[-1]), "child_wall_ms": (time.perf_counter() - t0) * 1e3}
+        planted = planted_divergence(dev, spool)
+    finally:
+        gc.callbacks.remove(pauses)
+        if obs is not None:
+            obs.stop()
+        for recorder in (JOURNAL, FLIGHT, CAPSULE, SLO):
+            recorder.disable()
+        if env_before is None:
+            os.environ.pop(profiling.ENV_DIR, None)
+        else:
+            os.environ[profiling.ENV_DIR] = env_before
+    on_standing = sum(len(n[1]) for n in got["standing"])
+    recorded = {"launched_types": dict(sorted(Counter(t for t, *_rest in got["launched"]).items())), "pods_nominated_onto_standing": on_standing, "price_per_hour": got["price_per_hour"]}
+    plain = {k: plain_line[k] for k in recorded}
+    wait_ms = (run["done"] - run["t0"]) * 1e3
+    # a solve's phases: encode and commit always, the bucket choice's where
+    # buckets went to K1, the fill's round trip where a vectorized fill ran
+    record_faults = [
+        {"id": r["id"], "dispatch": r["dispatch"], "hbm_peak_bytes": r["hbm_peak_bytes"], "compiled_fns": r["compiled_fns"],
+         "zero_phases": [k for k in ("encode", "commit") if not r["phases"][k] > 0]
+         + [k for k in ("device", "mask", "assemble") if r["signature"]["buckets"] and not r["phases"][k] > 0]
+         + (["fill_device"] if r["fill_routing"]["fills_vectorized"] and not r["phases"]["fill_device"] > 0 else [])}
+        for r in records
+    ]
+    record_faults = [f for f in record_faults if f["dispatch"] != "cuda" or f["hbm_peak_bytes"] <= 0 or f["compiled_fns"] or f["zero_phases"]]
+    missing_families = up["unrendered"]
+    line = {
+        "phase": name,
+        "config": name,
+        "card": card_name,
+        "pods": pods_n,
+        "standing_nodes": standing,
+        "types": HEADLINE_TYPES,
+        "min_batch": rt.dense_solver.min_batch,
+        "intervals_s": {"invariants": options.invariants_interval, "coherence": options.coherence_interval},
+        "construct_ms": construct_ms,
+        "start_ms": run["start_ms"],
+        "create_ms": (run["created"] - run["t0"]) * 1e3,
+        "pods_to_last_nomination_ms": wait_ms,
+        "plain_pods_to_last_nomination_ms": plain_line["pods_to_last_nomination_ms"],
+        "recorders_share_of_pod_wait": (wait_ms - plain_line["pods_to_last_nomination_ms"]) / wait_ms,
+        "stop_ms": run["stop_ms"],
+        "bind": {"pods": up["bound"], "ms": up["bind_ms"]},
+        "rounds": len(rec["get_pods_ms"]),
+        "phases_ms": rec["schedule"][0]["phases_ms"] if rec["schedule"] else None,
+        "schedule_ms": [s["wall_ms"] for s in rec["schedule"]],
+        "flight": {
+            "records": len(records), "dense_solves": solves, "round_records": len(records_round), "round_solves": round_solves,
+            "builds_in_round": builds_round, "faults": record_faults,
+            "round_record": {k: records_round[0][k] for k in ("dispatch", "phases", "fill_routing", "hbm_peak_bytes", "hbm_live_bytes", "compiled_fns", "signature")} if records_round else None,
+        },
+        "journal": {
+            "events_stored": stats["events_stored"], "events_total": stats["events_total"], "dropped": stats["events_dropped"],
+            "bytes": journal_bytes, "pods_with_six": sum(1 for n in names if per_pod.get(n) == len(RECORDED_POD_EVENTS)),
+            "transitions": dict(transitions), "waterfall_count": waterfall_count, "waterfall_completed": waterfall["pods_completed"],
+            "conservation_violations": waterfall["conservation"]["violations"],
+        },
+        "slo": {"pending_count": pending_count, "cluster_cost_per_hour": cluster_cost, "pending_pods": SLO.pending_count()},
+        "compute_drift": {
+            "bound_pods": up["bound"], "wall_ms": drift_ms, "k1_device_ms": drift_k1_ms, "k1_device_ms_missing": drift_k1_why or None,
+            "launches": drift_launches, "kernel_holds": drift_holds, "ideal_cost_per_hour": ideal, "ratio": ratio,
+            "plain": {"wall_ms": plain_drift_ms, "launches": plain_drift_launches, "ideal_cost_per_hour": plain_ideal, "ratio": plain_ratio},
+        },
+        "invariants": {"samples": up["report"]["samples"], "violations": up["report"]["violations"], "leaked_after_stop": leaked, "leaked_before": leaked_before, "owners_after_stop": sorted(owners), "watchers_after_stop": watchers, "watchers_baseline": report["watchers"]["baseline"]},
+        "coherence": {"divergences": coherence.divergences_total() - divergences_before, "clean_checks": coherence.CHECKS.value(result=coherence.RESULT_CLEAN) - clean_before},
+        "capsules_clean_round": capsules_clean,
+        "metrics": {"status": up["metrics_status"], "ms": up["metrics_ms"], "bytes": up["metrics_bytes"], "families": len(up["families"]), "missing": missing_families},
+        "debug_status": up["debug"],
+        "profiling": profiled,
+        "planted_divergence": planted,
+        "gc": {"ms": pauses.ms, "full": pauses.full, "longest_ms": pauses.longest_ms},
+        "outcome": recorded,
+        "plain_outcome": plain,
+        "kernel_launches": run["launches"],
+        "kernel_holds": holds,
+        "broken": run["broken"],
+        "healthy": run["healthy"],
+        "threads_alive_after_stop": alive,
+        "lease_released": released,
+    }
+    emit(line)
+    print(f"{name}: pod wait {wait_ms:.1f} ms with the recorders, {plain_line['pods_to_last_nomination_ms']:.1f} ms without (one run each); "
+          f"compute_drift {drift_ms:.1f} ms, its K1 {drift_k1_ms} ms on the card; {len(records)} flight records; "
+          f"journal {journal_bytes} bytes; capsule {planted['capsule_bytes']} bytes; on {card_name}", flush=True)
+    live, profiled_round = profiled["live"], profiled["round"]
+    check(run["healthy"], f"{name}: the Runtime turned unhealthy")
+    check(names <= run["nominated"], f"{name}: {len(names - run['nominated'])} of {pods_n} pods never nominated within {RUNTIME_DEADLINE_S} s")
+    check(recorded == plain, f"{name}: the recorded round's outcome {recorded} differs from the plain round's {plain}")
+    check(run["launches"]["bucket_type_cost"] >= 1 and run["launches"]["warm_fill_counts"] >= 1, f"{name}: the window launched {run['launches']}")
+    check(holds and all(h["identical"] for h in holds), f"{name}: a kernel call differs from its plain version: {[h for h in holds if not h['identical']]}")
+    check(up["bound"] == pods_n, f"{name}: bound {up['bound']} of {pods_n} pods")
+    check(len(records) == solves and solves >= 2, f"{name}: {len(records)} flight records for {solves} dense solves")
+    check(not record_faults, f"{name}: flight records without their phases, a cuda dispatch or a device-memory peak, or with a build: {record_faults}")
+    check(builds_round == 0, f"{name}: {builds_round} kernel builds inside the timed round")
+    check(line["journal"]["pods_with_six"] == pods_n and stats["events_dropped"] == 0, f"{name}: {line['journal']['pods_with_six']} of {pods_n} pods with their six transitions ({dict(transitions)}), {stats['events_dropped']} events dropped")
+    check(waterfall_count == pending_count == pods_n, f"{name}: the waterfall counts {waterfall_count} and the SLO {pending_count} pending durations for {pods_n} pods")
+    check(line["journal"]["conservation_violations"] == 0, f"{name}: waterfall conservation violations {waterfall['conservation']}")
+    check(drift_launches["bucket_type_cost"] == 1 and len(drift_k1) == 1, f"{name}: compute_drift launched {drift_launches}")
+    check(drift_holds and all(h["identical"] for h in drift_holds), f"{name}: compute_drift's K1 call differs from its plain version: {drift_holds}")
+    check(ideal == plain_ideal and ratio == plain_ratio and ratio is not None, f"{name}: compute_drift's ideal {ideal} / ratio {ratio} against the plain versions' {plain_ideal} / {plain_ratio}")
+    check(not any(plain_drift_launches.values()), f"{name}: the plain versions' compute_drift launched {plain_drift_launches}")
+    check(up["report"]["samples"] >= 1 and not up["report"]["violations"], f"{name}: the invariant monitor sampled {up['report']['samples']} times with violations {up['report']['violations']}")
+    check(not [t for t in leaked if t["owner"] == owner] and owner not in owners, f"{name}: threads leaked after stop(): {leaked}; census owners {sorted(owners)}")
+    check(watchers <= report["watchers"]["baseline"], f"{name}: {watchers} watches after stop() against a baseline of {report['watchers']['baseline']}")
+    check(line["coherence"]["divergences"] == 0 and line["coherence"]["clean_checks"] >= 1, f"{name}: coherence {line['coherence']}")
+    check(capsules_clean == 0 and not planted["clean"]["capsules"], f"{name}: {capsules_clean} capsules captured in the clean round, {planted['clean']['capsules']} in the clean passes")
+    check(planted["divergences"] == {planted["expected_kind"]: 1} and planted["captured"] == 1, f"{name}: the planted divergence gave {planted['divergences']} and {planted['captured']} capsules")
+    check([c["trigger"] for c in planted["capsules"]] == ["residency-divergence"] and len(planted["capsule_files"]) == 1, f"{name}: capsules {planted['capsules']}, files {planted['capsule_files']}")
+    check(planted["capsule_errors"] == [] and planted["inspect_rc"] == 0, f"{name}: the capsule reads back with errors {planted['capsule_errors']}, inspect exit {planted['inspect_rc']}")
+    check(planted["launches"]["warm_fill_counts"] >= 1, f"{name}: the planted passes launched {planted['launches']}")
+    check(live["status"] == 200 and live["profiler_started"] and live["kernels"] is not None, f"{name}: /debug/pprof/trace answered {live['status']} (profiler started: {live['profiler_started']})")
+    check(all(live["kernels"][s] >= 1 for s in KERNEL_SYMBOLS), f"{name}: no live trace of {len(profiled['live_attempts'])} named both kernels: {[a['kernels'] for a in profiled['live_attempts']]} (rounds {[round(a['round_ms']) for a in profiled['live_attempts']]} ms)")
+    check(profiled_round["prof_files"] >= 1 and profiled_round["device_traces"] >= 1, f"{name}: maybe_profile_round wrote {profiled_round['prof_files']} .prof files and {profiled_round['device_traces']} device traces")
+    check(profiled_round["kernels"] is not None and all(profiled_round["kernels"][s] >= 1 for s in KERNEL_SYMBOLS), f"{name}: no round's device trace of {len(profiled['round_attempts'])} named both kernels: {[a['kernels'] for a in profiled['round_attempts']]}")
+    check(up["metrics_status"] == 200 and not missing_families and set(RECORDER_FAMILIES) <= up["families"], f"{name}: /metrics answered {up['metrics_status']}; missing {missing_families or sorted(set(RECORDER_FAMILIES) - up['families'])}")
+    check(all(v == 200 for v in up["debug"].values()), f"{name}: debug routes answered {up['debug']}")
     check(not any(run["broken"].values()), f"{name}: the round broke placements: {run['broken']}")
     check(not alive, f"{name}: threads alive after stop(): {alive}")
     check(released, f"{name}: the Lease was not released")
@@ -3982,6 +4578,10 @@ def main() -> int:
     # 12c'. the same cell with the telemetry on: tracing, the lock witness
     # and /metrics, held to the untraced round's outcome
     traced_line = runtime_round_traced(dev, card_name, runtime_line)
+    # 12c''. the same cell with the recorders on: the flight recorder, the
+    # journal, the SLO accountant and its ideal repack through K1, the
+    # capsules, profiling, the invariant monitor and the coherence witness
+    recorded_line = runtime_round_recorded(dev, card_name, runtime_line)
     sidecar_line = solver_sidecar(dev, card_name)
 
     # 12d. the wire: the Runtime's cell over HTTP against an apiserver
@@ -4004,6 +4604,17 @@ def main() -> int:
         HTTP (the fresh process's launches happen in the child, whose counts
         are not readable here)."""
         return {"runtime_round_http": runtime_http_line["kernel_launches"][kernel_name], "controller_process_http": "child"}
+
+    def recorded_launches(kernel_name):
+        """The recorded cell's launches of one kernel: in the threaded window,
+        in compute_drift's ideal repack, in the profiled rounds and in the
+        planted divergence's audited passes."""
+        return {
+            "runtime_round_recorded": recorded_line["kernel_launches"][kernel_name],
+            "compute_drift": recorded_line["compute_drift"]["launches"][kernel_name],
+            "profiled_rounds": sum(a["launches"][kernel_name] for part in ("round_attempts", "live_attempts") for a in recorded_line["profiling"][part]),
+            "planted_divergence": recorded_line["planted_divergence"]["launches"][kernel_name],
+        }
 
     def interruption_launches(kernel_name):
         """The wave's launches of one kernel over its timed runs, in the
@@ -4076,6 +4687,7 @@ def main() -> int:
                 "interruption_launches": interruption_launches("bucket_type_cost"),
                 "runtime_launches": runtime_launches("bucket_type_cost"),
                 "traced_launches": traced_line["kernel_launches"]["bucket_type_cost"],
+                "recorded_launches": recorded_launches("bucket_type_cost"),
                 "sidecar_launches": sidecar_line["kernel_launches"]["bucket_type_cost"],
                 "sidecar_grpc_launches": sidecar_line["grpc"]["kernel_launches"]["bucket_type_cost"],
                 "http_launches": http_launches("bucket_type_cost"),
@@ -4109,6 +4721,7 @@ def main() -> int:
                 "interruption_launches": interruption_launches("warm_fill_counts"),
                 "runtime_launches": runtime_launches("warm_fill_counts"),
                 "traced_launches": traced_line["kernel_launches"]["warm_fill_counts"],
+                "recorded_launches": recorded_launches("warm_fill_counts"),
                 "sidecar_launches": sidecar_line["kernel_launches"]["warm_fill_counts"],
                 "sidecar_grpc_launches": sidecar_line["grpc"]["kernel_launches"]["warm_fill_counts"],
                 "http_launches": http_launches("warm_fill_counts"),

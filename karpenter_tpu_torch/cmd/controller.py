@@ -13,10 +13,17 @@ a mounted serviceaccount token) selects the real-protocol HTTP client at
 the configured QPS/burst budget; otherwise the in-memory simulation backend
 runs. --metrics-port serves /metrics, the /debug index and, behind
 their flags, the tracing routes (--enable-tracing: /debug/traces,
-/debug/decisions) and the lock witness's (--enable-lock-witness:
-/debug/locks). The other debug surfaces' flags raise through the Runtime
-(ROADMAP A8b, A7). A runtime whose loop dies ends the process: `main`
-leaves its wait, and `Runtime.stop()` re-raises.
+/debug/decisions), the lock witness's (--enable-lock-witness:
+/debug/locks), live profiling's (--enable-profiling: /debug/pprof/...),
+the SLO snapshot's (--enable-slo: /debug/slo), the flight recorder's
+(--enable-solver-telemetry: /debug/solver), the journal's
+(--enable-journal: /debug/journal, /debug/waterfall), the capsules'
+(--enable-capsules: /debug/capsules), the residency auditor's
+(--residency-audit-interval: /debug/residency), the coherence witness's
+(--coherence-interval: /debug/coherence) and the invariant monitor's
+(--invariants-interval: /debug/invariants). The fault domain's flags raise
+through the Runtime (ROADMAP A7). A runtime whose loop dies ends the
+process: `main` leaves its wait, and `Runtime.stop()` re-raises.
 """
 
 from __future__ import annotations
@@ -73,9 +80,10 @@ def build_kube_backend(options):
     return KubeCluster(), ""
 
 
-def debug_routes(options) -> dict:
+def debug_routes(options, runtime=None) -> dict:
     """The metrics listener's routes beside /metrics: each debug surface
-    its flag turns on, and the /debug index of them."""
+    its flag turns on, and the /debug index of them. /debug/residency
+    serves `runtime`'s residency auditor, so it needs the Runtime."""
     from ..observability import debug_index_route
 
     extra_routes = {}
@@ -83,6 +91,15 @@ def debug_routes(options) -> dict:
     # description its OWN module declares next to its routes() — path and
     # description can only drift together, inside one file
     debug_descriptions = {}
+    if options.enable_profiling:
+        # live pprof-analog endpoints on the metrics port
+        # (controllers.go:183-202): on-demand host profile + device trace of
+        # the RUNNING process, no restart needed
+        from ..profiling import LiveProfiler
+
+        profiler = LiveProfiler()
+        extra_routes.update(profiler.routes())
+        debug_descriptions.update(profiler.route_descriptions())
     if options.enable_tracing:
         # decision-tracing read surface: /debug/traces (+ ?id, ?format=chrome)
         # and /debug/decisions (+ ?pod=, ?outcome=, ?limit=) on the metrics port
@@ -90,6 +107,13 @@ def debug_routes(options) -> dict:
 
         extra_routes.update(tracing.routes())
         debug_descriptions.update(tracing.route_descriptions())
+    if options.enable_slo:
+        # the SLO snapshot: live pending-latency quantiles, cluster $/hr,
+        # cost-drift ratio, churn counters on the metrics port
+        from .. import slo
+
+        extra_routes.update(slo.routes())
+        debug_descriptions.update(slo.route_descriptions())
     if options.enable_lock_witness:
         # lock-order witness read surface: acquisition-order graph, cycle
         # (potential-deadlock) list, hold times on the metrics port
@@ -97,6 +121,49 @@ def debug_routes(options) -> dict:
 
         extra_routes.update(witness.routes())
         debug_descriptions.update(witness.route_descriptions())
+    if options.enable_solver_telemetry:
+        # solver flight recorder read surface: per-solve records with
+        # compile-churn attribution and HBM accounting on the metrics port
+        from .. import flight
+
+        extra_routes.update(flight.routes())
+        debug_descriptions.update(flight.route_descriptions())
+    if options.enable_journal:
+        # lifecycle journal read surface: the pod/node transition stream and
+        # the pending-latency waterfall decomposition on the metrics port
+        from .. import journal
+
+        extra_routes.update(journal.routes())
+        debug_descriptions.update(journal.route_descriptions())
+    if options.enable_capsules:
+        # incident-capsule read surface: the captured evidence bundles and
+        # live burn rates on the metrics port
+        from .. import capsule
+
+        extra_routes.update(capsule.routes())
+        debug_descriptions.update(capsule.route_descriptions())
+    auditor = getattr(runtime, "auditor", None)
+    if options.residency_audit_interval > 0 and auditor is not None:
+        # residency-auditor read surface: audit cadence, divergences by
+        # kind, heal count, last divergence detail on the metrics port
+        from ..solver import audit
+
+        extra_routes.update(audit.routes(auditor))
+        debug_descriptions.update(audit.route_descriptions())
+    if options.coherence_interval > 0:
+        # informer-coherence witness read surface: registered caches,
+        # confirmed divergences vs the store, last check on the metrics port
+        from ..kube import coherence
+
+        extra_routes.update(coherence.routes())
+        debug_descriptions.update(coherence.route_descriptions())
+    if options.invariants_interval > 0:
+        # invariant-monitor read surface: thread census, watch/ring/heap
+        # leak witnesses, confirmed violations on the metrics port
+        from .. import invariants
+
+        extra_routes.update(invariants.routes())
+        debug_descriptions.update(invariants.route_descriptions())
     extra_routes["/debug"] = debug_index_route(debug_descriptions)
     return extra_routes
 
@@ -136,7 +203,7 @@ def main(argv=None) -> int:
         ready=lambda: runtime.ready() and runtime.healthy(),
         health_port=options.health_probe_port,
         metrics_port=options.metrics_port,
-        extra_routes=debug_routes(options),
+        extra_routes=debug_routes(options, runtime),
     )
     obs.start()
     clock = Clock()

@@ -1,5 +1,6 @@
 from .pod import PodMetricsController
 from .provisioner import ProvisionerMetricsController
 from .node import NodeMetricsScraper
+from .slo import SLOScraper
 
-__all__ = ["PodMetricsController", "ProvisionerMetricsController", "NodeMetricsScraper"]
+__all__ = ["PodMetricsController", "ProvisionerMetricsController", "NodeMetricsScraper", "SLOScraper"]

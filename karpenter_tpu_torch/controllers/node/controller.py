@@ -14,10 +14,6 @@ nodes running four sub-reconcilers with a single update at the end
                    (expiration.go:38-55)
   finalizer      — ensure the termination finalizer + provisioner owner ref
                    on self-registered nodes (finalizer.go:25-49)
-
-The port's copy of karpenter_tpu/controllers/node/controller.py; the
-lifecycle journal's "initialized" event is left out with the journal
-(ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -27,6 +23,7 @@ from typing import List, Optional
 from ...api import labels as lbl
 from ...api.objects import Node, OwnerReference
 from ...api.provisioner import Provisioner
+from ...journal import JOURNAL
 from ...kube.cluster import KubeCluster
 from ...logsetup import get_logger
 from ...utils import pod as podutils
@@ -106,6 +103,8 @@ class NodeController:
         if not self._extended_resources_registered(node):
             return False
         node.metadata.labels[lbl.LABEL_NODE_INITIALIZED] = "true"
+        if JOURNAL.enabled:
+            JOURNAL.node_event(node.name, "initialized", provisioner=provisioner.name)
         log.info("node %s initialized (ready, startup taints cleared, extended resources registered)", node.name)
         return True
 

@@ -3,13 +3,11 @@
 Mirrors pkg/controllers/provisioning/controller.go:57-85 — every pod event
 for a provisionable pod pulls the batcher trigger; the orchestrator loop
 does the rest.
-
-The port's copy of karpenter_tpu/controllers/provisioning/controller.py,
-without the reference's pod-lifecycle journal event.
 """
 
 from __future__ import annotations
 
+from ...journal import JOURNAL
 from ...kube.cluster import DELETED, KubeCluster, WatchEvent
 from ...utils import pod as podutils
 from .provisioner import ProvisionerController
@@ -30,4 +28,8 @@ class ProvisioningReconciler:
         if event.type == DELETED:
             return
         if podutils.is_provisionable(event.obj):
+            if JOURNAL.enabled:
+                # `queued`: the pod entered the batch window — the boundary
+                # between the waterfall's queue_wait and batch_wait segments
+                JOURNAL.pod_event(event.obj.metadata.name, "queued")
             self.provisioner.trigger()

@@ -11,9 +11,7 @@ scheduler does that once the node joins; nomination events plus the
 cluster-state nomination TTL prevent double-provisioning in the meantime.
 
 The port's copy of karpenter_tpu/controllers/provisioning/provisioner.py.
-Left out: the pod and node journal events and the flight recorder's record
-ids (ROADMAP A8b). Three deliberate differences
-from the reference:
+Three deliberate differences from the reference:
 
 - its batch loop logs a failed round and goes on; the port's ends at the
   first round that raises, keeps the exception in `error`, and `stop()`
@@ -39,6 +37,8 @@ from ...logsetup import get_logger
 from ...cloudprovider.types import CloudProvider, NodeRequest
 from ...config import Config
 from ...events import Recorder
+from ...flight import FLIGHT
+from ...journal import JOURNAL
 from ...kube.cluster import Conflict, KubeCluster
 from ...metrics import REGISTRY
 from ...cloudprovider.errors import InsufficientCapacityError
@@ -210,8 +210,12 @@ class ProvisionerController:
         with TRACER.span("batch") as sp:
             pods = self.get_pods()
             sp.set(pods=len(pods), state_nodes=len(state_nodes))
+        if JOURNAL.enabled:
+            trace_id = TRACER.current_trace_id() or ""
+            for pod in pods:
+                JOURNAL.pod_event(pod.metadata.name, "batch-admitted", trace_id=trace_id)
         start = self.clock.now()
-        results = self.schedule(pods, state_nodes)
+        results = self._schedule_journaled(pods, state_nodes)
         ice_failed: List[object] = []
         placed: List[tuple] = []
         launched = self.launch_nodes(results, ice_failures=ice_failed, placed=placed)
@@ -229,7 +233,7 @@ class ProvisionerController:
             # the round's placements are nominated, not bound: the re-solve
             # counts them, or it would hand their capacity out again
             with TRACER.span("ice-resolve", attempt=attempt + 1, pods=len(retry_pods)):
-                retry_results = self.schedule(retry_pods, self._nominated_snapshot(placed), nominated=placed)
+                retry_results = self._schedule_journaled(retry_pods, self._nominated_snapshot(placed), nominated=placed)
                 any_unschedulable |= bool(retry_results.unschedulable)
                 ice_failed = []
                 launched += self.launch_nodes(retry_results, ice_failures=ice_failed, placed=placed)
@@ -259,6 +263,45 @@ class ProvisionerController:
                 (self.clock.now() - start) * 1000,
             )
         return results
+
+    def _schedule_journaled(
+        self, pods: Sequence[Pod], state_nodes: Sequence[object], nominated: Sequence[tuple] = ()
+    ) -> SchedulingResults:
+        """schedule() plus per-pod lifecycle events — ONLY for the real
+        provisioning round (simulation re-solves through schedule() directly
+        and must journal nothing, like the decision log)."""
+        if not JOURNAL.enabled:
+            return self.schedule(pods, state_nodes, nominated=nominated)
+        rid_before = FLIGHT.last_record_id()
+        results = self.schedule(pods, state_nodes, nominated=nominated)
+        rid = FLIGHT.last_record_id()
+        self._journal_solve_results(results, rid if rid != rid_before else None)
+        return results
+
+    def _journal_solve_results(self, results: SchedulingResults, flight_record) -> None:
+        """Per-pod `solved`/`failed` journal events cross-linked to the
+        round's trace and (when the dense path dispatched) the flight-record
+        solve id. First occurrence wins in the journal, so an ICE re-solve
+        never rewrites a pod's original solve instant."""
+        trace_id = TRACER.current_trace_id() or ""
+        for vn in results.new_nodes:
+            if not vn.pods:
+                continue
+            instance_type = vn.instance_type_options[0].name() if vn.instance_type_options else ""
+            for pod in vn.pods:
+                JOURNAL.pod_event(
+                    pod.metadata.name, "solved", placement="new", provisioner=vn.provisioner_name,
+                    instance_type=instance_type, trace_id=trace_id, flight_record=flight_record,
+                )
+        for view in results.existing_nodes:
+            provisioner = view.node.metadata.labels.get(lbl.PROVISIONER_NAME_LABEL, "")
+            for pod in view.pods:
+                JOURNAL.pod_event(
+                    pod.metadata.name, "solved", placement="existing", provisioner=provisioner,
+                    node=view.node.name, trace_id=trace_id, flight_record=flight_record,
+                )
+        for pod, err in results.unschedulable.items():
+            JOURNAL.pod_event(pod.metadata.name, "failed", error=str(err)[:200], trace_id=trace_id)
 
     def _nominated_snapshot(self, placed: Sequence[tuple]) -> List[object]:
         """The cluster's state nodes with the (node name, pods) placements
@@ -293,6 +336,10 @@ class ProvisionerController:
                             trace_id=TRACER.current_trace_id() or "",
                             error="insufficient capacity: escalation exhausted (next-offering, next-type, re-solve)",
                         )
+                    )
+                if JOURNAL.enabled:
+                    JOURNAL.pod_event(
+                        pod.metadata.name, "failed", error="insufficient capacity: escalation exhausted"
                     )
                 while len(self._ice_backoff) >= 4096:
                     del self._ice_backoff[next(iter(self._ice_backoff))]
@@ -485,12 +532,15 @@ class ProvisionerController:
         # nominate pods onto existing nodes they were scheduled against
         with TRACER.span("bind") as sp:
             nominated = 0
+            journal_on = JOURNAL.enabled
             for view in results.existing_nodes:
                 if view.pods:
                     self.cluster.nominate_node_for_pod(view.node.name)
                     for pod in view.pods:
                         self.recorder.nominate_pod(pod, view.node)
                         nominated += 1
+                        if journal_on:
+                            JOURNAL.pod_event(pod.metadata.name, "nominated", node=view.node.name)
                     if placed is not None:
                         placed.append((view.node.name, view.pods))
             sp.set(nominated=nominated)
@@ -503,6 +553,12 @@ class ProvisionerController:
             return self._launch_one(virtual_node, sp, ice_failures)
 
     def _launch_one(self, virtual_node, sp, ice_failures: Optional[List[object]] = None) -> Optional[str]:
+        requested_as = getattr(virtual_node, "_hostname", "")
+        if JOURNAL.enabled and requested_as:
+            JOURNAL.node_event(
+                requested_as, "launch-requested", provisioner=virtual_node.provisioner_name,
+                pods=len(virtual_node.pods), trace_id=TRACER.current_trace_id() or "",
+            )
         try:
             node = self.cloud_provider.create(
                 NodeRequest(template=virtual_node.template, instance_type_options=virtual_node.instance_type_options)
@@ -527,6 +583,14 @@ class ProvisionerController:
             for pod in virtual_node.pods:
                 self.recorder.pod_failed_to_schedule(pod, f"launch failed: {e}")
             return None
+        if JOURNAL.enabled:
+            # `launched` (cloud instance exists) precedes `registered` (the
+            # node object lands in the API on the create below)
+            JOURNAL.node_event(
+                node.name, "launched", requested_as=requested_as,
+                instance_type=node.metadata.labels.get(lbl.LABEL_INSTANCE_TYPE, ""),
+                provisioner=virtual_node.provisioner_name, trace_id=TRACER.current_trace_id() or "",
+            )
         try:
             self.kube.create(node)
         except Conflict:
@@ -548,8 +612,11 @@ class ProvisionerController:
             )
         self.recorder.launching_node(node, f"for {len(virtual_node.pods)} pod(s)")
         self.cluster.nominate_node_for_pod(node.name)
+        journal_on = JOURNAL.enabled
         for pod in virtual_node.pods:
             self.recorder.nominate_pod(pod, node)
+            if journal_on:
+                JOURNAL.pod_event(pod.metadata.name, "nominated", node=node.name)
         return node.name
 
     def _provisioner_usage(self, provisioner_name: str) -> Dict[str, float]:

@@ -7,8 +7,7 @@ terminal, stuck-terminating pods skipped, :122-168), then delete the cloud
 instance and strip the finalizer so the API object is garbage collected
 (:101-119).
 
-The port's copy of karpenter_tpu/controllers/termination/controller.py,
-without the lifecycle journal's "terminated" event (ROADMAP A8b).
+The port's copy of karpenter_tpu/controllers/termination/controller.py.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from ...api import labels as lbl
 from ...api.objects import NO_SCHEDULE, Node, Taint
 from ...cloudprovider.types import CloudProvider
 from ...events import Recorder
+from ...journal import JOURNAL
 from ...logsetup import get_logger
 from ...kube.cluster import KubeCluster
 from ...scheduling.taints import Taints
@@ -68,6 +68,10 @@ class TerminationController:
                 return  # pods still evicting; re-reconcile later
             with TRACER.span("finalize", node=node.name):
                 self.cloud_provider.delete(node)
+                if JOURNAL.enabled:
+                    # before kube.finalize: the watch DELETED fallback would
+                    # otherwise record first and win the dedupe with no attrs
+                    JOURNAL.node_event(node.name, "terminated", drained=drained)
                 self.kube.finalize(node)
             sp.set(outcome="terminated")
         log.info("terminated node %s: drained, instance deleted, finalizer removed", node.name)

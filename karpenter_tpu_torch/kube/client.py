@@ -20,8 +20,7 @@ controllers is always a decoded wire copy — reference semantics, where
 mutating a local object never changes the cluster until written back.
 
 The port's copy of karpenter_tpu/kube/client.py. Left out: the conflict
-counter, defined in kube/chaos.py (ROADMAP A7), and the relist's journal
-event (A8b).
+counter, defined in kube/chaos.py (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -347,6 +346,11 @@ class HttpKubeClient:
                         for uid, o in known.items():
                             if uid not in current:
                                 handler(WatchEvent(DELETED, o))
+                    if not first:
+                        from ..journal import JOURNAL
+
+                        if JOURNAL.enabled:
+                            JOURNAL.kube_event(f"watch-{kind.lower()}", "relist", transport="http")
                     known = current
                     first = False
                 rv = self._stream(kind, rv, handler, known, cancel)

@@ -12,12 +12,12 @@ Flap hardening (the control-plane fault domain): the run loop reports BOTH
 transitions — `on_started_leading` and `on_stopped_leading` — so a holder
 whose lease is stolen or whose renew fails steps its loops down before the
 successor's recovery acts; every lost transition is counted
-(`karpenter_leader_flaps_total`), and a legal competing writer can steal the
+(`karpenter_leader_flaps_total`) and journaled (`lease-lost` /
+`lease-acquired` kube events), and a legal competing writer can steal the
 lease outright (`steal_lease`) to prove it.
 
 The port's copy of karpenter_tpu/kube/leaderelection.py. Left out: the
-control-plane fault plan's hooks (ROADMAP A7) and the `lease-acquired` /
-`lease-lost` journal events (A8b).
+control-plane fault plan's hooks (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -141,6 +141,8 @@ class LeaseElector:
                 log.exception("leader election: %s %s callback failed", self.identity, transition)
 
         def run():
+            from ..journal import JOURNAL
+
             while not self._stop.is_set():
                 try:
                     held = self.try_acquire_or_renew()
@@ -152,6 +154,8 @@ class LeaseElector:
                     held = False
                 if held and not self._leading.is_set():
                     log.info("leader election: %s became leader", self.identity)
+                    if JOURNAL.enabled:
+                        JOURNAL.kube_event(self.identity, "lease-acquired", lease=self.name)
                     self._leading.set()
                     fire(on_started_leading, "started-leading")
                 elif not held and self._leading.is_set():
@@ -161,6 +165,8 @@ class LeaseElector:
                     # recovery can act on the cluster
                     log.warning("leader election: %s lost the lease", self.identity)
                     LEADER_FLAPS.inc()
+                    if JOURNAL.enabled:
+                        JOURNAL.kube_event(self.identity, "lease-lost", lease=self.name)
                     self._leading.clear()
                     fire(on_stopped_leading, "stopped-leading")
                 self._stop.wait(self.renew_period)

@@ -16,7 +16,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -26,6 +26,9 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 ]
+
+# called as listener(library name, seconds) after every build that ran nvcc
+BUILD_LISTENERS: List[Callable[[str, float], None]] = []
 
 
 def _nvcc() -> str:
@@ -72,7 +75,10 @@ class KernelLibrary:
             self.builds += 1
         finally:
             tmp.unlink(missing_ok=True)
-        return {"seconds": time.perf_counter() - t0, "built": True, "log": proc.stdout + proc.stderr}
+        seconds = time.perf_counter() - t0
+        for listener in list(BUILD_LISTENERS):
+            listener(self.name, seconds)
+        return {"seconds": seconds, "built": True, "log": proc.stdout + proc.stderr}
 
     def load(self) -> ctypes.CDLL:
         if self._lib is not None:

@@ -1,5 +1,6 @@
-"""Feasibility surfaces in plain PyTorch: the [B, T] offering-availability
-mask and the bucket -> instance-type cost choice.
+"""Feasibility surfaces in plain PyTorch: the [P, T] pod fit and
+feasibility masks, the [B, T] offering-availability mask and the bucket ->
+instance-type cost choice.
 
 These are the port's counterparts of the jitted programs in the JAX
 package's ops/feasibility.py. They run on whatever device their tensors lie
@@ -15,6 +16,23 @@ import torch
 
 _EPS = 1e-9
 _FIT_TOL = 1e-6
+
+
+def resource_fit(requests: torch.Tensor, caps: torch.Tensor) -> torch.Tensor:
+    """[P, T] bool: pod p fits an *empty* node of type t.
+
+    requests: [P, R] effective pod requests (daemon overhead NOT included —
+    the caller bakes overhead into caps); caps: [T, R] effective capacities
+    (resources - overhead - daemonset)."""
+    return (requests[:, None, :] <= caps[None, :, :] + _FIT_TOL).all(dim=-1)
+
+
+def feasibility_mask(requests: torch.Tensor, caps: torch.Tensor, compat: torch.Tensor, group_ids: torch.Tensor) -> torch.Tensor:
+    """[P, T] bool: resource fit AND label/taint/offering compatibility.
+
+    compat: [G, T] bool group compatibility rows; group_ids: [P] int."""
+    rows = compat.index_select(0, group_ids.to(torch.int64))  # [P, T]
+    return resource_fit(requests, caps) & rows.bool()
 
 
 def availability_counts(pair: torch.Tensor, cube: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,7 @@ provider (wrapped in the metrics decorator), cluster-state cache, and every
 controller; registers admission; runs reconciliation loops on threads with
 leader-election gating for the singleton loops (provisioning, lifecycle,
 disruption, gc, pricing refresh, interruption); answers the health and
-readiness probes and feeds the metrics registry.
+readiness probes and feeds the metrics registry and the recorders.
 
 Leader election in a single-process in-memory deployment degenerates to a
 local lock, but the gating seam is identical: followers run the state cache
@@ -14,12 +14,14 @@ and webhooks, only the leader provisions/consolidates (controllers.go:104).
 The port's copy of karpenter_tpu/runtime.py. The dense solver runs on the
 card (`device="cuda"`, the default; "cpu" runs the plain versions of the
 kernels): with dense_min_batch <= 0 the crossover is measured at boot by
-timing K1's probe round trip. Left out until their ROADMAP items come: the
-SLO accountant and its scraper, the flight recorder, journal and capsules,
-live profiling, the thread census and invariant monitor (A8b), the solver
-breaker and the informer-coherence witness (A7). Each option that would
-turn one of them on, or set the breaker's threshold or backoff away from
-its default, raises NotImplementedError at construction, naming its item.
+timing K1's probe round trip. The recorders run as in the reference: the
+flight recorder, the lifecycle journal, incident capsules, the SLO
+accountant and its scraper (whose ideal repack is a dense solve on the
+card), live profiling, the thread census, the invariant monitor and the
+informer-coherence witness. Left out until ROADMAP A7: the solver breaker
+and the HBM-pressure chunked dispatch. Each option that would turn one of
+them on, or set the breaker's threshold or backoff away from its default,
+raises NotImplementedError at construction, naming its item.
 
 Two deliberate differences from the reference (ROADMAP C), so that no
 failure hides behind a log line: a loop (or the post-election recovery)
@@ -48,7 +50,11 @@ from .controllers.termination import TerminationController
 from .events import DedupeRecorder, Recorder
 from .kube.cluster import KubeCluster
 from .logsetup import configure as configure_logging, get_logger, set_level
+from .capsule import CAPSULE
+from .flight import FLIGHT
+from .journal import JOURNAL
 from .metrics import REGISTRY
+from .slo import SLO
 from .tracing import TRACER
 from .utils.options import Options
 
@@ -56,13 +62,6 @@ log = get_logger("runtime")
 
 # option -> (is it on?, what it needs): each raises until its item is ported
 _UNPORTED = (
-    ("enable_solver_telemetry", lambda o: o.enable_solver_telemetry, "the solver flight recorder (flight.py, ROADMAP A8b)"),
-    ("enable_journal", lambda o: o.enable_journal, "the lifecycle journal (journal.py, ROADMAP A8b)"),
-    ("enable_capsules", lambda o: o.enable_capsules, "incident capsules (capsule.py, ROADMAP A8b)"),
-    ("enable_slo", lambda o: o.enable_slo, "SLO accounting (slo.py, ROADMAP A8b)"),
-    ("enable_profiling", lambda o: o.enable_profiling, "live profiling (profiling.py, ROADMAP A8b)"),
-    ("invariants_interval", lambda o: o.invariants_interval > 0, "the invariant monitor (invariants.py, ROADMAP A8b)"),
-    ("coherence_interval", lambda o: o.coherence_interval > 0, "the informer-coherence witness (kube/coherence.py, ROADMAP A7)"),
     ("solver_hbm_budget_bytes", lambda o: o.solver_hbm_budget_bytes != 0, "the HBM-pressure chunked dispatch (solver/faults.py, ROADMAP A7)"),
     ("solver_breaker_threshold", lambda o: o.solver_breaker_threshold != Options.solver_breaker_threshold, "the solver circuit breaker (solver/faults.py, ROADMAP A7)"),
     ("solver_breaker_backoff", lambda o: o.solver_breaker_backoff != Options.solver_breaker_backoff, "the solver circuit breaker (solver/faults.py, ROADMAP A7)"),
@@ -100,6 +99,34 @@ class Runtime:
             # controller pass land in one bounded ring served over
             # /debug/traces on the metrics port
             TRACER.enable(capacity=self.options.trace_ring_size)
+        if self.options.enable_solver_telemetry:
+            # the solver flight recorder (flight.py): per-solve shape/phase
+            # records, kernel-build attribution, device-memory gauges —
+            # served over /debug/solver on the metrics port
+            FLIGHT.enable(capacity=self.options.flight_ring_size)
+        if self.options.enable_journal:
+            # the lifecycle journal (journal.py): pod/node transition stream
+            # + the pending-latency waterfall over /debug/journal and
+            # /debug/waterfall. The watch hooks attach below, AFTER the kube
+            # backend exists but BEFORE the SLO accountant's (the journal's
+            # bound handler must complete a pod's waterfall before the SLO
+            # hook cross-feeds the observed pending duration into it)
+            JOURNAL.enable(capacity=self.options.journal_ring_size)
+            if self.options.journal_spool:
+                JOURNAL.set_spool(self.options.journal_spool, self.options.journal_spool_max_bytes)
+            JOURNAL.attach(self.kube)
+        if self.options.enable_capsules:
+            # incident capsules (capsule.py): the typed trigger bus + the
+            # SLO burn-rate monitor freeze every telemetry ring into one
+            # evidence bundle at /debug/capsules; enabled AFTER the rings
+            # it snapshots, clocked by this runtime's seam, polled by the
+            # metrics loop below
+            CAPSULE.enable(
+                spool=self.options.capsule_spool or None,
+                spool_max_bytes=self.options.capsule_spool_max_bytes,
+                debounce_seconds=self.options.capsule_debounce_seconds,
+                clock=self.kube.clock,
+            )
         self.config = Config(self.options.batch_max_duration, self.options.batch_idle_duration, self.options.log_level)
         # live log-level reload, the config-logging ConfigMap analog
         # (controllers.go:240-248): a config update re-levels the tree
@@ -112,6 +139,14 @@ class Runtime:
         self.cloud_provider = decorate(self.cloud_provider)
         webhooks.register(self.kube, self.cloud_provider)
         self.cluster = Cluster(self.kube, self.cloud_provider, clock=self.kube.clock)
+        # the residency auditor (--residency-audit-interval): it audits the
+        # dense solver's incremental engine, and /debug/residency serves it
+        # with or without a dense solver
+        self.auditor = None
+        if self.options.residency_audit_interval > 0:
+            from .solver.audit import ResidencyAuditor
+
+            self.auditor = ResidencyAuditor(interval=self.options.residency_audit_interval)
         if self.dense_solver is None and self.options.dense_solver_enabled:
             from .solver import DenseSolver
 
@@ -120,7 +155,7 @@ class Runtime:
                 from .solver.dense import measure_dense_crossover
 
                 min_batch = measure_dense_crossover(device=self.device)
-            incremental = auditor = None
+            incremental = None
             if self.options.solver_incremental:
                 # incremental solve engine (--solver-incremental): fed by the
                 # cluster state mirror's delta journal, so the engine and the
@@ -128,12 +163,8 @@ class Runtime:
                 from .solver.incremental import IncrementalEngine
 
                 incremental = IncrementalEngine(self.cluster.delta_journal, device=self.device)
-            if self.options.residency_audit_interval > 0:
-                from .solver.audit import ResidencyAuditor
-
-                auditor = ResidencyAuditor(interval=self.options.residency_audit_interval)
             self.dense_solver = DenseSolver(
-                min_batch=min_batch, device=self.device, incremental=incremental, auditor=auditor
+                min_batch=min_batch, device=self.device, incremental=incremental, auditor=self.auditor
             )
         remote_solver = None
         if self.options.solver_service_address:
@@ -224,6 +255,19 @@ class Runtime:
         self.pod_metrics = PodMetricsController(self.kube)
         self.provisioner_metrics = ProvisionerMetricsController(self.kube)
         self.node_metrics = NodeMetricsScraper(self.cluster)
+        # SLO accounting (slo.py): watch-driven pending/ready latency plus
+        # the cost scraper below, behind --enable-slo. The watch hooks are
+        # only attached when enabled, so a disabled runtime's bind path
+        # carries no SLO dispatch at all (disabled == free, like tracing)
+        from .controllers.metrics import SLOScraper
+
+        self.slo = SLO
+        self.slo_metrics = SLOScraper(
+            self.kube, self.cluster, self.cloud_provider, provisioner_controller=self.provisioner
+        )
+        if self.options.enable_slo:
+            SLO.enable()
+            SLO.attach(self.kube)
         # restart state reconstruction, phase 1: re-list the API into the
         # state cache (the informer re-list), so a successor process starts
         # from the API's truth
@@ -231,6 +275,7 @@ class Runtime:
         import socket
         import uuid
 
+        from .kube.coherence import COHERENCE
         from .kube.leaderelection import LeaseElector
 
         # hostname + random suffix, the client-go identity recipe — unique
@@ -241,6 +286,28 @@ class Runtime:
             lease_duration=self.options.lease_duration,
             renew_period=self.options.lease_renew_period,
         )
+        # informer-coherence witness: this runtime's state cache is under
+        # deep-compare for its whole life (the periodic loop only runs when
+        # --coherence-interval > 0, but registration is what lets harnesses
+        # run the teardown final_check); a stopped/crashed runtime
+        # deregisters in _detach_watchers
+        self._coherence_name = f"state.cluster/{identity}"
+        COHERENCE.register(self._coherence_name, self.cluster)
+        # thread census (invariants.py): every thread this runtime spawns —
+        # control loops, the provisioner batcher thread, the elector, the
+        # leader-recovery task — registers under this owner; stop()/crash()
+        # join-with-timeout then release(), and anything still alive at
+        # release is a straggler the invariant monitor counts until it dies
+        self._census_owner = f"runtime/{identity}"
+        # the invariant monitor loop (--invariants-interval): arm against
+        # this runtime's backend and sample on the interval. The generation
+        # token scopes the teardown: a stopped runtime disarms only the
+        # window IT armed, never a successor's
+        self._invariants_generation = None
+        if self.options.invariants_interval > 0:
+            from .invariants import MONITOR
+
+            self._invariants_generation = MONITOR.arm(self.kube, clock=self.kube.clock)
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         # exceptions that ended a loop or the recovery, first first
@@ -331,9 +398,12 @@ class Runtime:
                 else:
                     log.warning("leadership lost during recovery; gate stays closed for the ended term")
 
+        from .invariants import CENSUS
+
         self._recovery_thread = threading.Thread(
             target=self._guarded(recover_then_open, "leader-recovery"), name="leader-recovery", daemon=True
         )
+        CENSUS.register(self._census_owner, self._recovery_thread)
         self._recovery_thread.start()
 
     def _on_leadership_lost(self) -> None:
@@ -346,6 +416,8 @@ class Runtime:
         log.warning("leadership lost: singleton loops paused until re-elected")
 
     def start(self) -> None:
+        from .invariants import CENSUS
+
         if self.options.leader_elect:
             # Lease-based election (controllers.go:104-106): block until this
             # runtime holds karpenter-leader-election and has recovered; a
@@ -354,6 +426,7 @@ class Runtime:
                 on_started_leading=self._on_leadership_gained,
                 on_stopped_leading=self._on_leadership_lost,
             )
+            CENSUS.register(self._census_owner, self.elector.thread)
             while not self.elector.wait_for_leadership(timeout=0.5):
                 if self._stop.is_set():
                     return
@@ -373,6 +446,7 @@ class Runtime:
             self._recover()
             self._leader_active.set()
         self.provisioner.start()
+        CENSUS.register(self._census_owner, self.provisioner.thread)
         self._spawn(self._lifecycle_loop, "node-lifecycle")
         if self.options.gc_interval > 0:
             self._spawn(self._gc_loop, "gc")
@@ -391,10 +465,19 @@ class Runtime:
             # same leader gating: only the leader acts on interruption
             # notices (two replicas polling would double-provision)
             self._spawn(self._interruption_loop, "interruption")
+        if self.options.coherence_interval > 0:
+            self._spawn(self._coherence_loop, "coherence-witness")
+        if self.options.invariants_interval > 0:
+            self._spawn(self._invariants_loop, "invariant-monitor")
 
     def _shutdown(self, release_lease: bool) -> None:
         """The shared teardown: halt + join every runtime-owned thread
-        (loops, provisioner, recovery, elector) and detach the watchers."""
+        (loops, provisioner, recovery, elector), detach the watchers, then
+        release the census — any thread still alive after its join timeout
+        is logged as a straggler and stays under the invariant monitor's
+        watch until it dies."""
+        from .invariants import CENSUS, MONITOR
+
         self._stop.set()
         self._leader_active.clear()
         try:
@@ -409,9 +492,12 @@ class Runtime:
             self._recovery_thread.join(timeout=5)
         self.elector.stop(release=release_lease)
         self._detach_watchers()
-        stragglers = [t.name for t in self.threads() if t.is_alive()]
+        stragglers = CENSUS.release(self._census_owner)
         if stragglers:
             log.warning("runtime shutdown left straggler thread(s) alive: %s", stragglers)
+        if self._invariants_generation is not None:
+            MONITOR.disarm(self._invariants_generation)
+            self._invariants_generation = None
 
     def stop(self) -> None:
         """Graceful stop: tear down, release the lease, then re-raise the
@@ -434,6 +520,9 @@ class Runtime:
         to the shared KubeCluster: dispatch is synchronous on the mutating
         thread, so handlers surviving their Runtime would keep mirroring a
         dead control plane."""
+        from .kube.coherence import COHERENCE
+
+        COHERENCE.deregister(self._coherence_name)
         self.cluster.detach()
         self.reconciler.detach()
         if self._config_unwatch is not None:
@@ -454,7 +543,10 @@ class Runtime:
         return run
 
     def _spawn(self, target, name: str) -> None:
+        from .invariants import CENSUS
+
         thread = threading.Thread(target=self._guarded(target, f"{name} loop"), name=name, daemon=True)
+        CENSUS.register(self._census_owner, thread)
         thread.start()
         self._threads.append(thread)
 
@@ -486,11 +578,31 @@ class Runtime:
             self._pass("gc", self.gc.reconcile)
 
     def _metrics_loop(self) -> None:
-        # never leader-gated: followers keep serving metrics
+        # never leader-gated: followers keep serving metrics and SLO gauges
         while not self._stop.wait(timeout=5.0):
             self._pass("pod-metrics", self.pod_metrics.scrape)
             self._pass("provisioner-metrics", self.provisioner_metrics.scrape)
             self._pass("node-metrics", self.node_metrics.scrape)
+            if self.options.enable_slo:
+                self._pass("slo-metrics", self.slo_metrics.scrape)
+            if self.options.enable_capsules:
+                # drain the trigger bus + run the burn-rate monitor; never
+                # leader-gated — a follower's divergences are evidence too
+                self._pass("capsule-poll", CAPSULE.poll)
+
+    def _coherence_loop(self) -> None:
+        from .kube.coherence import COHERENCE
+
+        while not self._stop.wait(timeout=self.options.coherence_interval):
+            self._pass("coherence", COHERENCE.check)
+
+    def _invariants_loop(self) -> None:
+        # never leader-gated: a follower leaks threads/watches exactly like
+        # a leader, and the monitor is read-only over process state
+        from .invariants import MONITOR
+
+        while not self._stop.wait(timeout=self.options.invariants_interval):
+            self._pass("invariants", MONITOR.sample)
 
     def _pricing_loop(self) -> None:
         while not self._stop.wait(timeout=self.options.pricing_refresh_period):
@@ -544,7 +656,12 @@ class Runtime:
         self._pass("pod-metrics", self.pod_metrics.scrape)
         self._pass("provisioner-metrics", self.provisioner_metrics.scrape)
         self._pass("node-metrics", self.node_metrics.scrape)
+        if self.options.enable_slo:
+            self._pass("slo-metrics", self.slo_metrics.scrape)
 
     def provision_once(self):
-        with self.solve_duration.time():
-            return self.provisioner.trigger_and_wait()
+        from .profiling import maybe_profile_round
+
+        with maybe_profile_round(self.options.enable_profiling, "provision"):
+            with self.solve_duration.time():
+                return self.provisioner.trigger_and_wait()

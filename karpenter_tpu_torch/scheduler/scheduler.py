@@ -14,12 +14,12 @@ search), and only the remainder falls into the sequential relaxation loop.
 An exception from the dense solve propagates: the batch is never silently
 rescheduled on the host.
 
-The port's copy of karpenter_tpu/scheduler/scheduler.py, without the flight
-recorder's solve-latency feed (ROADMAP A8b).
+The port's copy of karpenter_tpu/scheduler/scheduler.py.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
@@ -27,6 +27,7 @@ from ..api import labels as lbl
 from ..api.objects import PREFER_NO_SCHEDULE, Pod
 from ..api.provisioner import Provisioner
 from ..cloudprovider.types import InstanceType
+from ..flight import FLIGHT
 from ..scheduling.nodetemplate import NodeTemplate
 from ..tracing import (
     DECISIONS,
@@ -144,7 +145,16 @@ class Scheduler:
 
     def solve(self, pods: Sequence[Pod]) -> SchedulingResults:
         with TRACER.span("solve", pods=len(pods), simulation=self.opts.simulation_mode) as sp:
+            # solver-latency SLO feed (flight.py): real solves only —
+            # simulation re-solves (consolidation / interruption / cost
+            # what-ifs) would pollute the quantiles campaigns score. One
+            # attribute read when telemetry is off.
+            observe = FLIGHT.enabled and not self.opts.simulation_mode
+            if observe:
+                t0 = time.perf_counter()
             results = self._solve(pods)
+            if observe:
+                FLIGHT.observe_solve_latency(time.perf_counter() - t0)
             sp.set(
                 new_nodes=len([n for n in results.new_nodes if n.pods]),
                 on_existing=sum(len(v.pods) for v in results.existing_nodes),

@@ -41,12 +41,17 @@ unset, it is INTERVAL at construction). Like the engine, it lives in the
 single-threaded provisioning loop; its counts are updated under a witnessed
 `solver.audit` lock, as the reference's are. A readback that fails raises
 out of the solve. Each auditor counts in plain attributes (`divergences`,
-`audits`, `heals`) and in the registry's families.
+`audits`, `heals`) and in the registry's families, whose process-wide sums
+the score helpers (`divergences_total`, `heals_total`,
+`audit_passes_total`) read. A divergence fires a `residency-divergence`
+incident capsule (capsule.py) when capsules are enabled. `routes(auditor)`
+serves one auditor's `stats()` at /debug/residency.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import logging
 import random
 import time
@@ -57,6 +62,7 @@ import torch
 
 from ..analysis.guards import guarded_by
 from ..analysis.witness import WITNESS
+from ..capsule import CAPSULE, TRIGGER_RESIDENCY
 from ..ir.encode import encode_warm_views
 from ..metrics import REGISTRY
 from ..ops.rebase import gather_rows
@@ -104,6 +110,19 @@ AUDIT_PASSES = REGISTRY.counter(
     " seeded row sample — or a full shadow — from cluster truth and compared"
     " it against the engine's resident state).",
 )
+
+
+def divergences_total() -> int:
+    """Sum of the divergence counter across kinds (score surface)."""
+    return int(sum(RESIDENCY_DIVERGENCES.values().values()))
+
+
+def heals_total() -> int:
+    return int(RESIDENCY_HEALS.value())
+
+
+def audit_passes_total() -> int:
+    return int(AUDIT_PASSES.value())
 
 
 def _row_digest(enc, i: int) -> str:
@@ -283,5 +302,70 @@ class ResidencyAuditor:
                 "journal_window": sorted(window) if window is not None else None,
                 "shadow": len(idx) == len(views),
             }
+            # capsule detail carries only transport-stable fields (kinds +
+            # counts): row names embed process-relative instance counters
+            if CAPSULE.enabled:
+                CAPSULE.trigger(TRIGGER_RESIDENCY, kinds=sorted(set(kinds)), rows=len(row_names))
         engine.invalidate("audit")
         return {"kinds": sorted(set(kinds)), "rows": row_names, "cube_stale": cube_stale}
+
+    # -- read surfaces -------------------------------------------------------
+
+    def stats(self) -> dict:
+        """The /debug/residency index document (an auditor that exists is
+        enabled: the port has no switch on it)."""
+        with self._lock:
+            return {
+                "enabled": True,
+                "interval": self.interval,
+                "sample_rows": SAMPLE_ROWS,
+                "shadow_every": SHADOW_EVERY,
+                "shadow_budget_bytes": SHADOW_BUDGET_BYTES,
+                "passes_seen": self.passes,
+                "audits": self.audits,
+                "divergences": dict(sorted(self.divergences.items())),
+                "heals": self.heals,
+                "clean_streak": self.clean_streak,
+                "rows_tracked": len(self._truth_digest),
+                "last_divergence": json.loads(json.dumps(self.last_divergence)),
+            }
+
+    def row_detail(self, name: str) -> Optional[dict]:
+        """Per-row shadow state for ?row= queries; None when the row was
+        never audited."""
+        with self._lock:
+            digest = self._truth_digest.get(name)
+            if digest is None:
+                return None
+            return {"row": name, "truth_digest": digest, "audits": self.audits}
+
+
+# -- HTTP route (ObservabilityServer extra routes) ----------------------------
+
+
+def _json(status, payload) -> tuple:
+    return status, "application/json; charset=utf-8", json.dumps(payload) + "\n"
+
+
+def routes(auditor: ResidencyAuditor) -> dict:
+    """The residency-auditor read surface of `auditor`, served from the
+    metrics listener (cmd/controller.py wires the Runtime's behind
+    --residency-audit-interval)."""
+
+    def residency_route(query: dict) -> tuple:
+        raw = (query.get("row") or [None])[0]
+        if raw is None:
+            return _json(200, auditor.stats())
+        detail = auditor.row_detail(raw)
+        if detail is None:
+            return _json(404, {"error": f"row {raw!r} has never been audited", "status": 404})
+        return _json(200, detail)
+
+    return {"/debug/residency": residency_route}
+
+
+def route_descriptions() -> dict:
+    """/debug-index descriptions, keyed like routes() (see tracing.py)."""
+    return {
+        "/debug/residency": "residency auditor: audit cadence/counters, divergences by kind, heal count, last divergence detail; ?row= per-row shadow digest",
+    }

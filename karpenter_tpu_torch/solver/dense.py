@@ -43,8 +43,9 @@ failure propagates.
 
 With tracing on, each solve records its phases (encode, fill, device with
 mask and assemble under it, commit) as child spans of the ambient solve
-span; the flight recorder's attributes on the device span are not ported
-(ROADMAP A8b).
+span. With the flight recorder on (flight.py), each solve appends one record:
+its shapes, phase deltas, fill routing, the kernel builds inside it and the
+card's memory after it.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ import torch
 from ..api import labels as lbl
 from ..api.objects import OP_IN, Pod
 from ..device import resolve_device
+from ..flight import FLIGHT
 from ..ir.encode import DenseProblem, GroupKind, catalog_key, catalog_pin, encode_catalog, encode_problem, resource_vector
 from ..ops.bucket_cost import bucket_cost_packed, load_catalog
 from ..ops.feasibility import availability_counts
@@ -271,6 +273,9 @@ class DenseSolver:
         # avail array, [T, Z*C] f32 device tensor)
         self._avail_cube_dev = None
         self.stats = DenseSolveStats()
+        # the flight record's dispatch surface of the solve in progress
+        # (flight.py; set only while the recorder is enabled)
+        self._flight_dispatch: Optional[dict] = None
         # per-solve memos (reset at each presolve; see _accepting_view_free)
         self._view_free_memo: Dict[int, Optional[np.ndarray]] = {}
         self._view_accepts_memo: Dict[tuple, bool] = {}
@@ -320,9 +325,21 @@ class DenseSolver:
         # reset the per-solve memos over (group, existing-view) queries
         self._view_free_memo.clear()
         self._view_accepts_memo.clear()
+        # flight recorder (flight.py): open the build-attribution window
+        # and snapshot cumulative stats so the record carries THIS solve's
+        # deltas. Both are gated — disabled telemetry allocates nothing.
+        flight_token = FLIGHT.begin_solve()
+        if flight_token is not None:
+            from dataclasses import replace as _stats_copy
+
+            stats_before = _stats_copy(self.stats)
+            self._flight_dispatch = None
 
         assemble_before = self.stats.assemble_seconds  # delta -> this solve's assemble child span
         mask_before = self.stats.mask_seconds  # delta -> this solve's mask child span
+        delta_before = self.stats.delta_apply_seconds  # incremental split of the assemble story
+        full_before = self.stats.full_encode_seconds
+        audit_before = self.stats.audit_seconds  # residency auditor's share of the fill phase
         t0 = time.perf_counter()
         zones = scheduler.topology.domains.get(lbl.LABEL_TOPOLOGY_ZONE, ())
         capacity_types = scheduler.topology.domains.get(lbl.LABEL_CAPACITY_TYPE, ())
@@ -428,6 +445,43 @@ class DenseSolver:
         leftover.extend(problem.pods[row] for row in fallback_rows)
         self.stats.pods_committed += committed
         self.stats.pods_to_host += len(leftover)
+        flight_record = None
+        if flight_token is not None and FLIGHT.enabled:
+            dispatch = self._flight_dispatch or {}
+            signature = {
+                **problem.shape_signature(),
+                "buckets": dispatch.get("buckets", len(buckets)),
+                "buckets_padded": dispatch.get("buckets_padded", len(buckets)),
+                "types_padded": dispatch.get("types_padded", problem.T),
+            }
+            stats = self.stats
+            flight_record = FLIGHT.complete_solve(
+                token=flight_token,
+                signature=signature,
+                dispatch=dispatch,
+                phases={
+                    "encode": stats.encode_seconds - stats_before.encode_seconds,
+                    "fill": stats.fill_seconds - stats_before.fill_seconds,
+                    "device": stats.device_seconds - stats_before.device_seconds,
+                    "mask": stats.mask_seconds - mask_before,
+                    "assemble": stats.assemble_seconds - assemble_before,
+                    "commit": stats.commit_seconds - stats_before.commit_seconds,
+                    "fill_device": stats.fill_device_seconds - stats_before.fill_device_seconds,
+                    "delta_apply": stats.delta_apply_seconds - delta_before,
+                    "full_encode": stats.full_encode_seconds - full_before,
+                    "audit_seconds": stats.audit_seconds - audit_before,
+                },
+                fill_routing={
+                    "fills_vectorized": stats.fills_vectorized - stats_before.fills_vectorized,
+                    "fills_host": stats.fills_host - stats_before.fills_host,
+                    "fill_pods_vectorized": stats.fill_pods_vectorized - stats_before.fill_pods_vectorized,
+                    "fill_pods_host": stats.fill_pods_host - stats_before.fill_pods_host,
+                },
+                pods_committed=committed,
+                pods_to_host=len(leftover),
+                duration=t3 - t0,
+                device=self.device,
+            )
         if TRACER.enabled:
             # the measured phase boundaries as completed child spans under the
             # ambient solve span (tracing.py record_span): the per-solve half
@@ -435,7 +489,18 @@ class DenseSolver:
             # per trace, not just aggregated per bench run
             TRACER.record_span("encode", t0, t_encoded - t0, {"pods": problem.P, "groups": len(problem.groups)})
             TRACER.record_span("fill", t_encoded, t1 - t_encoded, {"on_existing": existing_committed})
-            device_ctx = TRACER.record_span("device", t1, t2 - t1, {"buckets": len(buckets)})
+            device_attrs = {"buckets": len(buckets)}
+            if flight_record is not None:
+                # build/memory attribution on the span the drift hunts start
+                # from (the flight recorder's per-solve record carries the
+                # full detail keyed by the same solve)
+                device_attrs.update(
+                    recompiles=sum(flight_record.compiled_fns.values()),
+                    compile_seconds=round(flight_record.compile_seconds, 6),
+                    hbm_peak_bytes=flight_record.hbm_peak_bytes,
+                    flight_record=flight_record.id,
+                )
+            device_ctx = TRACER.record_span("device", t1, t2 - t1, device_attrs)
             mask = self.stats.mask_seconds - mask_before
             if mask > 0 and device_ctx is not None:
                 # offering-availability cube reduction (a device matmul at
@@ -1470,6 +1535,15 @@ class DenseSolver:
         """
         buckets = self._stack_dedicated_buckets(problem, buckets)
         B = len(buckets)
+        if FLIGHT.enabled:
+            # flight recorder: the dispatch surface, unpadded on both routes
+            self._flight_dispatch = {
+                "flavor": "cuda" if self.device.type == "cuda" else "plain",
+                "buckets": B,
+                "types": problem.T,
+                "buckets_padded": B,
+                "types_padded": problem.T,
+            }
         zone_index = {z: i for i, z in enumerate(problem.zones)}
         ct_index = {c: i for i, c in enumerate(problem.capacity_types)}
 

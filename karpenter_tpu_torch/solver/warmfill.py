@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ..api import labels as lbl
+from ..flight import FLIGHT
 from ..ir.encode import DenseProblem, GroupKind, WarmViewEncoding, encode_warm_views
 from ..ops.warmfill import warm_fill_counts_device
 from ..utils import resources as res
@@ -403,6 +404,10 @@ def _device_counts(plan_: WarmFillPlan, solver) -> Optional[np.ndarray]:
     # the incremental engine's resident buffer (solver/incremental.py), when
     # it produced the encoding: the kernel reads its first V rows in place
     counts, (stage, enqueue, wait) = admission_counts(plan_.sizes, plan_.enc.head0, solver, plan_.enc.head_dev)
+    if FLIGHT.enabled and solver.device.type == "cuda" and solver._flight_dispatch is None:
+        # K2 launched: the flight record names the card even where no
+        # bucket choice (K1) follows in this solve
+        solver._flight_dispatch = {"flavor": "cuda"}
     dt = stage + enqueue + wait
     solver.stats.device_seconds += dt
     solver.stats.fill_device_seconds += dt

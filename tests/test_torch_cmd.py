@@ -14,13 +14,15 @@
   raise, naming ROADMAP A12.
 - tests/test_e2e_process.py's two topology cases on both packages: an
   apiserver, the webhook process and the controller process wired only
-  through sockets (the port's controller through the CPU wrapper). The
-  deployment-shaped case leaves out its /metrics and capsule checks, which
-  wait for ROADMAP A8a and A8b.
+  through sockets (the port's controller through the CPU wrapper), the
+  deployment-shaped case with its /metrics and capsule checks; and its
+  capsule and residency debug surfaces of a real controller process
+  (:147, :201), on both packages.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import signal
@@ -140,8 +142,8 @@ class TestBuildKubeBackend:
 
 class TestControllerMain:
     def test_unported_flag_raises_before_binding(self):
-        with pytest.raises(NotImplementedError, match="enable_journal: .*ROADMAP A8b"):
-            controller.main(["--enable-journal", "--health-probe-port", "1"])
+        with pytest.raises(NotImplementedError, match="solver_breaker_threshold: .*ROADMAP A7"):
+            controller.main(["--solver-breaker-threshold", "5", "--health-probe-port", "1"])
 
     def test_without_a_card_the_runtime_raises(self, monkeypatch):
         import torch
@@ -290,18 +292,32 @@ def _node_types(client) -> list:
     return sorted(n.metadata.labels.get("node.kubernetes.io/instance-type") for n in client.list_nodes())
 
 
+def _fetch(port: int, path: str) -> tuple:
+    """(status, body) of one GET on 127.0.0.1; (None, "") while nothing
+    answers."""
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=2) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read().decode()
+    except OSError:
+        return None, ""
+
+
 def _deployment_shaped(s: _Side, procs: _Procs) -> dict:
-    """test_e2e_process.py:66 without its capsule checks (ROADMAP A8b): the
-    webhook registers itself against the apiserver, the controller serves
-    its probes and /metrics, admission enforces through the registered
-    objects, and the controller process provisions a pod."""
+    """test_e2e_process.py:66: the webhook registers itself against the
+    apiserver, the controller serves its probes, /metrics and the capsules'
+    debug surface (an empty index, 404-shaped JSON for a missing id),
+    admission enforces through the registered objects, and the controller
+    process provisions a pod."""
     srv = s.APIServer().start()
     procs.stops.append(srv.stop)
     health_port, metrics_port = _free_port(), _free_port()
     procs.spawn(s.webhook + ["--port", "0"], env_extra={"KUBERNETES_APISERVER_URL": srv.url})
     procs.spawn(
-        s.controller + ["--disable-dense-solver", "--batch-max-duration", "0.3", "--batch-idle-duration", "0.05",
-                        "--health-probe-port", str(health_port), "--metrics-port", str(metrics_port)],
+        s.controller + ["--disable-dense-solver", "--enable-capsules", "--batch-max-duration", "0.3",
+                        "--batch-idle-duration", "0.05", "--health-probe-port", str(health_port),
+                        "--metrics-port", str(metrics_port)],
         env_extra={"KUBERNETES_APISERVER_URL": srv.url},
     )
     client = s.HttpKubeClient(srv.url)
@@ -317,6 +333,14 @@ def _deployment_shaped(s: _Side, procs: _Procs) -> dict:
     assert _wait_for(lambda: _status(health_port, "/readyz") == 200, message="readyz")
     with urllib.request.urlopen(f"http://127.0.0.1:{metrics_port}/metrics", timeout=5) as resp:
         assert resp.status == 200 and "karpenter" in resp.read().decode()
+    code, body = _fetch(metrics_port, "/debug/capsules")
+    assert code == 200, body
+    capsules = json.loads(body)
+    assert capsules["enabled"] is True and capsules["capsules"] == []
+    assert {"captures_total", "suppressed", "spool_bytes"} <= set(capsules)
+    code, body = _fetch(metrics_port, "/debug/capsules?id=nope")
+    missing = json.loads(body)
+    assert code == 404 and missing["status"] == 404 and "nope" in missing["error"]
     with pytest.raises(s.ApiStatusError) as err:
         client.create(s.make_provisioner(name="bad", requirements=[s.bad_requirement]))
     client.create(s.make_provisioner())
@@ -372,6 +396,50 @@ def _full_topology(s: _Side, procs: _Procs) -> dict:
     lease = _wait_for(lambda: client.get("Lease", "karpenter-leader-election", "kube-system"), message="the election lease")
     assert lease.spec.holder_identity
     return {"rejected": err.value.code, "node_types": _node_types(client), "lease": (lease.metadata.name, lease.metadata.namespace)}
+
+
+# tests/test_e2e_process.py:147 and :201: a debug surface of a real
+# controller process, by its flags, route, 404 query key and what a healthy
+# controller's index holds
+DEBUG_SURFACES = {
+    "capsules": (
+        ["--enable-capsules"], "/debug/capsules", "id",
+        lambda doc: doc["enabled"] is True and doc["capsules"] == [] and doc["captures_total"] == 0
+        and {"suppressed", "spool_bytes", "burn_rate"} <= set(doc),
+    ),
+    "residency": (
+        ["--residency-audit-interval", "1"], "/debug/residency", "row",
+        lambda doc: doc["enabled"] is True and doc["interval"] == 1 and doc["divergences"] == {} and doc["heals"] == 0
+        and {"passes_seen", "audits", "clean_streak", "last_divergence"} <= set(doc),
+    ),
+}
+
+
+@pytest.mark.parametrize("surface", sorted(DEBUG_SURFACES))
+@pytest.mark.parametrize("side", ["ref", "port"])
+def test_controller_process_serves_debug_surface(side, surface, tmp_path):
+    s, procs = _Side(side), _Procs(tmp_path)
+    flags, route, key, healthy = DEBUG_SURFACES[surface]
+    try:
+        srv = s.APIServer().start()
+        procs.stops.append(srv.stop)
+        health_port, metrics_port = _free_port(), _free_port()
+        procs.spawn(
+            s.controller + ["--disable-dense-solver", *flags, "--batch-max-duration", "0.3", "--batch-idle-duration", "0.05",
+                            "--health-probe-port", str(health_port), "--metrics-port", str(metrics_port)],
+            env_extra={"KUBERNETES_APISERVER_URL": srv.url},
+        )
+        _wait_for(lambda: _fetch(metrics_port, route)[0] is not None, message="metrics listener")
+        code, body = _fetch(metrics_port, route)
+        assert code == 200, body
+        assert healthy(json.loads(body)), body
+        code, body = _fetch(metrics_port, f"{route}?{key}=nope")
+        missing = json.loads(body)
+        assert code == 404 and missing["status"] == 404 and "nope" in missing["error"]
+        code, body = _fetch(metrics_port, "/debug")
+        assert code == 200 and route in body
+    finally:
+        procs.close()
 
 
 @pytest.mark.parametrize("topology", [_deployment_shaped, _full_topology], ids=["deployment_shaped", "full"])

@@ -799,13 +799,6 @@ def test_options_bad_env_value_exits(monkeypatch):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("enable_solver_telemetry", True, "A8b"),
-    ("enable_journal", True, "A8b"),
-    ("enable_capsules", True, "A8b"),
-    ("enable_slo", True, "A8b"),
-    ("enable_profiling", True, "A8b"),
-    ("invariants_interval", 1.0, "A8b"),
-    ("coherence_interval", 1.0, "A7"),
     ("solver_hbm_budget_bytes", 1 << 30, "A7"),
     ("solver_breaker_threshold", 5, "A7"),
     ("solver_breaker_backoff", 60.0, "A7"),
@@ -814,6 +807,44 @@ def test_unported_option_raises_naming_its_item(option, value, item):
     kit = RKit("port")
     with pytest.raises(NotImplementedError, match=f"{option}: .*ROADMAP {item}"):
         kit.build(kit.KubeCluster(), kit.fake_provider(3), leader_elect=False, dense_solver_enabled=False, **{option: value})
+
+
+# each recorder option, and what shows that the Runtime turned it on
+RECORDER_OPTIONS = {
+    "enable_solver_telemetry": (True, lambda rt, m: m["flight"].FLIGHT.enabled),
+    "enable_journal": (True, lambda rt, m: m["journal"].JOURNAL.enabled),
+    "enable_capsules": (True, lambda rt, m: m["capsule"].CAPSULE.enabled),
+    "enable_slo": (True, lambda rt, m: m["slo"].SLO.enabled),
+    "enable_profiling": (True, lambda rt, m: rt.options.enable_profiling),
+    "invariants_interval": (0.2, lambda rt, m: m["invariants"].MONITOR.armed()),
+    "coherence_interval": (0.2, lambda rt, m: rt._coherence_name in m["kube.coherence"].COHERENCE.registered()),
+}
+
+
+@pytest.mark.parametrize("option", sorted(RECORDER_OPTIONS))
+def test_recorder_option_boots_the_runtime(option, runtimes):
+    """Each recorder option of ROADMAP A8b (and the coherence witness's)
+    turns its recorder on; the Runtime starts, runs its loops and stops
+    clean with it on."""
+    kit = RKit("port")
+    value, is_on = RECORDER_OPTIONS[option]
+    modules = {name: importlib.import_module(f"karpenter_tpu_torch.{name}") for name in ("flight", "journal", "capsule", "slo", "invariants", "kube.coherence")}
+    was = {name: getattr(modules[name], attr).enabled for name, attr in (("flight", "FLIGHT"), ("journal", "JOURNAL"), ("capsule", "CAPSULE"), ("slo", "SLO"))}
+    rt = runtimes(kit, kit.KubeCluster(), kit.fake_provider(3), leader_elect=False, dense_solver_enabled=False, **{option: value})
+    try:
+        assert is_on(rt, modules)
+        rt.start()
+        time.sleep(0.5)
+        assert rt.healthy()
+        rt.stop()
+        assert not [t.name for t in rt.threads() if t.is_alive()]
+        assert not modules["invariants"].MONITOR.armed()
+    finally:
+        for name, attr in (("flight", "FLIGHT"), ("journal", "JOURNAL"), ("capsule", "CAPSULE"), ("slo", "SLO")):
+            singleton = getattr(modules[name], attr)
+            if not was[name]:
+                singleton.disable()
+            singleton.reset()
 
 
 class TestNoHiddenFailure:

@@ -1,10 +1,10 @@
 """The metrics registry, the scrapers and the provider decorator on the port.
 
 - tests/test_runtime_metrics.py as written on the port (a port copy of the
-  module through `port_copy`), but for two kinds of case: TestProfilingSeam
-  waits for profiling.py (ROADMAP A8b), and test_leader_election_exclusive
-  tests the JAX package's in-process LeaderElector, which the port's
-  Runtime does not have (it elects through the Lease only);
+  module through `port_copy`; TestProfilingSeam's Runtime on the CPU), but
+  for test_leader_election_exclusive, which tests the JAX package's
+  in-process LeaderElector, which the port's Runtime does not have (it
+  elects through the Lease only);
 - tests/test_pricing_refresh.py's refresh through the metrics-decorated
   provider (`test_refresh_counts_via_metrics_decorated_provider`).
 """
@@ -20,6 +20,9 @@ _METRICS = port_copy(
     extra=(
         ("from tests.test_deprovisioning import DeprovEnv, owned_pod", "from karpenter_tpu_torch.testing import DeprovEnv, owned_pod"),
         ("from tests.env import Environment", "from karpenter_tpu_torch.testing import Environment"),
+        ("from karpenter_tpu_torch.runtime import LeaderElector, Runtime", "from karpenter_tpu_torch.runtime import Runtime"),
+        ("            options=Options(enable_profiling=True),\n", '            options=Options(enable_profiling=True),\n            device="cpu",\n'),
+        ("            LeaderElector._leader = None\n", ""),
     ),
 )
 TestRuntime = without(_METRICS.TestRuntime, "test_leader_election_exclusive")
@@ -27,6 +30,7 @@ TestMetricsRegistry = _METRICS.TestMetricsRegistry
 TestScrapers = _METRICS.TestScrapers
 TestOptions = _METRICS.TestOptions
 TestDeprovisioningMetricFamilies = _METRICS.TestDeprovisioningMetricFamilies
+TestProfilingSeam = _METRICS.TestProfilingSeam
 
 _PRICING = port_copy("test_pricing_refresh")
 clock = _PRICING.clock

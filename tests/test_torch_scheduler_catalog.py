@@ -59,16 +59,19 @@ def port_env_with(provisioners=None, instance_types_list=None, dense=False):
     return env
 
 
-def port_copy(name: str, extra=(), inject=None) -> types.ModuleType:
+def port_copy(name: str, extra=(), inject=None, optional=()) -> types.ModuleType:
     """tests/<name>.py executed with SUBSTITUTIONS, then the module's own
     `extra` (old, new) pairs, applied, as a module of its own; `inject`
-    names go into its namespace first."""
+    names go into its namespace first. `optional` pairs apply where their
+    old text occurs (a family of modules' shared substitutions)."""
     path = REPO / "tests" / f"{name}.py"
     source = path.read_text()
     for old, new in SUBSTITUTIONS:
         source = source.replace(old, new)
     for old, new in extra:
         assert old in source, f"tests/{name}.py: nothing to substitute for {old!r}"
+        source = source.replace(old, new)
+    for old, new in optional:
         source = source.replace(old, new)
     rest = source.replace("karpenter_tpu_torch", "")
     assert "karpenter_tpu." not in rest and "karpenter_tpu import" not in rest, f"tests/{name}.py: an import of the JAX package survived"
