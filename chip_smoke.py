@@ -107,6 +107,18 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     a planted device-corrupt divergence in the incremental engine's
     resident head that fires exactly one residency-divergence capsule,
     read back by `python -m karpenter_tpu_torch.cmd.capsule inspect`;
+    runtime_round_faulted (solver/faults.py) classifies four real faults
+    on the card (an allocation past the free memory, a device-side assert
+    in a child process, nvcc on a broken source, K1's shim given an
+    argument it rejects), then runs the same cell with the breaker at
+    threshold 3 and an injected device-lost plan at K1's "cuda" seam: three
+    rounds raise typed, the breaker opens (one breaker-open capsule, read
+    back), a round while it is open launches nothing and leaves every pod
+    pending, and after the backoff the recovery probe places the batch as
+    runtime_round did; then the cell with no plan, with a budget split
+    (--solver-hbm-budget 1: two K1 launches, bit-equal to one), the three
+    corruptions injected by plans (each found once and healed) and a mixed
+    plan's history twice, identical;
     solver_sidecar hands the
     overflow round's request, pickled as serve()'s gRPC handler takes it,
     to a SolverServer on the card (K2, then K1) and holds the plan equal to
@@ -308,6 +320,86 @@ print(json.dumps(out))
 """
 PROFILING_CHILD_TIMEOUT_S = 600.0
 LOOP_PASS_DEADLINE_S = 10.0
+RUNTIME_ROUND_FAULTED = ("runtime_round_faulted", HEADLINE_PODS, 300)
+FAULTED_THRESHOLD = 3  # the breaker opens on the third consecutive fault
+FAULTED_BACKOFF_S = 8.0  # long enough for the open breaker's checks, waited out by the phase
+FAULTED_JOURNAL_RING = 262144  # every pod's transitions over the faulted and recovered rounds
+FAULTED_OPEN_DEADLINE_S = 120.0
+FAULTED_NO_PLAN_RUNS = 2
+# the injected corruption kinds, their state seams and the audit finding each must give
+CORRUPTIONS = (
+    ("corrupt-device", "rebase", "device-corrupt"),
+    ("corrupt-row", "resident-row", "row-drift"),
+    ("suppress-delta", "journal-record", "missed-delta"),
+)
+CORRUPTION_NODES = 300
+# the determinism run: a mixed plan (seed 11) over a small warm cluster that
+# the batch overflows, so each solve consults the warm fill's seam and K1's
+FAULT_HISTORY_SPECS = (
+    {"kind": "hbm", "entry": "plain", "nth": 2},
+    {"kind": "kernel", "entry": "warmfill", "probability": 0.5},
+    {"kind": "device-lost", "entry": "cuda", "nth": 4},
+)
+FAULT_HISTORY_STEPS, FAULT_HISTORY_NODES, FAULT_HISTORY_PODS = 6, 10, 300
+# a child process whose CUDA context a device-side assert breaks: it prints
+# the kind classify() gives the error
+DEVICE_LOST_CHILD = r"""
+import json
+import torch
+from karpenter_tpu_torch.solver.faults import classify
+x = torch.zeros(8, device="cuda")
+try:
+    y = x[torch.tensor([1 << 20], device="cuda")]
+    torch.cuda.synchronize()
+    print(json.dumps({"kind": None, "error": "the out-of-range index raised nothing"}))
+except Exception as exc:
+    fault = classify(exc)
+    print(json.dumps({"kind": fault.kind if fault is not None else None, "type": type(exc).__name__, "error": str(exc)[:240]}), flush=True)
+"""
+# a child process whose Runtime's batch loop meets a device-side assert
+# inside the bucket choice (K1's wrapper, wrapped to index out of range on
+# the card first): a device-lost the card raised ends the loop
+# (solver/faults.py ends_the_loop), so healthy() turns false and a restart
+# gets a fresh context; the pods stay pending. It prints what it saw.
+DEVICE_LOST_RUNTIME_CHILD = r"""
+import json, os, time
+import torch
+from karpenter_tpu_torch import testing
+from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+from karpenter_tpu_torch.kube.cluster import KubeCluster
+from karpenter_tpu_torch.runtime import Runtime
+from karpenter_tpu_torch.solver import dense
+from karpenter_tpu_torch.solver.faults import BREAKER
+from karpenter_tpu_torch.utils.options import parse
+
+launch = dense.bucket_cost_packed
+
+def asserting(stats, caps, prices, allowed):
+    probe = torch.zeros(8, device=stats.device)
+    probe[torch.tensor([1 << 20], device=stats.device)].sum().item()
+    return launch(stats, caps, prices, allowed)
+
+dense.bucket_cost_packed = asserting
+kube = KubeCluster()
+kube.create(testing.make_provisioner())
+rt = Runtime(kube=kube, cloud_provider=FakeCloudProvider(instance_types(30)), options=parse(["--dense-min-batch", "1"]), device="cuda")
+rt.start()
+for i in range(40):
+    kube.create(testing.make_pod(name=f"lost-{i:02d}", requests={"cpu": "1"}))
+deadline = time.monotonic() + 120
+while time.monotonic() < deadline and rt.healthy():
+    time.sleep(0.05)
+err = rt.error
+print(json.dumps({
+    "healthy": rt.healthy(), "error": type(err).__name__ if err is not None else None,
+    "kind": getattr(err, "kind", None), "injected": getattr(err, "injected", None),
+    "loop_alive": bool(rt.provisioner.thread is not None and rt.provisioner.thread.is_alive()),
+    "pending": len(kube.pending_pods()), "nodes": len(kube.list_nodes()), "breaker": BREAKER.state,
+    "message": str(err)[:240],
+}), flush=True)
+os._exit(0)
+"""
+DEVICE_LOST_TIMEOUT_S = 180.0
 SIDECAR = ("solver_sidecar", HEADLINE_PODS, 300)
 SIDECAR_TRIALS = 3
 GRPC_TIMEOUT_S = 300.0
@@ -3445,6 +3537,602 @@ def runtime_round_recorded(dev, card_name, plain_line) -> dict:
     return line
 
 
+def real_faults(dev) -> dict:
+    """Four real faults on the card, each classified by solver/faults.py's
+    classify(): `hbm`, an allocation past torch.cuda.mem_get_info()'s free
+    bytes (freed again); `device-lost`, a device-side assert in a child
+    process (an out-of-range index on a cuda tensor, then a synchronize:
+    the context stays broken, so not in this one), and the same assert met
+    by a Runtime's batch loop in a second child, whose loop must end and
+    turn healthy() false (DEVICE_LOST_RUNTIME_CHILD); `compile`, nvcc run
+    through ops/_cuda_build.py on a one-line broken source in a temporary
+    directory (no library is built from it); `kernel`, K1's launch shim
+    given R = 9. The shim computes its own launch geometry (threads and
+    blocks within its bounds), so no grid it would reject can be passed
+    through it; R outside the instantiated 1..8 is the argument it
+    rejects, before any launch, with cudaErrorInvalidValue."""
+    import tempfile
+    from pathlib import Path
+
+    from karpenter_tpu_torch.ops import _cuda_build, bucket_cost
+    from karpenter_tpu_torch.solver.faults import classify
+
+    def kind_of(exc):
+        fault = classify(exc)
+        return {"kind": fault.kind if fault is not None else None, "type": type(exc).__name__, "error": str(exc)[:240]}
+
+    got = {}
+    free, total = torch.cuda.mem_get_info(dev)
+    try:
+        blob = torch.empty((free + (1 << 30),), dtype=torch.uint8, device=dev)
+        del blob
+        got["hbm"] = {"kind": None, "error": "the allocation succeeded"}
+    except Exception as exc:  # noqa: BLE001 - the fault under test
+        got["hbm"] = kind_of(exc)
+    torch.cuda.empty_cache()
+    got["hbm"]["free_bytes"], got["hbm"]["asked_bytes"] = int(free), int(free + (1 << 30))
+    got["hbm"]["free_after"] = int(torch.cuda.mem_get_info(dev)[0])
+
+    child = subprocess.run(
+        [sys.executable, "-c", DEVICE_LOST_CHILD], capture_output=True, text=True, timeout=DEVICE_LOST_TIMEOUT_S,
+        cwd=Path(__file__).resolve().parent,
+    )
+    lines = [line for line in child.stdout.splitlines() if line.startswith("{")]
+    got["device-lost"] = {**(json.loads(lines[-1]) if lines else {"kind": None, "error": child.stderr[-400:]}), "child_rc": child.returncode}
+    child = subprocess.run(
+        [sys.executable, "-c", DEVICE_LOST_RUNTIME_CHILD], capture_output=True, text=True, timeout=DEVICE_LOST_TIMEOUT_S,
+        cwd=Path(__file__).resolve().parent,
+    )
+    lines = [line for line in child.stdout.splitlines() if line.startswith("{")]
+    got["device-lost-runtime"] = {**(json.loads(lines[-1]) if lines else {"error": None, "stderr": child.stderr[-400:]}), "child_rc": child.returncode}
+
+    tmp = Path(tempfile.mkdtemp(prefix="karpenter-broken-"))
+    broken = _cuda_build.KernelLibrary("broken", lambda lib: None)
+    broken.source, broken.path = tmp / "broken.cu", tmp / "libbroken.so"
+    broken.source.write_text("this line is not CUDA C++;\n")
+    try:
+        broken.build()
+        got["compile"] = {"kind": None, "error": "nvcc built the broken source"}
+    except Exception as exc:  # noqa: BLE001 - the fault under test
+        got["compile"] = kind_of(exc)
+    got["compile"]["library_built"] = broken.path.exists()
+
+    lib = bucket_cost.LIBRARY.load()
+    B, T, R = 2, 4, 9
+    stats = torch.ones((2, B, R), dtype=torch.float32, device=dev)
+    caps = torch.ones((T, R), dtype=torch.float32, device=dev)
+    prices = torch.ones((T,), dtype=torch.float32, device=dev)
+    allowed = torch.ones((B, T), dtype=torch.bool, device=dev)
+    out = torch.empty((3, B), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bucket_cost_launch(stats.data_ptr(), caps.data_ptr(), prices.data_ptr(), allowed.data_ptr(), out.data_ptr(), B, T, R, stream)
+    got["kernel"] = {**kind_of(bucket_cost.launch_error(err)), "cuda_error": int(err), "how": "R = 9 through bucket_cost_launch"}
+    sync(dev)  # the context is healthy after it
+    return got
+
+
+def corruption_on_card(dev, kind: str, entry: str, spool) -> dict:
+    """One corruption kind injected by a FaultPlan (solver/faults.py) into a
+    persistent DenseSolver with the incremental engine and the residency
+    auditor on `dev`, over CORRUPTION_NODES standing nodes under one seeded
+    churn: warm passes until the next audit is a full shadow (every row
+    compared), then the plan (nth 1) at `entry` and one pass: corrupt-device
+    perturbs the rebased head on the card, corrupt-row a host-mirror row,
+    suppress-delta swallows the journal record of an out-of-band bind. The
+    pass must place its 8 pods; then one more pass (a full re-encode after
+    the heal). The capsule engine is polled after each pass, spooled under
+    `spool`."""
+    from pathlib import Path
+
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.capsule import CAPSULE, TRIGGER_RESIDENCY
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.controllers.state.cluster import Cluster
+    from karpenter_tpu_torch.kube.cluster import KubeCluster
+    from karpenter_tpu_torch.scheduler import build_scheduler
+    from karpenter_tpu_torch.solver import DenseSolver, audit
+    from karpenter_tpu_torch.solver.audit import ResidencyAuditor
+    from karpenter_tpu_torch.solver.faults import FAULTS, KIND_SUPPRESS_DELTA, FaultPlan, FaultSpec
+    from karpenter_tpu_torch.solver.incremental import IncrementalEngine
+
+    provider = FakeCloudProvider(instance_types(40))
+    kube = KubeCluster()
+    churn = testing.Churn(kube, PLANTED[1], f"c{kind[:3]}", min_nodes=8)
+    churn.seed_nodes(CORRUPTION_NODES)
+    cluster = Cluster(kube, None)
+    engine = IncrementalEngine(cluster.delta_journal, device=dev)
+    auditor = ResidencyAuditor(seed=3)
+    solver = DenseSolver(min_batch=1, device=dev, incremental=engine, auditor=auditor)
+    passes = []
+    advance = engine.advance
+
+    def logged(views, ckey):
+        adv = advance(views, ckey)
+        passes.append((adv.kind, adv.reason))
+        return adv
+
+    engine.advance = logged
+    CAPSULE.reset()
+    CAPSULE.enable(spool=str(spool))
+
+    def solve(step) -> int:
+        pods = testing.rename(
+            [testing.make_pod(labels={"app": "planted"}, requests={"cpu": 0.25, "memory": "256Mi"}) for _ in range(8)], f"c{kind[:3]}{step}"
+        )
+        scheduler = build_scheduler(
+            testing.campaign_provisioners(), provider, pods, cluster=cluster,
+            state_nodes=cluster.nodes_snapshot(), dense_solver=solver,
+        )
+        results = scheduler.solve(pods)
+        sync(dev)
+        CAPSULE.poll()
+        return sum(len(n.pods) for n in results.new_nodes) + sum(len(v.pods) for v in results.existing_nodes)
+
+    read_launches()
+    placed = [solve(0)]
+    step = 1
+    while step < 2 or auditor.audits % audit.SHADOW_EVERY != 0:
+        churn.step()
+        placed.append(solve(step))
+        step += 1
+    clean = {"divergences": dict(auditor.divergences), "capsules": CAPSULE.captures_total()}
+    plan = FaultPlan([FaultSpec(kind=kind, entry=entry, nth=1)])
+    FAULTS.install(plan)
+    try:
+        if kind == KIND_SUPPRESS_DELTA:
+            res = engine._resident
+            victim = next(n for n in res.names if n not in res.prev_dirty)
+            kube.create(testing.make_pod(
+                name=f"c{kind[:3]}-suppressed", labels={"app": "standing"}, requests={"cpu": 0.5, "memory": "512Mi"},
+                node_name=victim, phase="Running", unschedulable=False,
+            ))
+        else:
+            churn.step()
+        placed.append(solve(step))
+    finally:
+        FAULTS.clear()
+    heals = auditor.heals
+    churn.step()
+    placed.append(solve(step + 1))
+    launches = read_launches()
+    files = sorted(Path(spool).glob(f"CAPSULE_{TRIGGER_RESIDENCY}_*.json"))
+    return {
+        "kind": kind,
+        "entry": entry,
+        "standing_nodes": CORRUPTION_NODES,
+        "passes": len(placed),
+        "placed": placed,
+        "clean_before": clean,
+        "fired": plan.corruptions_fired(),
+        "history": plan.history(),
+        "divergences": dict(auditor.divergences),
+        "last_divergence_kinds": (auditor.last_divergence or {}).get("kinds"),
+        "last_divergence_fields": [f.get("fields") for f in (auditor.last_divergence or {}).get("findings", [])],
+        "heals": heals,
+        "pass_after_heal": list(passes[-1]),
+        "capsule_files": [f.name for f in files],
+        "launches": launches,
+    }
+
+
+def fault_history_run(dev) -> dict:
+    """One deterministic run of a mixed FaultPlan (seed 11) on the card:
+    FAULT_HISTORY_STEPS batches of FAULT_HISTORY_PODS one-CPU pods onto a
+    churning cluster of FAULT_HISTORY_NODES standing nodes through one
+    DenseSolver with the incremental engine (K2, then K1 for what
+    overflows), the breaker's threshold out of reach. Returns FAULTS.history(), each solve's outcome (placed pods or
+    the fault's kind) and the breaker's consecutive count."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.controllers.state.cluster import Cluster
+    from karpenter_tpu_torch.kube.cluster import KubeCluster
+    from karpenter_tpu_torch.scheduler import build_scheduler
+    from karpenter_tpu_torch.solver import DenseSolver
+    from karpenter_tpu_torch.solver.faults import BREAKER, FAULTS, FaultPlan, SolverFault
+    from karpenter_tpu_torch.solver.incremental import IncrementalEngine
+
+    provider = FakeCloudProvider(instance_types(40))
+    kube = KubeCluster()
+    churn = testing.Churn(kube, 9600, "fh", min_nodes=8)
+    churn.seed_nodes(FAULT_HISTORY_NODES)
+    cluster = Cluster(kube, None)
+    solver = DenseSolver(min_batch=1, device=dev, incremental=IncrementalEngine(cluster.delta_journal, device=dev))
+    BREAKER.reset()
+    BREAKER.configure(threshold=1000)
+    FAULTS.install(FaultPlan.from_specs([dict(s) for s in FAULT_HISTORY_SPECS], seed=11))
+    outcomes = []
+    try:
+        for step in range(FAULT_HISTORY_STEPS):
+            churn.step()
+            pods = testing.rename([testing.make_pod(requests={"cpu": 1, "memory": "2Gi"}) for _ in range(FAULT_HISTORY_PODS)], f"fh{step}")
+            scheduler = build_scheduler(
+                testing.campaign_provisioners(), provider, pods, cluster=cluster,
+                state_nodes=cluster.nodes_snapshot(), dense_solver=solver,
+            )
+            try:
+                results = scheduler.solve(pods)
+                outcomes.append(sum(len(n.pods) for n in results.new_nodes) + sum(len(v.pods) for v in results.existing_nodes))
+            except SolverFault as fault:
+                outcomes.append(fault.kind)
+            sync(dev)
+        history = FAULTS.plan.history()
+    finally:
+        FAULTS.clear()
+        consecutive = BREAKER.consecutive
+        BREAKER.reset()
+    return {"history": history, "outcomes": outcomes, "consecutive": consecutive}
+
+
+def faulted_runtime(dev, tag: str, spool, extra=()):
+    """runtime_round's cell (the headline batch, instance_types(500), 300
+    standing 16-CPU nodes, parse() defaults with the crossover measured)
+    with --enable-solver-telemetry --enable-journal --enable-capsules (its
+    spool under `spool`) --solver-incremental and the breaker at threshold
+    FAULTED_THRESHOLD, backoff FAULTED_BACKOFF_S, plus `extra` flags: its
+    store, pods, catalog, Runtime, instrumented env, the batch's names and
+    its write_batch."""
+    from types import SimpleNamespace
+
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.runtime import Runtime
+    from karpenter_tpu_torch.utils.options import parse
+
+    _name, pods_n, standing = RUNTIME_ROUND_FAULTED
+    kube, pods = runtime_store(pods_n, standing, tag)
+    catalog = instance_types(HEADLINE_TYPES)
+    options = parse([
+        "--dense-min-batch", "0", "--enable-solver-telemetry", "--enable-journal", "--enable-capsules",
+        "--capsule-spool", str(spool), "--journal-ring-size", str(FAULTED_JOURNAL_RING), "--solver-incremental",
+        "--solver-breaker-threshold", str(FAULTED_THRESHOLD), "--solver-breaker-backoff", str(FAULTED_BACKOFF_S), *extra,
+    ])
+    rt = Runtime(kube=kube, cloud_provider=FakeCloudProvider(catalog), options=options, device=dev)
+    env = SimpleNamespace(controller=rt.provisioner, solver=rt.dense_solver, kube=kube, cluster=rt.cluster)
+    names = {p.name for p in pods}
+
+    def write_batch():
+        t0 = time.perf_counter()
+        for pod in pods:
+            kube.create(pod)
+        return t0, time.perf_counter()
+
+    return kube, catalog, rt, env, names, write_batch
+
+
+def same_outcome(got, line) -> dict:
+    """A Runtime round's outcome against runtime_round's line."""
+    from collections import Counter
+
+    return {
+        "nodes_launched": len(got["launched"]) == line["nodes_launched"],
+        "launched_types": dict(sorted(Counter(t for t, *_rest in got["launched"]).items())) == line["launched_types"],
+        "pods_nominated_onto_standing": sum(len(n[1]) for n in got["standing"]) == line["pods_nominated_onto_standing"],
+        "price_per_hour": abs(got["price_per_hour"] - line["price_per_hour"]) <= 1e-6 * max(1.0, line["price_per_hour"]),
+    }
+
+
+def runtime_round_faulted(dev, card_name, plain_line) -> dict:
+    """The solver fault domain (solver/faults.py) on the card, through
+    runtime_round's cell at full width (faulted_runtime):
+
+    - real faults, each classified, and a Runtime whose batch loop ends on
+      a device-lost the card raised (real_faults);
+    - the breaker end to end: a FaultPlan of device-lost at the "cuda" seam
+      (K1's launch), nth 1, count 3, installed once the Runtime is built.
+      Three rounds raise typed (SolverDeviceLostError, counted 3 times), the
+      breaker opens (one transition, journaled, one breaker-open capsule read
+      back by cmd/capsule.py inspect with its fault_domain block). While it
+      is open a round the phase triggers raises SolverBreakerOpenError with
+      no encode and no K1/K2 launch, every pod stays pending, healthy()
+      stays true and the engine records fault-breaker. After the backoff
+      the half-open probe runs on the card (K2, then K1), closes the
+      breaker and nominates the batch; it is bound, and the outcome must be
+      `plain_line`'s; every K1/K2 call is held bit for bit;
+    - the same cell with no plan, FAULTED_NO_PLAN_RUNS times: its pod wait
+      beside runtime_round's, and its outcome;
+    - the budget split: the cell with --solver-hbm-budget 1 (below any peak
+      the recorder reads): K1 launches twice in the round, each half held
+      bit for bit, the halves' packed result bit-equal to one unsplit launch
+      on their operands, the outcome `plain_line`'s, degraded_solves
+      {rung="chunked"} 1 and the engine's pending invalidation
+      fault-chunked; each half's K1 device time beside the unsplit launch's,
+      and the bucket choice's device-memory peak from its host operands,
+      split against one launch (the split must hold less);
+    - corrupt-device, corrupt-row and suppress-delta injected by plans
+      (corruption_on_card), each found once as its kind, one
+      residency-divergence capsule, a full re-encode after the heal, no pod
+      lost;
+    - the same mixed plan and seed twice (fault_history_run): identical
+      FAULTS histories."""
+    import tempfile
+    from pathlib import Path
+
+    from karpenter_tpu_torch import capsule, flight, journal
+    from karpenter_tpu_torch.capsule import TRIGGER_BREAKER_OPEN, capsule_errors
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import faults
+    from karpenter_tpu_torch.solver.faults import (
+        BREAKER, BREAKER_TRANSITIONS, DEGRADED_SOLVES, FAULTS, KIND_DEVICE_LOST, RUNG_CHUNKED, SOLVER_FAULTS,
+        STATE_CLOSED, STATE_OPEN, FaultPlan, FaultSpec,
+    )
+    from karpenter_tpu_torch.utils.clock import Clock
+
+    name, pods_n, standing = RUNTIME_ROUND_FAULTED
+    JOURNAL, FLIGHT, CAPSULE = journal.JOURNAL, flight.FLIGHT, capsule.CAPSULE
+    work = Path(tempfile.mkdtemp(prefix="karpenter-faulted-"))
+    line = {"phase": name, "config": name, "card": card_name, "pods": pods_n, "standing_nodes": standing, "types": HEADLINE_TYPES}
+    try:
+        # 1. real faults on the card
+        line["real_faults"] = real_faults(dev)
+
+        # 2. the breaker, end to end, through the Runtime's rounds
+        for recorder in (JOURNAL, FLIGHT, CAPSULE):
+            recorder.reset()
+        spool = work / "breaker"
+        kube, catalog, rt, env, names, write_batch = faulted_runtime(dev, "rtf", spool)
+        outcomes, seen = [], []
+        provision = rt.provisioner.provision
+
+        def recorded_provision():
+            try:
+                results = provision()
+            except Exception as exc:
+                outcomes.append(type(exc).__name__)
+                raise
+            outcomes.append("ok")
+            return results
+
+        rt.provisioner.provision = recorded_provision
+        watching = threading.Event()
+
+        def watch_breaker():
+            last = None
+            while not watching.is_set():
+                state = BREAKER.state
+                if state != last:
+                    seen.append((state, time.perf_counter()))
+                    last = state
+                time.sleep(0.002)
+
+        watcher = threading.Thread(target=watch_breaker, name="breaker-watch", daemon=True)
+        counts_before = {k: SOLVER_FAULTS.value(kind=k) for k in faults.KINDS}
+        transitions_before = {s: BREAKER_TRANSITIONS.value(state=s) for s in (STATE_OPEN, "half-open", STATE_CLOSED)}
+        plan = FaultPlan([FaultSpec(kind=KIND_DEVICE_LOST, entry="cuda", nth=1, count=FAULTED_THRESHOLD)])
+        hold = {}
+
+        def faulted_batch():
+            """Create the batch, then, inside the backoff, the checks of the
+            open breaker."""
+            watcher.start()
+            FAULTS.install(plan)
+            t0, created = write_batch()
+            deadline = time.perf_counter() + FAULTED_OPEN_DEADLINE_S
+            while time.perf_counter() < deadline and not (BREAKER.state == STATE_OPEN and len(outcomes) >= FAULTED_THRESHOLD):
+                time.sleep(0.005)
+            t_open = time.perf_counter()
+            hold["faulted_round_launches"] = read_launches()
+            hold["outcomes_at_open"] = list(outcomes)
+            stats = rt.dense_solver.stats
+            batches, encode = stats.batches, stats.encode_seconds
+            rt.provisioner.trigger()  # a round while the breaker is open
+            while time.perf_counter() < deadline and len(outcomes) < FAULTED_THRESHOLD + 1:
+                time.sleep(0.005)
+            hold["held_round_ms"] = (time.perf_counter() - t_open) * 1e3
+            hold["launches"] = read_launches()
+            hold["batches"] = stats.batches - batches
+            hold["encode_seconds"] = stats.encode_seconds - encode
+            hold["state"] = BREAKER.state
+            hold["healthy"] = rt.healthy()
+            pending = [p for p in kube.list_pods() if p.name in names and not p.spec.node_name]
+            hold["pending"] = len(pending)
+            hold["nodes"] = len(kube.list_nodes())
+            hold["engine_pending_invalidation"] = rt.dense_solver.incremental._pending_invalidate
+            hold["retry_in_s"] = BREAKER.retry_at() - BREAKER.clock.now()
+            CAPSULE.poll()
+            files = sorted(spool.glob(f"CAPSULE_{TRIGGER_BREAKER_OPEN}_*.json"))
+            hold["capsule_files"] = [f.name for f in files]
+            if files:
+                doc = json.loads(files[0].read_text())
+                inspect = subprocess.run(
+                    [sys.executable, "-m", "karpenter_tpu_torch.cmd.capsule", "inspect", str(files[0])],
+                    capture_output=True, text=True, timeout=120, cwd=Path(__file__).resolve().parent,
+                )
+                hold["capsule"] = {
+                    "errors": capsule_errors(doc), "fault_domain": doc.get("fault_domain"),
+                    "detail": doc["capsule"]["detail"], "inspect_rc": inspect.returncode,
+                    "inspect_breaker": [l for l in inspect.stdout.splitlines() if l.startswith(("breaker", "faults"))],
+                }
+            return t0, created
+
+        def bind_batch(run):
+            t0 = time.perf_counter()
+            bound = bind_placed(kube, run["placed"])
+            return {"bound": bound, "t_bound": time.perf_counter(), "bind_ms": (time.perf_counter() - t0) * 1e3}
+
+        try:
+            run = drive_runtime_round(rt, env, dev, names, faulted_batch, RUNTIME_DEADLINE_S, before_stop=bind_batch)
+        finally:
+            watching.set()
+            watcher.join(timeout=5)
+            FAULTS.clear()
+        released, holds, got = runtime_reads(rt, kube, run, catalog, dev)
+        history = plan.history()
+        # the journal serves newest first
+        events = [e for e in reversed(JOURNAL.events(limit=FAULTED_JOURNAL_RING)) if e["kind"] == journal.KIND_SOLVER]
+        counted = {k: SOLVER_FAULTS.value(kind=k) - counts_before[k] for k in faults.KINDS if SOLVER_FAULTS.value(kind=k) != counts_before[k]}
+        transitions = {s: BREAKER_TRANSITIONS.value(state=s) - v for s, v in transitions_before.items()}
+        closes = [t for s, t in seen if s == STATE_CLOSED][1:]
+        t_closed = closes[0] if closes else None
+        bind = run["before_stop"]
+        breaker_line = {
+            "plan": [{"kind": KIND_DEVICE_LOST, "entry": "cuda", "nth": 1, "count": FAULTED_THRESHOLD}],
+            "threshold": FAULTED_THRESHOLD,
+            "backoff_s": FAULTED_BACKOFF_S,
+            "min_batch": rt.dense_solver.min_batch,
+            "round_outcomes": outcomes,
+            "history": history,
+            "faults_counted": counted,
+            "transitions": transitions,
+            "states_seen": [s for s, _t in seen],
+            "journal": {
+                "fault": [e.get("attrs") for e in events if e["event"] == "fault"],
+                "degraded": [e.get("attrs") for e in events if e["event"] == "degraded"],
+                "breaker": [e["event"] for e in events if e["event"].startswith("breaker-")],
+            },
+            "hold": hold,
+            "engine_invalidations": dict(rt.dense_solver.incremental.invalidations),
+            "probe_launches": run["launches"],
+            "nominated": len(run["nominated"] & names),
+            "bound": bind["bound"],
+            "bind_ms": bind["bind_ms"],
+            "closed_to_last_nomination_ms": (run["done"] - t_closed) * 1e3 if t_closed else None,
+            "closed_to_last_bind_ms": (bind["t_bound"] - t_closed) * 1e3 if t_closed else None,
+            "nodes_launched": len(got["launched"]),
+            "pods_nominated_onto_standing": sum(len(n[1]) for n in got["standing"]),
+            "price_per_hour": got["price_per_hour"],
+            "same_as_runtime_round": same_outcome(got, plain_line),
+            "kernel_holds": holds,
+            "broken": run["broken"],
+            "healthy": run["healthy"],
+            "lease_released": released,
+        }
+        line["breaker"] = breaker_line
+        line["kernel_launches"] = {k: hold["faulted_round_launches"][k] + hold["launches"][k] + run["launches"][k] for k in run["launches"]}
+
+        # 3. the same cell with no plan installed
+        no_plan = []
+        for i in range(FAULTED_NO_PLAN_RUNS):
+            kube2, catalog2, rt2, env2, names2, write2 = faulted_runtime(dev, f"rtn{i}", work / f"noplan{i}")
+            run2 = drive_runtime_round(rt2, env2, dev, names2, write2, RUNTIME_DEADLINE_S)
+            _released, holds2, got2 = runtime_reads(rt2, kube2, run2, catalog2, dev)
+            no_plan.append({
+                "pods_to_last_nomination_ms": (run2["done"] - run2["t0"]) * 1e3,
+                "nominated": len(run2["nominated"] & names2),
+                "launches": run2["launches"],
+                "same_as_runtime_round": same_outcome(got2, plain_line),
+                "held": all(h["identical"] for h in holds2) and bool(holds2),
+            })
+        line["no_plan"] = {"runs": no_plan, "runtime_round_pods_to_last_nomination_ms": plain_line["pods_to_last_nomination_ms"]}
+
+        # 4. the budget split
+        degraded_before = DEGRADED_SOLVES.value(rung=RUNG_CHUNKED)
+        kube3, catalog3, rt3, env3, names3, write3 = faulted_runtime(dev, "rts", work / "split", extra=("--solver-hbm-budget", "1"))
+        run3 = drive_runtime_round(rt3, env3, dev, names3, write3, RUNTIME_DEADLINE_S)
+        _released, holds3, got3 = runtime_reads(rt3, kube3, run3, catalog3, dev)
+        k1_calls = [c for c in run3["captures"] if c[0] == "bucket_type_cost"]
+        split = {"k1_calls": len(k1_calls), "halves": [int(c[1][0].shape[1]) for c in k1_calls]}
+        if len(k1_calls) == 2:
+            (stats_a, caps, prices, allowed_a), out_a = k1_calls[0][1], k1_calls[0][2]
+            (stats_b, _c, _p, allowed_b), out_b = k1_calls[1][1], k1_calls[1][2]
+            whole = (torch.cat([stats_a, stats_b], dim=1).contiguous(), caps, prices, torch.cat([allowed_a, allowed_b], dim=0).contiguous())
+            one = dense_module.bucket_cost_packed(*whole)
+            sync(dev)
+            split["packed_equal_to_one_launch"] = bool(torch.equal(torch.cat([out_a, out_b], dim=1), one))
+            split["shape"] = [int(whole[0].shape[1]), int(caps.shape[0]), int(caps.shape[1])]
+            split["half_device_ms"] = [
+                profiled_device_ms(functools.partial(dense_module.bucket_cost_packed, *c[1]), KERNEL_ITERS, "bucket_cost_kernel")[0]
+                for c in k1_calls
+            ]
+            split["unsplit_device_ms"], split["device_ms_missing"] = profiled_device_ms(
+                functools.partial(dense_module.bucket_cost_packed, *whole), KERNEL_ITERS, "bucket_cost_kernel"
+            )
+            # what the split bounds: the bucket choice's device memory from
+            # its host operands, one launch against the split's two
+            stats_np, allowed_np = whole[0].cpu().numpy(), whole[3].cpu().numpy()
+
+            def dispatch_peak_bytes(dispatch):
+                sync(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                dispatch()
+                sync(dev)
+                return int(torch.cuda.max_memory_allocated(dev) - base)
+
+            split["unsplit_peak_bytes"] = dispatch_peak_bytes(lambda: dense_module.bucket_cost_packed(
+                torch.from_numpy(stats_np).to(dev), caps, prices, torch.from_numpy(allowed_np).to(dev)
+            ))
+            split["split_peak_bytes"] = dispatch_peak_bytes(lambda: rt3.dense_solver._split_dispatch(stats_np, caps, prices, allowed_np))
+        split.update({
+            "launches": run3["launches"],
+            "degraded_chunked": DEGRADED_SOLVES.value(rung=RUNG_CHUNKED) - degraded_before,
+            "engine_pending_invalidation": rt3.dense_solver.incremental._pending_invalidate,
+            "flight_rungs": [r.rungs for r in FLIGHT.records()[-3:]],
+            "kernel_holds": holds3,
+            "same_as_runtime_round": same_outcome(got3, plain_line),
+            "nominated": len(run3["nominated"] & names3),
+        })
+        line["budget_split"] = split
+
+        # 5. the corruptions, injected by plans
+        line["corruptions"] = [
+            corruption_on_card(dev, kind, entry, work / f"corrupt-{kind}") for kind, entry, _found in CORRUPTIONS
+        ]
+
+        # 6. determinism
+        first, second = fault_history_run(dev), fault_history_run(dev)
+        line["determinism"] = {"first": first, "identical": first == second}
+    finally:
+        FAULTS.clear()
+        BREAKER.reset()
+        BREAKER.configure(threshold=3, backoff=30.0, clock=Clock())
+        for recorder in (JOURNAL, FLIGHT, CAPSULE):
+            recorder.disable()
+    emit(line)
+
+    real = line["real_faults"]
+    for kind in ("hbm", "device-lost", "compile", "kernel"):
+        check(real[kind]["kind"] == kind, f"{name}: the real {kind} fault classified as {real[kind]}")
+    check(not real["compile"]["library_built"], f"{name}: a library was built from the broken source")
+    lost = real["device-lost-runtime"]
+    check(
+        lost.get("error") == "SolverDeviceLostError" and lost.get("injected") is False and lost.get("healthy") is False
+        and lost.get("loop_alive") is False and lost.get("pending") == 40 and lost.get("nodes") == 0,
+        f"{name}: a device-lost the card raised did not end the batch loop: {lost}",
+    )
+    b = breaker_line
+    check(b["round_outcomes"][:FAULTED_THRESHOLD] == ["SolverDeviceLostError"] * FAULTED_THRESHOLD, f"{name}: the faulted rounds ended {b['round_outcomes']}")
+    check(b["round_outcomes"][FAULTED_THRESHOLD] == "SolverBreakerOpenError", f"{name}: the round while open ended {b['round_outcomes']}")
+    check(b["faults_counted"] == {KIND_DEVICE_LOST: FAULTED_THRESHOLD}, f"{name}: faults counted {b['faults_counted']}")
+    check(len(b["history"]) == FAULTED_THRESHOLD and all(h["entry"] == "cuda" for h in b["history"]), f"{name}: the plan fired {b['history']}")
+    check(b["transitions"] == {STATE_OPEN: 1, "half-open": 1, STATE_CLOSED: 1}, f"{name}: breaker transitions {b['transitions']}")
+    check(b["journal"]["breaker"] == ["breaker-opened", "breaker-half-open", "breaker-closed"], f"{name}: journaled {b['journal']['breaker']}")
+    check([f["kind"] for f in b["journal"]["fault"]] == [KIND_DEVICE_LOST] * FAULTED_THRESHOLD, f"{name}: journaled faults {b['journal']['fault']}")
+    check(any(d.get("reason") == "breaker-open" for d in b["journal"]["degraded"]), f"{name}: no breaker-open hold journaled")
+    h = b["hold"]
+    check(len(h["capsule_files"]) == 1, f"{name}: breaker-open capsules {h['capsule_files']}")
+    cap = h.get("capsule", {})
+    check(not cap.get("errors") and cap.get("inspect_rc") == 0, f"{name}: the breaker-open capsule did not read back: {cap}")
+    check((cap.get("fault_domain") or {}).get("breaker", {}).get("state") == STATE_OPEN, f"{name}: the capsule's fault_domain {cap.get('fault_domain')}")
+    check(h["state"] == STATE_OPEN and h["healthy"], f"{name}: while open the breaker was {h['state']}, healthy {h['healthy']}")
+    check(not any(h["launches"].values()) and h["batches"] == 0 and h["encode_seconds"] == 0.0, f"{name}: while open: launches {h['launches']}, batches {h['batches']}")
+    check(h["pending"] == pods_n and h["nodes"] == standing, f"{name}: while open {h['pending']} of {pods_n} pods pending, {h['nodes']} nodes")
+    check(h["engine_pending_invalidation"] == "fault-breaker", f"{name}: the engine's invalidation {h['engine_pending_invalidation']}")
+    check(b["engine_invalidations"].get("fault-breaker") == 1, f"{name}: the engine recorded {b['engine_invalidations']}")
+    check(b["probe_launches"]["bucket_type_cost"] >= 1 and b["probe_launches"]["warm_fill_counts"] >= 1, f"{name}: the probe launched {b['probe_launches']}")
+    check(b["states_seen"][-1] == STATE_CLOSED and b["closed_to_last_bind_ms"] is not None, f"{name}: the breaker went {b['states_seen']}")
+    check(b["nominated"] == pods_n and b["bound"] == pods_n, f"{name}: nominated {b['nominated']}, bound {b['bound']} of {pods_n}")
+    check(all(b["same_as_runtime_round"].values()), f"{name}: the recovered round differs from runtime_round: {b['same_as_runtime_round']}")
+    check(b["kernel_holds"] and all(x["identical"] for x in b["kernel_holds"]), f"{name}: a kernel call differs from its plain version")
+    check(not any(b["broken"].values()) and b["healthy"] and b["lease_released"], f"{name}: broken {b['broken']}, healthy {b['healthy']}")
+    for run in line["no_plan"]["runs"]:
+        check(run["nominated"] == pods_n and all(run["same_as_runtime_round"].values()) and run["held"], f"{name}: a round with no plan differs: {run}")
+    s = line["budget_split"]
+    check(s["k1_calls"] == 2 and s["launches"]["bucket_type_cost"] == 2, f"{name}: the budget split launched K1 {s['launches']} ({s['k1_calls']} calls)")
+    check(s.get("packed_equal_to_one_launch") is True, f"{name}: the split's packed result differs from one launch")
+    check(s.get("split_peak_bytes", 1 << 62) < s.get("unsplit_peak_bytes", 0), f"{name}: the split bounds no memory: {s.get('split_peak_bytes')} against {s.get('unsplit_peak_bytes')}")
+    check(s["kernel_holds"] and all(x["identical"] for x in s["kernel_holds"]), f"{name}: a split K1 call differs from its plain version")
+    check(s["degraded_chunked"] == 1 and s["engine_pending_invalidation"] == "fault-chunked", f"{name}: chunked {s['degraded_chunked']}, engine {s['engine_pending_invalidation']}")
+    check(all(s["same_as_runtime_round"].values()) and s["nominated"] == pods_n, f"{name}: the split round differs: {s['same_as_runtime_round']}")
+    for c, (_kind, _entry, found) in zip(line["corruptions"], CORRUPTIONS):
+        check(c["fired"] == 1 and c["divergences"] == {found: 1} and c["last_divergence_kinds"] == [found], f"{name}: {c['kind']} found as {c['divergences']}")
+        check(c["heals"] == 1 and c["pass_after_heal"] == ["full", "audit"], f"{name}: {c['kind']} healed {c['heals']}, then {c['pass_after_heal']}")
+        check(len(c["capsule_files"]) == 1 and c["clean_before"]["capsules"] == 0, f"{name}: {c['kind']} capsules {c['capsule_files']}")
+        check(all(p == 8 for p in c["placed"]), f"{name}: {c['kind']} lost pods: {c['placed']}")
+    d = line["determinism"]
+    check(d["identical"] and d["first"]["history"], f"{name}: the plan's histories differ or are empty: {d}")
+    return line
+
+
 def sidecar_plan(results) -> dict:
     """A launch plan by pod uid: each new node's instance types in price
     order and pods, the existing placements, the unschedulable pods and the
@@ -4582,6 +5270,11 @@ def main() -> int:
     # journal, the SLO accountant and its ideal repack through K1, the
     # capsules, profiling, the invariant monitor and the coherence witness
     recorded_line = runtime_round_recorded(dev, card_name, runtime_line)
+    # 12c'''. the solver fault domain: real faults classified, the breaker
+    # opened by injected faults at K1's seam, the batch held with no launch
+    # and recovered on the card, the budget split, the corruptions, the
+    # plans' determinism
+    faulted_line = runtime_round_faulted(dev, card_name, runtime_line)
     sidecar_line = solver_sidecar(dev, card_name)
 
     # 12d. the wire: the Runtime's cell over HTTP against an apiserver
@@ -4614,6 +5307,19 @@ def main() -> int:
             "compute_drift": recorded_line["compute_drift"]["launches"][kernel_name],
             "profiled_rounds": sum(a["launches"][kernel_name] for part in ("round_attempts", "live_attempts") for a in recorded_line["profiling"][part]),
             "planted_divergence": recorded_line["planted_divergence"]["launches"][kernel_name],
+        }
+
+    def faulted_launches(kernel_name):
+        """The fault-domain cell's launches of one kernel: the faulted
+        Runtime's window (the faulted rounds' K2, the held round's none and
+        the recovery probe's), the rounds with no plan, the budget split's
+        round and the corruption rigs' passes."""
+        return {
+            "runtime_round_faulted": faulted_line["kernel_launches"][kernel_name],
+            "held_round": faulted_line["breaker"]["hold"]["launches"][kernel_name],
+            "no_plan": [r["launches"][kernel_name] for r in faulted_line["no_plan"]["runs"]],
+            "budget_split": faulted_line["budget_split"]["launches"][kernel_name],
+            "corruptions": {c["kind"]: c["launches"][kernel_name] for c in faulted_line["corruptions"]},
         }
 
     def interruption_launches(kernel_name):
@@ -4688,6 +5394,7 @@ def main() -> int:
                 "runtime_launches": runtime_launches("bucket_type_cost"),
                 "traced_launches": traced_line["kernel_launches"]["bucket_type_cost"],
                 "recorded_launches": recorded_launches("bucket_type_cost"),
+                "faulted_launches": faulted_launches("bucket_type_cost"),
                 "sidecar_launches": sidecar_line["kernel_launches"]["bucket_type_cost"],
                 "sidecar_grpc_launches": sidecar_line["grpc"]["kernel_launches"]["bucket_type_cost"],
                 "http_launches": http_launches("bucket_type_cost"),
@@ -4722,6 +5429,7 @@ def main() -> int:
                 "runtime_launches": runtime_launches("warm_fill_counts"),
                 "traced_launches": traced_line["kernel_launches"]["warm_fill_counts"],
                 "recorded_launches": recorded_launches("warm_fill_counts"),
+                "faulted_launches": faulted_launches("warm_fill_counts"),
                 "sidecar_launches": sidecar_line["kernel_launches"]["warm_fill_counts"],
                 "sidecar_grpc_launches": sidecar_line["grpc"]["kernel_launches"]["warm_fill_counts"],
                 "http_launches": http_launches("warm_fill_counts"),

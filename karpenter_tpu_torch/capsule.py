@@ -61,10 +61,10 @@ Capture discipline (the part that keeps this subsystem honest):
   in-memory ring keeps serving `/debug/capsules`).
 
 The port's copy of karpenter_tpu/capsule.py. The solver fault domain
-(solver/faults.py) is ROADMAP A7's: until it is ported nothing emits
-breaker-open or host-rung, and a capsule document has no `fault_domain`
-block (it is not among the port's CAPSULE_KEYS). The steady-recompile
-trigger needs a committed solver contract (flight.py, ROADMAP A13).
+(solver/faults.py) emits breaker-open from inside the breaker's transition
+and fills the `fault_domain` block; nothing emits host-rung, since the port
+has no host rung. The steady-recompile trigger needs a committed solver
+contract (flight.py, ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -113,6 +113,7 @@ CAPSULE_KEYS = (
     "decisions",
     "journal",
     "flight",
+    "fault_domain",
     "locks",
     "slo",
     "burn_rate",
@@ -532,13 +533,14 @@ class CapsuleEngine:
     def _build(self, kind: str, detail: dict, fp: str, seq: int, now: float) -> dict:
         """Assemble one capsule document. Runs with NO capsule lock held:
         every block acquires its own subsystem's lock (tracer, journal,
-        flight), and the cross-links ride the ids those layers already
-        stamp on their records."""
+        flight, breaker), and the cross-links ride the ids those layers
+        already stamp on their records."""
         from . import flight as _flight
         from . import invariants as _invariants
         from . import journal as _journal
         from . import slo as _slo
         from . import tracing as _tracing
+        from .solver import faults as _faults
 
         trace_index = _tracing.TRACER.traces()[:CAPTURE_TRACES]
         trees = {}
@@ -570,6 +572,11 @@ class CapsuleEngine:
             "flight": {
                 "records": flight_records,
                 "last_record_id": _flight.FLIGHT.last_record_id(),
+            },
+            "fault_domain": {
+                "breaker": _faults.BREAKER.snapshot(),
+                "faults_total": _faults.faults_total(),
+                "degraded_total": _faults.degraded_total(),
             },
             "locks": WITNESS.snapshot(),
             "slo": _slo.SLO.snapshot(),

@@ -2,15 +2,13 @@
 
 A capsule (capsule.py) freezes every telemetry ring at the moment a trigger
 fired; this command reads the captured `CAPSULE_<trigger>_<seq>.json` back
-into the story a human debugs from — what fired, what the burn rates
-looked like, the pending-latency waterfall at capture time, and the fault
-timeline leading up to the trigger:
+into the story a human debugs from — what fired, what the burn rates and
+breaker looked like, the pending-latency waterfall at capture time, and the
+fault timeline leading up to the trigger:
 
-    python -m karpenter_tpu_torch.cmd.capsule inspect CAPSULE_residency-divergence_0001.json
+    python -m karpenter_tpu_torch.cmd.capsule inspect CAPSULE_breaker-open_0001.json
 
-The port's copy of karpenter_tpu/cmd/capsule.py. Its capsules carry no
-fault-domain block until solver/faults.py is ported (ROADMAP A7), so the
-breaker lines are not printed. `--replay` rebuilds the arrival schedule
+The port's copy of karpenter_tpu/cmd/capsule.py. `--replay` rebuilds the arrival schedule
 through scenarios/replay.py, which the port does not have yet (ROADMAP
 A10): it exits 2 and says so.
 """
@@ -46,6 +44,16 @@ def _print_burn(doc: dict) -> None:
         windows = burn[slo]
         row = "  ".join(f"{w}={windows.get(w, 0.0):.3f}" for w in ("fast", "slow"))
         print(f"  {slo:<16} {row}")
+
+
+def _print_fault_domain(doc: dict) -> None:
+    fd = doc.get("fault_domain") or {}
+    breaker = fd.get("breaker") or {}
+    print(
+        f"\nbreaker   state={breaker.get('state', '?')}  consecutive={breaker.get('consecutive_faults', '?')}"
+        f"  opened_total={breaker.get('opened_total', '?')}  last_fault={breaker.get('last_fault_kind') or '-'}"
+    )
+    print(f"faults    total={fd.get('faults_total', '?')}  degraded_solves={fd.get('degraded_total', '?')}")
 
 
 def _print_waterfall(doc: dict) -> None:
@@ -95,6 +103,7 @@ def inspect(path: str, replay: bool = False, compress: float = 1.0) -> int:
         return 1
     _print_header(doc)
     _print_burn(doc)
+    _print_fault_domain(doc)
     _print_waterfall(doc)
     _print_fault_timeline(doc)
     return 0

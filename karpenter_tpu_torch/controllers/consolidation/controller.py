@@ -171,6 +171,12 @@ class ConsolidationController:
         self._last_epoch = epoch
         return True
 
+    def retry_next_pass(self) -> None:
+        """Forget the epoch the last pass consumed: a pass a solver fault held
+        (solver/faults.py) evaluated nothing, so the next pass runs even
+        where the cluster has not changed since."""
+        self._last_epoch = -1
+
     # -- the pass --------------------------------------------------------------
 
     def process_cluster(self) -> ConsolidationAction:

@@ -27,10 +27,13 @@ launch-replacement -> drain-handoff (the root stays open across passes while
 a replacement initializes; tracing.py open_span/close_span).
 
 The port's copy of karpenter_tpu/controllers/disruption/controller.py. One
-deliberate difference: the reference logs and swallows an exception raised
-by a method's or consolidation's propose(); here it leaves reconcile(),
-since a what-if solve on the card can raise a kernel or device fault that
-must not hide behind a log line.
+deliberate difference: the reference logs and swallows any exception raised
+by a method's or consolidation's propose(). Here a solver fault
+(solver/faults.py: a `SolverFault`, an open breaker's included) ends that
+source's pass with no action, and the next tick retries it on the card; any
+other exception, a device-lost the card raised included
+(faults.ends_the_loop), leaves reconcile(), so it cannot hide behind a log
+line.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from ...cloudprovider.types import NodeRequest
 from ...events import Recorder
 from ...logsetup import get_logger
 from ...metrics import REGISTRY
+from ...solver.faults import SolverFault, ends_the_loop
 from ...tracing import TRACER
 from .budgets import BudgetTracker, allowed_disruptions
 from .eligibility import PDBLimits, pod_ineligible_reason
@@ -267,14 +271,26 @@ class DisruptionController:
     def _propose(self, pdb: PDBLimits) -> None:
         # busy nodes are excluded INSIDE the sources, before any
         # re-simulation — a queued/parked candidate must not be re-solved
-        # every pass only to be discarded at dedupe time. An exception from
-        # a source (a what-if solve on the card among them) leaves the pass.
+        # every pass only to be discarded at dedupe time. A solver fault in a
+        # source's what-if ends that source's pass with no action; any other
+        # exception leaves the pass.
         busy = frozenset(self._busy_nodes())
         commands: List[DisruptionCommand] = []
         for method in self.methods:
-            commands.extend(method.propose(busy))
+            try:
+                commands.extend(method.propose(busy))
+            except SolverFault as fault:
+                if ends_the_loop(fault):
+                    raise
+                log.warning("disruption method %s held by a %s fault; the next pass retries: %s", method.name, fault.kind, fault)
         if self.consolidation is not None and self.consolidation.should_run():
-            commands.extend(self.consolidation.propose(pdb, exclude=busy))
+            try:
+                commands.extend(self.consolidation.propose(pdb, exclude=busy))
+            except SolverFault as fault:
+                if ends_the_loop(fault):
+                    raise
+                self.consolidation.retry_next_pass()
+                log.warning("consolidation held by a %s fault; the next pass retries: %s", fault.kind, fault)
         busy = set(busy)
         eligible: Dict[str, int] = {}
         ineligible: Dict[str, int] = {}

@@ -32,12 +32,15 @@ actions_performed{action}, dead_letter_depth) make the loop observable.
 
 The port's copy of karpenter_tpu/controllers/interruption/controller.py. One
 deliberate difference: the reference logs and swallows any exception of a
-message's handling; here an exception raised by the proactive re-solve
-(`provisioner.schedule`, which runs the solve on the card) leaves
-poll_once(), after the victim's one-solve claim is cleared and with the
-message left undeleted for redelivery, so a kernel or device fault never
-hides behind a log line. Every other failure of a message's handling is
-still logged and left for redelivery.
+message's handling. Here, where the proactive re-solve
+(`provisioner.schedule`, which runs the solve on the card) raises, the
+victim's one-solve claim is cleared and the message is left undeleted for
+redelivery; a solver fault (solver/faults.py: a `SolverFault`, an open
+breaker's included) is logged, as the reference does, and the redelivered
+notice solves again on the card, while any other exception, a device-lost
+the card raised included (faults.ends_the_loop), leaves poll_once(), so it
+never hides behind a log line. Every other failure of a
+message's handling is still logged and left for redelivery.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from ...kube.cluster import KubeCluster
 from ...logsetup import get_logger
 from ...metrics import REGISTRY
 from ...scheduler import SchedulerOptions
+from ...solver.faults import SolverFault, ends_the_loop
 from ...tracing import TRACER
 from ...utils import pod as podutils
 from ..state.cluster import Cluster
@@ -136,8 +140,9 @@ class InterruptionController:
         -1 when the receive itself failed (so callers can back off instead
         of hammering a dead transport). Transport failures are survivable —
         the queue is at-least-once, so anything missed redelivers. An
-        exception of a proactive re-solve is raised here, after the rest of
-        the message's handling was skipped (it stays on the queue)."""
+        exception of a proactive re-solve other than a held solver fault
+        (faults.ends_the_loop) is raised here, after the rest of the message's handling was skipped
+        (it stays on the queue, as a solver fault's does)."""
         try:
             messages = self.queue.receive_messages(max_messages=self.MAX_MESSAGES, wait_seconds=wait_seconds)
         except Exception as err:  # noqa: BLE001 - the loop must outlive the transport
@@ -151,7 +156,11 @@ class InterruptionController:
                 fault = wrapped.__cause__
             except Exception:  # noqa: BLE001 - one bad message must not stall the rest
                 log.exception("handling interruption message %s failed; left for redelivery", message.message_id)
-            if fault is not None:
+            if isinstance(fault, SolverFault) and not ends_the_loop(fault):
+                log.warning(
+                    "interruption message %s held by a %s fault; left for redelivery: %s", message.message_id, fault.kind, fault
+                )
+            elif fault is not None:
                 raise fault
         try:
             self.dead_letter_depth.set(float(self.queue.dead_letter_depth()))

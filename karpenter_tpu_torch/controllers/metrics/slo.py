@@ -19,7 +19,11 @@ reference's two guards is kept (ROADMAP C, no fail-open around the card): a
 scrape that raises, the ideal solve's included, propagates out of
 `scrape()`, so the Runtime's metrics loop ends and `healthy()` turns false.
 An ideal solve that leaves pods unplaced is not an exception: the gauges
-stay unchanged and the epoch is retried, as in the reference.
+stay unchanged and the epoch is retried, as in the reference. Nor is an
+ideal solve a solver fault held (solver/faults.py: a `SolverFault`, an
+open breaker's included): the gauges stay unchanged and the next scrape
+retries on the card; a device-lost the card raised still ends the loop
+(faults.ends_the_loop).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Dict, Optional
 from ... import slo
 from ...api import labels as lbl
 from ...logsetup import get_logger
+from ...solver.faults import SolverFault, ends_the_loop
 from ...utils import pod as podutils
 
 log = get_logger("slo")
@@ -108,7 +113,8 @@ class SLOScraper:
         if not self.accountant.enabled:
             return
         # no guard: a failed scrape (a catalog fetch, the ideal solve on the
-        # card) ends the metrics loop and turns the Runtime unhealthy
+        # card) ends the metrics loop and turns the Runtime unhealthy; a
+        # solver fault the ideal solve holds is compute_drift's
         self._scrape()
 
     def _scrape(self) -> None:
@@ -157,7 +163,13 @@ class SLOScraper:
             slo.IDEAL_COST.set(0.0)
             slo.COST_DRIFT.set(1.0)
             return 1.0
-        results = self.provisioner_controller.schedule(pods, state_nodes=[], opts=SchedulerOptions(simulation_mode=True))
+        try:
+            results = self.provisioner_controller.schedule(pods, state_nodes=[], opts=SchedulerOptions(simulation_mode=True))
+        except SolverFault as fault:
+            if ends_the_loop(fault):
+                raise
+            log.warning("ideal repack held by a %s fault; drift gauge unchanged, the next scrape retries: %s", fault.kind, fault)
+            return None
         if results.unschedulable:
             log.warning(
                 "ideal repack left %d pods unplaced; drift gauge unchanged", len(results.unschedulable)

@@ -13,9 +13,13 @@ cluster-state nomination TTL prevent double-provisioning in the meantime.
 The port's copy of karpenter_tpu/controllers/provisioning/provisioner.py.
 Three deliberate differences from the reference:
 
-- its batch loop logs a failed round and goes on; the port's ends at the
-  first round that raises, keeps the exception in `error`, and `stop()`
-  re-raises it;
+- its batch loop logs a failed round and goes on; the port's holds the
+  batch on a solver fault (solver/faults.py: a `SolverFault`, an open
+  breaker's included): the pods stay Pending and the loop re-arms itself
+  for max(now, the breaker's reopen time), since no pod event will wake it,
+  and retries on the card. Any other exception, a device-lost the card
+  raised included (faults.ends_the_loop), ends the loop at that round,
+  stays in `error`, and `stop()` re-raises it;
 - its capacity-failure re-solve takes the cluster state as it stands,
   where the pods the round nominated are not yet bound, so it hands their
   capacity out again; the port's re-solve counts them on their nodes, in
@@ -44,6 +48,7 @@ from ...metrics import REGISTRY
 from ...cloudprovider.errors import InsufficientCapacityError
 from ...scheduler import SchedulerOptions, build_scheduler
 from ...scheduler.scheduler import SchedulingResults
+from ...solver.faults import BREAKER, SolverFault, ends_the_loop
 from ...tracing import DECISIONS, OUTCOME_FAILED, TRACER, DecisionRecord
 from ...utils import pod as podutils
 from ...utils import resources as res
@@ -119,6 +124,9 @@ class ProvisionerController:
         # pods waiting out an offering quarantine would stall until an
         # unrelated pod event happened to pull the batcher trigger
         self._unschedulable_retry_at: Optional[float] = None
+        # when a round held by a solver fault retries (its batch stays
+        # Pending); None while no round is held
+        self._fault_retry_at: Optional[float] = None
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -154,11 +162,20 @@ class ProvisionerController:
                 if self._stop.is_set():
                     return
                 self.clock.sleep(0.05)
+            self._fault_retry_at = None
             try:
                 self.provision()
             except Exception as exc:
-                # a failed round (among others, a solve on the card that
-                # raised) ends the loop instead of hiding behind a log line
+                if isinstance(exc, SolverFault) and not ends_the_loop(exc):
+                    self._fault_retry_at = max(self.clock.now(), BREAKER.retry_at())
+                    log.warning(
+                        "provisioning round held by a %s fault; the batch stays pending and retries on the device at %.3f: %s",
+                        exc.kind, self._fault_retry_at, exc,
+                    )
+                    continue
+                # any other failed round (among others, a device-lost the
+                # card raised: its context stays broken) ends the loop
+                # instead of hiding behind a log line
                 log.exception("provisioning round failed; the batch loop stops")
                 self.error = exc
                 return
@@ -167,6 +184,8 @@ class ProvisionerController:
         deadlines = list(self._ice_backoff.values())
         if self._unschedulable_retry_at is not None:
             deadlines.append(self._unschedulable_retry_at)
+        if self._fault_retry_at is not None:
+            deadlines.append(self._fault_retry_at)
         return min(deadlines) if deadlines else None
 
     def trigger(self) -> None:

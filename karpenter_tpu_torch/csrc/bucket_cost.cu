@@ -320,3 +320,8 @@ extern "C" int bucket_cost_launch(const void* stats, const void* caps, const voi
     if (err != cudaSuccess) return err;
     return launch_r(stats, caps, prices, allowed, out, B, T, R, default_geometry(B, T, sms), stream);
 }
+
+// The CUDA runtime's name and text for an error code the entry points
+// returned, for the wrapper's exception (ops/_cuda_build.py:describe).
+extern "C" const char* bucket_cost_error_name(int err) { return cudaGetErrorName(static_cast<cudaError_t>(err)); }
+extern "C" const char* bucket_cost_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

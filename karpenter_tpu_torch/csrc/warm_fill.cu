@@ -218,3 +218,8 @@ extern "C" int warm_fill_launch(const void* staged, int staged_head, void* sizes
 }
 
 extern "C" int warm_fill_wait(void* stream) { return cudaStreamSynchronize(static_cast<cudaStream_t>(stream)); }
+
+// The CUDA runtime's name and text for an error code the entry points
+// returned, for the wrapper's exception (ops/_cuda_build.py:describe).
+extern "C" const char* warm_fill_error_name(int err) { return cudaGetErrorName(static_cast<cudaError_t>(err)); }
+extern "C" const char* warm_fill_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

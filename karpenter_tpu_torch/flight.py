@@ -30,16 +30,18 @@ Three instruments, one bounded ring:
 - **device memory** — per-solve snapshots of the solver's device:
   on `cuda`, `torch.cuda.memory_stats(device)`'s
   `allocated_bytes.all.peak` and `allocated_bytes.all.current` (the
-  caching allocator's bytes handed to tensors, its high-water mark since
-  the process started or the last `reset_peak_memory_stats`); a solver on
-  the CPU reports (0, 0). Exported as `karpenter_solver_hbm_peak_bytes` /
+  caching allocator's bytes handed to tensors). The recorder resets the
+  high-water mark after each record's snapshot, so a record's peak is its
+  own solve's (from the previous record on), and the dense solver's
+  `--solver-hbm-budget` check reads the peak of the solve in flight. The
+  JAX package's peak is the process's. A solver on the CPU reports (0,
+  0). Exported as `karpenter_solver_hbm_peak_bytes` /
   `karpenter_solver_hbm_live_bytes` and stamped on each record.
 
-The port's copy of karpenter_tpu/flight.py. Left out until their ROADMAP
-items: the solver fault-domain block of `snapshot()` (solver/faults.py,
-A7), and the steady-recompile capsule cross-check against a committed
-solver contract (A13): `_committed_contracts()` is None, the reference's
-own "check disabled" path. The JAX package's SOLVER_CONTRACTS.json
+The port's copy of karpenter_tpu/flight.py. Left out until its ROADMAP
+item: the steady-recompile capsule cross-check against a committed solver
+contract (A13): `_committed_contracts()` is None, the reference's own
+"check disabled" path. The JAX package's SOLVER_CONTRACTS.json
 describes its XLA programs and is never read.
 
 Design constraints match tracing.py exactly:
@@ -198,8 +200,11 @@ class SolveRecord:
     recompile_attribution: List[str] = field(default_factory=list)
     hbm_peak_bytes: int = 0
     hbm_live_bytes: int = 0
-    # solver fault domain (solver/faults.py, ROADMAP A7): until it is
-    # ported a solve records {}, [], "closed" — a device fault propagates
+    # solver fault domain (solver/faults.py): classified device faults this
+    # solve hit (taxonomy kind -> count; a faulted solve's record is
+    # completed as the fault is raised), the rung it took ("chunked", the
+    # budget split), and the circuit-breaker state at record time — a
+    # healthy solve records {}, [], "closed"
     faults: Dict[str, int] = field(default_factory=dict)
     rungs: List[str] = field(default_factory=list)
     breaker: str = "closed"
@@ -320,6 +325,16 @@ class FlightRecorder:
         stats = torch.cuda.memory_stats(device)
         return int(stats["allocated_bytes.all.peak"]), int(stats["allocated_bytes.all.current"])
 
+    @staticmethod
+    def reset_hbm_peak(device=None) -> None:
+        """Restart the high-water mark hbm_snapshot() reads on a `cuda`
+        device at the bytes allocated now (torch.cuda.reset_peak_memory_stats);
+        a no-op for a solver on the CPU."""
+        import torch
+
+        if device is not None and torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+
     # -- the per-solve seam (dense.py) ----------------------------------------
 
     def begin_solve(self) -> Optional[dict]:
@@ -365,6 +380,7 @@ class FlightRecorder:
         for name, count in compiled.items():
             COMPILATIONS.inc(count, fn=name)
         peak, live = self.hbm_snapshot(device)
+        self.reset_hbm_peak(device)
         HBM_PEAK.set(float(peak))
         HBM_LIVE.set(float(live))
         waste = 0.0
@@ -453,8 +469,12 @@ class FlightRecorder:
 
     def snapshot(self) -> dict:
         """The /debug/solver index payload: newest-first record summaries
-        plus the process-wide build tallies. The reference's fault-domain
-        block comes with solver/faults.py (ROADMAP A7)."""
+        plus the process-wide build tallies and the solver fault-domain
+        state (taxonomy counters, degradation-ladder tallies, breaker)."""
+        # imported lazily: solver/__init__ pulls in the full dense solver,
+        # and this module must stay importable without it (gen_docs, tests)
+        from .solver.faults import BREAKER, DEGRADED_SOLVES, SOLVER_FAULTS
+
         records = self.records()
         events, seconds = _TALLY.snapshot()
         return {
@@ -468,6 +488,15 @@ class FlightRecorder:
             },
             "hbm_peak_bytes": int(HBM_PEAK.value()),
             "hbm_live_bytes": int(HBM_LIVE.value()),
+            "fault_domain": {
+                "breaker": BREAKER.snapshot(),
+                "faults_total": {
+                    (labels[0] or "unclassified"): int(value) for labels, value in SOLVER_FAULTS.values().items()
+                },
+                "degraded_solves_total": {
+                    (labels[0] or "unknown"): int(value) for labels, value in DEGRADED_SOLVES.values().items()
+                },
+            },
         }
 
 
@@ -511,5 +540,5 @@ def routes() -> dict:
 def route_descriptions() -> dict:
     """/debug-index descriptions, keyed like routes() (see tracing.py)."""
     return {
-        "/debug/solver": "solver flight recorder: per-solve shapes/phases, kernel-build attribution, device memory; ?id= detail",
+        "/debug/solver": "solver flight recorder: per-solve shapes/phases, kernel-build attribution, device memory, fault-domain breaker/ladder state; ?id= detail",
     }

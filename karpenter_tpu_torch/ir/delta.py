@@ -48,12 +48,13 @@ POD_REMOVED = "pod-removed"
 
 DELTA_KINDS = (NODE_ADDED, NODE_REMOVED, POD_BOUND, POD_REMOVED)
 
-# seeded corruption seam: when armed, record() consults this hook and — if
-# it answers True — SUPPRESSES the delta (no epoch bump, no ring entry),
-# modeling a missed journal event for the residency auditor's detection
-# proofs (solver/audit.py; the tests arm it directly). This module is an
-# import leaf, so an injector reaches in through a module global instead of
-# an import; None (the production state) keeps record() at one global read.
+# seeded corruption seam (solver/faults.py): when armed, record() consults
+# this hook and — if it answers True — SUPPRESSES the delta (no epoch bump,
+# no ring entry), modeling a missed journal event for the residency
+# auditor's detection proofs (solver/audit.py). FAULTS.install arms it for a
+# plan with suppress-delta specs and FAULTS.clear disarms it. This module is
+# an import leaf, so the injector reaches in through a module global instead
+# of an import; None (the production state) keeps record() at one global read.
 _corrupt_consult = None
 
 

@@ -4,7 +4,10 @@ Each kernel source csrc/<name>.cu exposes a plain C entry point. At first use
 it is compiled with nvcc for sm_90a into _build/lib<name>.so inside the
 package (git-ignored), and loaded once per process with ctypes. A library
 newer than its source is reused. Kernels launch on PyTorch's current stream,
-which the wrappers pass in.
+which the wrappers pass in. A failed build raises KernelBuildError; each
+source also exports <name>_error_name / <name>_error_string, the CUDA
+runtime's name and text for an error code, which `describe` reads so a
+launch error names the CUDA error and not a bare number.
 """
 
 from __future__ import annotations
@@ -31,6 +34,11 @@ NVCC_FLAGS = [
 BUILD_LISTENERS: List[Callable[[str, float], None]] = []
 
 
+class KernelBuildError(RuntimeError):
+    """nvcc (or ptxas under it) failed to build a kernel source, or there is
+    no nvcc: solver/faults.py classifies it as a compile fault."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -38,7 +46,7 @@ def _nvcc() -> str:
     default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
+    raise KernelBuildError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
 class KernelLibrary:
@@ -70,7 +78,7 @@ class KernelLibrary:
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {self.source.name} ({proc.returncode}):\n{proc.stderr}")
+                raise KernelBuildError(f"nvcc failed on {self.source.name} ({proc.returncode}):\n{proc.stderr}")
             os.replace(tmp, self.path)
             self.builds += 1
         finally:
@@ -80,6 +88,14 @@ class KernelLibrary:
             listener(self.name, seconds)
         return {"seconds": seconds, "built": True, "log": proc.stdout + proc.stderr}
 
+    def describe(self, err: int) -> str:
+        """A CUDA error code as the runtime names it: "cudaErrorX: its text
+        (CUDA error N)", from the library's exported accessors."""
+        lib = self.load()
+        name = getattr(lib, f"{self.name}_error_name")(err).decode()
+        text = getattr(lib, f"{self.name}_error_string")(err).decode()
+        return f"{name}: {text} (CUDA error {err})"
+
     def load(self) -> ctypes.CDLL:
         if self._lib is not None:
             return self._lib
@@ -87,6 +103,10 @@ class KernelLibrary:
             if self._lib is None:
                 self.build()
                 lib = ctypes.CDLL(str(self.path))
+                for accessor in ("error_name", "error_string"):
+                    fn = getattr(lib, f"{self.name}_{accessor}")
+                    fn.argtypes = [ctypes.c_int]
+                    fn.restype = ctypes.c_char_p
                 self._bind(lib)
                 self._lib = lib
         return self._lib

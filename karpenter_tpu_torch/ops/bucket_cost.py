@@ -8,7 +8,9 @@ called through ctypes on PyTorch's current stream.
 
 `bucket_cost_packed` takes the plain version (ops/feasibility.py) only for
 tensors that lie on the CPU; for CUDA tensors it launches the kernel or
-raises. `LAUNCHES` counts the kernel's launches.
+raises. Before the launch it consults the fault injector at the "cuda" seam
+(solver/faults.py); a launch error names the CUDA error. `LAUNCHES` counts
+the kernel's launches.
 """
 
 from __future__ import annotations
@@ -36,6 +38,12 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIBRARY = KernelLibrary("bucket_cost", _bind)
 SOURCE = LIBRARY.source
 build = LIBRARY.build
+
+
+def launch_error(err: int) -> RuntimeError:
+    """The exception for an error code the kernel's entry point returned,
+    naming the CUDA error (solver/faults.py classifies it by that name)."""
+    return RuntimeError(f"bucket_cost kernel launch failed: {LIBRARY.describe(err)}")
 
 
 def load_catalog(caps: np.ndarray, prices: np.ndarray, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -76,12 +84,15 @@ def bucket_cost_packed(stats: torch.Tensor, caps: torch.Tensor, prices: torch.Te
     out = torch.empty((3, B), dtype=torch.int32, device=device)
     if B == 0:
         return out
+    from ..solver.faults import FAULTS
+
+    FAULTS.check("cuda")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.bucket_cost_launch(
             stats.data_ptr(), caps.data_ptr(), prices.data_ptr(), allowed.data_ptr(), out.data_ptr(), B, T, R, stream
         )
     if err != 0:
-        raise RuntimeError(f"bucket_cost kernel launch failed: CUDA error {err}")
+        raise launch_error(err)
     LAUNCHES += 1
     return out

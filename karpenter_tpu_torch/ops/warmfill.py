@@ -26,7 +26,7 @@ on a CUDA device: the inputs up, the launch and the counts back in the one
 call into the kernel's library (`_launch`) that the wrapper also makes.
 Under the incremental engine the head is already resident on the card
 (`AdmissionSurface.counts_resident`): only the sizes go up. `LAUNCHES`
-counts the kernel's launches there.
+counts the kernel's launches there. A launch error names the CUDA error.
 """
 
 from __future__ import annotations
@@ -103,6 +103,12 @@ SOURCE = LIBRARY.source
 build = LIBRARY.build
 
 
+def launch_error(err: int, what: str = "kernel launch") -> RuntimeError:
+    """The exception for an error code the kernel's library returned,
+    naming the CUDA error (solver/faults.py classifies it by that name)."""
+    return RuntimeError(f"warm_fill {what} failed: {LIBRARY.describe(err)}")
+
+
 def _launch(device, S: int, V: int, R: int, sizes: int, head: int, out: int, staged=None, landed=None, staged_head=True) -> int:
     """The one call into the kernel's library, on `device`'s current stream:
     sizes [S, R], head [V, R] and out [S, V] are device pointers; `staged`
@@ -116,7 +122,7 @@ def _launch(device, S: int, V: int, R: int, sizes: int, head: int, out: int, sta
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.warm_fill_launch(staged, int(staged_head), sizes, head, out, landed, S, V, R, stream)
     if err != 0:
-        raise RuntimeError(f"warm_fill kernel launch failed: CUDA error {err}")
+        raise launch_error(err)
     LAUNCHES += 1
     return stream
 
@@ -222,6 +228,6 @@ class AdmissionSurface:
         with torch.cuda.device(self.device):
             err = LIBRARY.load().warm_fill_wait(stream)
         if err != 0:
-            raise RuntimeError(f"warm_fill round trip failed: CUDA error {err}")
+            raise launch_error(err, "round trip")
         t3 = time.perf_counter()
         return self._landed_np[: S * V].reshape(S, V), (t1 - t0, t2 - t1, t3 - t2)

@@ -18,10 +18,11 @@ timing K1's probe round trip. The recorders run as in the reference: the
 flight recorder, the lifecycle journal, incident capsules, the SLO
 accountant and its scraper (whose ideal repack is a dense solve on the
 card), live profiling, the thread census, the invariant monitor and the
-informer-coherence witness. Left out until ROADMAP A7: the solver breaker
-and the HBM-pressure chunked dispatch. Each option that would turn one of
-them on, or set the breaker's threshold or backoff away from its default,
-raises NotImplementedError at construction, naming its item.
+informer-coherence witness. The solver fault domain (solver/faults.py) is
+configured as in the reference: the process-wide circuit breaker takes the
+options' threshold and backoff and this runtime's clock, and the dense
+solver the HBM budget (its split launches K1 on each half of the bucket
+axis; nothing falls back from the card).
 
 Two deliberate differences from the reference (ROADMAP C), so that no
 failure hides behind a log line: a loop (or the post-election recovery)
@@ -55,26 +56,11 @@ from .flight import FLIGHT
 from .journal import JOURNAL
 from .metrics import REGISTRY
 from .slo import SLO
+from .solver.faults import BREAKER, SolverFault, ends_the_loop
 from .tracing import TRACER
 from .utils.options import Options
 
 log = get_logger("runtime")
-
-# option -> (is it on?, what it needs): each raises until its item is ported
-_UNPORTED = (
-    ("solver_hbm_budget_bytes", lambda o: o.solver_hbm_budget_bytes != 0, "the HBM-pressure chunked dispatch (solver/faults.py, ROADMAP A7)"),
-    ("solver_breaker_threshold", lambda o: o.solver_breaker_threshold != Options.solver_breaker_threshold, "the solver circuit breaker (solver/faults.py, ROADMAP A7)"),
-    ("solver_breaker_backoff", lambda o: o.solver_breaker_backoff != Options.solver_breaker_backoff, "the solver circuit breaker (solver/faults.py, ROADMAP A7)"),
-)
-
-
-def check_ported(options: Options) -> None:
-    """Raise NotImplementedError for the first set option whose feature the
-    port does not have yet."""
-    for name, is_on, needs in _UNPORTED:
-        if is_on(options):
-            raise NotImplementedError(f"{name}: {needs} is not ported yet")
-
 
 @dataclass
 class Runtime:
@@ -85,7 +71,6 @@ class Runtime:
     device: str = "cuda"
 
     def __post_init__(self):
-        check_ported(self.options)
         configure_logging(self.options.log_level)
         if self.options.enable_lock_witness:
             # must flip BEFORE any component constructs its locks below:
@@ -104,6 +89,15 @@ class Runtime:
             # records, kernel-build attribution, device-memory gauges —
             # served over /debug/solver on the metrics port
             FLIGHT.enable(capacity=self.options.flight_ring_size)
+        # solver circuit breaker (solver/faults.py): tune the process-wide
+        # breaker and re-wire its clock to this runtime's seam WITHOUT
+        # resetting state — the device is the same device across restarts,
+        # so a crash/restart inherits the open/closed history
+        BREAKER.configure(
+            threshold=self.options.solver_breaker_threshold,
+            backoff=self.options.solver_breaker_backoff,
+            clock=self.kube.clock,
+        )
         if self.options.enable_journal:
             # the lifecycle journal (journal.py): pod/node transition stream
             # + the pending-latency waterfall over /debug/journal and
@@ -164,7 +158,8 @@ class Runtime:
 
                 incremental = IncrementalEngine(self.cluster.delta_journal, device=self.device)
             self.dense_solver = DenseSolver(
-                min_batch=min_batch, device=self.device, incremental=incremental, auditor=self.auditor
+                min_batch=min_batch, device=self.device, incremental=incremental, auditor=self.auditor,
+                hbm_budget_bytes=self.options.solver_hbm_budget_bytes,
             )
         remote_solver = None
         if self.options.solver_service_address:
@@ -400,11 +395,18 @@ class Runtime:
 
         from .invariants import CENSUS
 
-        self._recovery_thread = threading.Thread(
+        thread = threading.Thread(
             target=self._guarded(recover_then_open, "leader-recovery"), name="leader-recovery", daemon=True
         )
-        CENSUS.register(self._census_owner, self._recovery_thread)
-        self._recovery_thread.start()
+        with self._gate_lock:
+            # published only once started, and never after the shutdown set
+            # the stop flag (under this lock): _shutdown joins a started
+            # thread or none
+            if self._stop.is_set():
+                return
+            CENSUS.register(self._census_owner, thread)
+            thread.start()
+            self._recovery_thread = thread
 
     def _on_leadership_lost(self) -> None:
         """Elector callback, on the lost transition: close the gate FIRST —
@@ -478,7 +480,8 @@ class Runtime:
         watch until it dies."""
         from .invariants import CENSUS, MONITOR
 
-        self._stop.set()
+        with self._gate_lock:
+            self._stop.set()
         self._leader_active.clear()
         try:
             self.provisioner.stop()
@@ -561,7 +564,22 @@ class Runtime:
     def _consolidation_loop(self) -> None:
         while not self._stop.wait(timeout=ConsolidationController.POLL_INTERVAL):
             if self._may_act() and self.consolidation.should_run():
-                self._pass("consolidation", self.consolidation.process_cluster)
+                self._pass("consolidation", self._consolidate)
+
+    def _consolidate(self):
+        """The consolidation pass of a Runtime without the orchestrator
+        (--disable-disruption). A solver fault in its what-if
+        (solver/faults.py) ends the pass with no action and the next pass
+        retries on the card, as the orchestrator's source does; a
+        device-lost the card raised (faults.ends_the_loop) ends the loop."""
+        try:
+            return self.consolidation.process_cluster()
+        except SolverFault as fault:
+            if ends_the_loop(fault):
+                raise
+            self.consolidation.retry_next_pass()
+            log.warning("consolidation held by a %s fault; the next pass retries: %s", fault.kind, fault)
+            return None
 
     def _disruption_loop(self) -> None:
         from .controllers.disruption import DisruptionController
@@ -652,7 +670,7 @@ class Runtime:
         if self.disruption is not None:
             self._pass("disruption", self.disruption.reconcile)
         elif self.consolidation.should_run():
-            self._pass("consolidation", self.consolidation.process_cluster)
+            self._pass("consolidation", self._consolidate)
         self._pass("pod-metrics", self.pod_metrics.scrape)
         self._pass("provisioner-metrics", self.provisioner_metrics.scrape)
         self._pass("node-metrics", self.node_metrics.scrape)

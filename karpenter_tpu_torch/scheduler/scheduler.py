@@ -12,7 +12,9 @@ pods the dense path placed feasibly are committed wholesale through the exact
 host-side add() protocol in the solver-chosen order (cheap — one pass, no
 search), and only the remainder falls into the sequential relaxation loop.
 An exception from the dense solve propagates: the batch is never silently
-rescheduled on the host.
+rescheduled on the host. The boundary counts it into the solver fault
+taxonomy first (solver/faults.py): its kind where a seam has not counted it
+already, 'unclassified' where classify has no name for it.
 
 The port's copy of karpenter_tpu/scheduler/scheduler.py.
 """
@@ -170,7 +172,18 @@ class Scheduler:
         # them through the exact host protocol; the host loop below takes
         # the pods it returns
         if self.dense_solver is not None:
-            queue_pods = self.dense_solver.presolve(self, queue_pods)
+            try:
+                queue_pods = self.dense_solver.presolve(self, queue_pods)
+            except Exception as exc:
+                # counted, then raised: a new failure mode cannot hide
+                from ..solver.faults import KIND_UNCLASSIFIED, SOLVER_FAULTS, classify, count_fault
+
+                fault = classify(exc)
+                if fault is None:
+                    SOLVER_FAULTS.inc(kind=KIND_UNCLASSIFIED)
+                else:
+                    count_fault(fault)
+                raise
 
         q = Queue(queue_pods)
         while True:

@@ -39,7 +39,11 @@ opened node (scheduler.go:263-284).
 
 Pods whose constraints the dense IR can't express return to the caller for
 the exact host loop. Nothing here falls back from the device: a device
-failure propagates.
+failure is classified (solver/faults.py), counted, journaled, recorded into
+the circuit breaker and raised typed; an open breaker raises before any
+encode or launch. The one degraded rung is planned before any launch: over
+the --solver-hbm-budget the bucket choice runs as two K1 launches, one per
+half of the bucket axis.
 
 With tracing on, each solve records its phases (encode, fill, device with
 mask and assemble under it, commit) as child spans of the ambient solve
@@ -63,6 +67,7 @@ from ..api.objects import OP_IN, Pod
 from ..device import resolve_device
 from ..flight import FLIGHT
 from ..ir.encode import DenseProblem, GroupKind, catalog_key, catalog_pin, encode_catalog, encode_problem, resource_vector
+from ..journal import JOURNAL
 from ..ops.bucket_cost import bucket_cost_packed, load_catalog
 from ..ops.feasibility import availability_counts
 from ..ops.warmfill import AdmissionSurface
@@ -71,6 +76,17 @@ from ..scheduling.requirements import Requirements
 from ..tracing import TRACER
 from ..utils import resources as res
 from ..utils.options import DENSE_MIN_BATCH_DEFAULT as MIN_BATCH_DEFAULT
+from .faults import (
+    BREAKER,
+    DEGRADED_SOLVES,
+    FAULTS,
+    KIND_DEVICE_LOST,
+    RUNG_CHUNKED,
+    SolverBreakerOpenError,
+    SolverFault,
+    classify,
+    count_fault,
+)
 
 log = logging.getLogger("karpenter_tpu_torch.solver")
 
@@ -260,15 +276,28 @@ class DenseSolver:
     resident across passes and applies the cluster journal's delta instead
     of re-encoding; None = fresh encode every pass. Simulation re-solves
     always bypass it. `auditor` is a ResidencyAuditor (solver/audit.py)
-    that checks the engine's resident state each pass it is due."""
+    that checks the engine's resident state each pass it is due.
 
-    def __init__(self, min_batch: int = MIN_BATCH_DEFAULT, device="cuda", incremental=None, auditor=None):
+    `hbm_budget_bytes` is the pre-solve device-memory budget
+    (--solver-hbm-budget; 0 = none): while the flight recorder is on and its
+    `torch.cuda.memory_stats` peak exceeds it, the bucket choice launches K1
+    once per half of the bucket axis (the 'chunked' rung)."""
+
+    # the budget split's halves of the bucket axis
+    _CHUNK_SPLIT = 2
+
+    def __init__(self, min_batch: int = MIN_BATCH_DEFAULT, device="cuda", incremental=None, auditor=None, hbm_budget_bytes: int = 0):
         self.min_batch = min_batch
         self.device = resolve_device(device)
         if incremental is not None and incremental.device != self.device:
             raise ValueError(f"the incremental engine runs on {incremental.device}, the solver on {self.device}")
         self.incremental = incremental
         self.auditor = auditor
+        # the solver fault domain (faults.py): the pre-solve budget, and this
+        # solve's classified faults and rungs for the flight record
+        self.hbm_budget_bytes = int(hbm_budget_bytes)
+        self._solve_faults: Dict[str, int] = {}
+        self._solve_rungs: List[str] = []
         # the catalog's availability cube resident on the device, as (host
         # avail array, [T, Z*C] f32 device tensor)
         self._avail_cube_dev = None
@@ -320,6 +349,25 @@ class DenseSolver:
             return pods
         if not any(scheduler.instance_types.get(t.provisioner_name) for t in scheduler.node_templates):
             return pods
+        # solver fault domain (faults.py): an OPEN breaker holds the batch —
+        # no encode, no launch, and no host loop takes it — until a half-open
+        # probe re-admits the device. Simulation re-solves share the state
+        # (they are held too) but never become the probe.
+        sim = bool(scheduler.opts.simulation_mode)
+        FAULTS.set_simulation(sim)  # this thread's seams bypass injection for what-ifs
+        if not BREAKER.admit(simulation=sim):
+            kind = BREAKER.last_fault_kind or KIND_DEVICE_LOST
+            if not sim:
+                # the device is suspect and the journal checkpoint goes stale
+                # while batches are held: the first re-admitted pass must be
+                # a clean full re-encode
+                if self.incremental is not None:
+                    self.incremental.invalidate("fault-breaker")
+                if JOURNAL.enabled:
+                    JOURNAL.solver_event("dense", "degraded", reason="breaker-open", kind=kind)
+            raise SolverBreakerOpenError(kind, f"solver circuit breaker open after {kind} faults: the batch is held for the recovery probe")
+        self._solve_faults = {}
+        self._solve_rungs = []
         self.stats.batches += 1
         self.stats.pods_in += len(pods)
         # reset the per-solve memos over (group, existing-view) queries
@@ -371,6 +419,7 @@ class DenseSolver:
         leftover = list(problem.host_pods)
         if problem.P == 0:
             self.stats.pods_to_host += len(leftover)
+            BREAKER.record_success(simulation=sim)
             return leftover
 
         defer_spread = bool(scheduler.existing_nodes)
@@ -379,9 +428,15 @@ class DenseSolver:
         existing_committed = 0
         taken = None
         if scheduler.existing_nodes:
-            existing_committed, taken, placed_extras = self._fill_existing(
-                scheduler, problem, buckets, extra_pods=leftover
-            )
+            try:
+                existing_committed, taken, placed_extras = self._fill_existing(
+                    scheduler, problem, buckets, extra_pods=leftover
+                )
+            except SolverFault as fault:
+                # typed where it was raised: K2's launch (warmfill.py) and the
+                # rebase (incremental.py) classify their own; the fill's host
+                # work is not classified, so a host bug ends the loop
+                self._raise_fault(fault, "fill", sim, flight_token, problem, t0)
             if placed_extras:
                 leftover = [p for p in leftover if id(p) not in placed_extras]
             buckets = [b for b in buckets if b.pod_rows]
@@ -419,7 +474,10 @@ class DenseSolver:
             buckets = [b for b in expanded if b.pod_rows]
         t1 = time.perf_counter()
         if buckets:
-            prep = self._device_solve(scheduler, problem, buckets, taken)
+            try:
+                prep = self._device_solve(scheduler, problem, buckets, taken)
+            except Exception as exc:
+                self._raise_fault(exc, "device", sim, flight_token, problem, t0)
             t2 = time.perf_counter()
             if self._node_guard_tripped(problem, buckets, prep, taken):
                 # dense would open pathologically many nodes vs the
@@ -445,6 +503,10 @@ class DenseSolver:
         leftover.extend(problem.pods[row] for row in fallback_rows)
         self.stats.pods_committed += committed
         self.stats.pods_to_host += len(leftover)
+        # the admitted solve ended without a fault, whatever it launched (the
+        # warm fill's K2, the bucket choice's K1, or neither): a half-open
+        # probe closes here, even where the warm fill placed its whole batch
+        BREAKER.record_success(simulation=sim)
         flight_record = None
         if flight_token is not None and FLIGHT.enabled:
             dispatch = self._flight_dispatch or {}
@@ -480,6 +542,9 @@ class DenseSolver:
                 pods_committed=committed,
                 pods_to_host=len(leftover),
                 duration=t3 - t0,
+                faults=dict(self._solve_faults),
+                rungs=list(self._solve_rungs),
+                breaker=BREAKER.state,
                 device=self.device,
             )
         if TRACER.enabled:
@@ -1475,6 +1540,93 @@ class DenseSolver:
 
     # -- step 3: device solve -------------------------------------------------
 
+    # -- solver fault domain (faults.py) ---------------------------------------
+
+    def _note_fault(self, fault: SolverFault, entry: str) -> None:
+        """Count one classified device fault: the taxonomy counter (once per
+        fault), this solve's flight-record tally, and a journal `solver`
+        event."""
+        count_fault(fault)
+        self._solve_faults[fault.kind] = self._solve_faults.get(fault.kind, 0) + 1
+        if JOURNAL.enabled:
+            JOURNAL.solver_event("dense", "fault", kind=fault.kind, entry=entry)
+
+    def _note_rung(self, rung: str, **attrs) -> None:
+        """Count a degradation-ladder rung, once per rung per solve. A rung
+        re-plans the device surface, so it voids the incremental engine's
+        resident state: the NEXT pass is a clean full re-encode (attributed
+        fault-<rung>)."""
+        if rung in self._solve_rungs:
+            return
+        self._solve_rungs.append(rung)
+        DEGRADED_SOLVES.inc(rung=rung)
+        if self.incremental is not None:
+            self.incremental.invalidate(f"fault-{rung}")
+        if JOURNAL.enabled:
+            JOURNAL.solver_event("dense", "degraded", rung=rung, **attrs)
+
+    def _raise_fault(self, exc: Exception, entry: str, sim: bool, flight_token, problem: DenseProblem, t0: float):
+        """The device attempt (`entry`: the warm fill's typed fault, or
+        anything the bucket choice raised) failed: an exception classify()
+        has no name for is re-raised as it is (the scheduler boundary counts
+        it 'unclassified'); a classified one is counted, recorded into the
+        breaker, stamped on a flight record of this solve, and raised typed.
+        Nothing falls back: the batch is held for the next attempt on the
+        card."""
+        fault = classify(exc)
+        if fault is None:
+            raise exc
+        self._note_fault(fault, entry)
+        BREAKER.record_fault(fault.kind, simulation=sim)
+        log.warning("dense solve hit a %s fault at %s; the batch is held: %s", fault.kind, entry, exc)
+        if flight_token is not None and FLIGHT.enabled:
+            FLIGHT.complete_solve(
+                token=flight_token,
+                signature=problem.shape_signature(),
+                dispatch=self._flight_dispatch,
+                phases={},
+                fill_routing={},
+                pods_committed=0,
+                pods_to_host=0,
+                duration=time.perf_counter() - t0,
+                faults=dict(self._solve_faults),
+                rungs=list(self._solve_rungs),
+                breaker=BREAKER.state,
+                device=self.device,
+            )
+        if fault is exc:
+            raise exc
+        raise fault from exc
+
+    def _hbm_over_budget(self) -> bool:
+        """Pre-solve memory check: the flight recorder's torch.cuda.memory_stats
+        peak of the solver's device against --solver-hbm-budget (0 or the
+        recorder off = no budget; a CPU solver reads 0). The recorder resets
+        the peak at each solve's record, so this is the peak of this solve so
+        far (its encode's and warm fill's uploads, K2's surface)."""
+        if self.hbm_budget_bytes <= 0 or not FLIGHT.enabled:
+            return False
+        return FLIGHT.hbm_snapshot(self.device)[0] > self.hbm_budget_bytes
+
+    def _split_dispatch(self, stats: np.ndarray, caps: torch.Tensor, prices: torch.Tensor, allowed: np.ndarray) -> torch.Tensor:
+        """The budget split: K1 launched on each half of the bucket axis,
+        each half's [2, B/2, R] stats and [B/2, T] mask uploaded from the host
+        just before its launch, so the bucket choice's operands hold half
+        their device memory at a time. Each bucket's argmin is its own, so
+        the concatenated [3, B] is bit-equal to one unsplit launch."""
+        B = stats.shape[1]
+        step = max(1, -(-B // self._CHUNK_SPLIT))
+        parts = []
+        for lo in range(0, B, step):
+            FAULTS.check("chunk")
+            parts.append(bucket_cost_packed(
+                torch.from_numpy(np.ascontiguousarray(stats[:, lo : lo + step])).to(self.device),
+                caps,
+                prices,
+                torch.from_numpy(np.ascontiguousarray(allowed[lo : lo + step])).to(self.device),
+            ))
+        return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
     def _availability_mask(self, avail: np.ndarray, zmask: np.ndarray, cmask: np.ndarray) -> np.ndarray:
         """bucket_extra[b, t] = any (z, c) with avail[t, z, c] and the
         bucket allowing zone z and capacity-type c — the offering-health
@@ -1606,12 +1758,18 @@ class DenseSolver:
         # The launch returns at once, and the result's copy into pinned host
         # memory queues behind it on the same stream.
         caps_dev, prices_dev = self._catalog(caps_eff, problem.prices)
-        packed_dev = bucket_cost_packed(
-            torch.from_numpy(bucket_stats).to(self.device),
-            caps_dev,
-            prices_dev,
-            torch.from_numpy(allowed).to(self.device),
-        )
+        if self._hbm_over_budget():
+            # decided before any launch or upload, never from an `except`
+            self._note_rung(RUNG_CHUNKED, reason="hbm-budget")
+            packed_dev = self._split_dispatch(bucket_stats, caps_dev, prices_dev, allowed)
+        else:
+            FAULTS.check("plain")
+            packed_dev = bucket_cost_packed(
+                torch.from_numpy(bucket_stats).to(self.device),
+                caps_dev,
+                prices_dev,
+                torch.from_numpy(allowed).to(self.device),
+            )
         if self.device.type == "cuda":
             packed_host = torch.empty(packed_dev.shape, dtype=packed_dev.dtype, pin_memory=True)
             packed_host.copy_(packed_dev, non_blocking=True)

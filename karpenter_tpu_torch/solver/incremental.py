@@ -46,7 +46,13 @@ re-encoded purely for healing leave the window immediately: the
 steady-state dirty set is bounded by two passes of churn.
 
 Residency is not optional here: a failed upload or rebase raises out of the
-solve; nothing quietly continues on the host.
+solve; nothing quietly continues on the host. A classified device fault at
+the rebase (solver/faults.py) is counted and voids residency ('fault-device':
+the next pass is a clean full re-encode) before it is raised typed.
+
+The fault injector's state seams live here too: 'resident-row' (a flipped
+value in the host mirror, after every pass) and 'rebase' (one element of the
+rebased head perturbed on the device), for the residency auditor to find.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from ..ir.delta import DeltaJournal
 from ..ir.encode import WarmViewEncoding, encode_warm_views
 from ..metrics import REGISTRY
 from ..ops.rebase import pad_views, rebase_view_state
+from .faults import FAULTS, KIND_CORRUPT_DEVICE, KIND_CORRUPT_ROW, classify, count_fault
 
 log = logging.getLogger("karpenter_tpu_torch.solver.incremental")
 
@@ -182,6 +189,7 @@ class IncrementalEngine:
             self._note(PASS_FULL)
             self.invalidations[reason] = self.invalidations.get(reason, 0) + 1
             INCREMENTAL_INVALIDATIONS.inc(reason=reason)
+            self._maybe_corrupt_row()
             return AdvanceResult(enc, PASS_FULL, reason, time.perf_counter() - t0, len(views))
 
         res = self._resident
@@ -190,11 +198,25 @@ class IncrementalEngine:
         dirty_idx = [i for i, n in enumerate(names) if n in dirty_names or n not in res.row_of]
         enc, rebase_seconds = self._apply_delta(views, names, dirty_idx, epoch, ckey)
         self._note(PASS_DELTA)
+        self._maybe_corrupt_row()
         return AdvanceResult(enc, PASS_DELTA, "", time.perf_counter() - t0, len(dirty_idx), rebase_seconds)
 
     def _note(self, kind: str) -> None:
         self.passes[kind] += 1
         INCREMENTAL_PASSES.inc(kind=kind)
+
+    def _maybe_corrupt_row(self) -> None:
+        """Seeded resident-row corruption seam (solver/faults.py): when the
+        installed plan fires 'corrupt-row' at 'resident-row', flip one value
+        in the HOST mirror — not head_dev, so the device check cannot
+        double-count the same injection — modeling a splice/aliasing bug the
+        residency auditor must detect as row-drift."""
+        res = self._resident
+        if res is None:
+            return
+        if FAULTS.corrupt("resident-row") == KIND_CORRUPT_ROW:
+            res.enc.avail_tol[0] += 1.0
+            log.warning("injected resident-row corruption: host mirror row 0 avail_tol flipped")
 
     # -- classification ----------------------------------------------------
 
@@ -305,18 +327,38 @@ class IncrementalEngine:
 
         # device rebase: survivors gathered by permutation and the dirty rows
         # scattered into the spare buffer, which becomes the live one. A
-        # failure here propagates out of the solve.
+        # failure here propagates out of the solve; a classified one first
+        # voids residency, since the buffers' state is unknown after it.
         t_rebase = time.perf_counter()
         vp = res.vp
-        # perm padded to the buffer's rows (-1: pad rows stay dead), then the
-        # dirty rows' indices: one int64 upload
-        ix = np.full(vp + len(dirty_idx), -1, np.int64)
-        ix[:V] = perm
-        ix[vp:] = dirty_idx
-        ix_dev = torch.from_numpy(ix).to(self.device)
-        rows = sub.head0.astype(np.float32) if dirty_idx else np.zeros((0, head0.shape[1]), np.float32)
-        spare = self.buffers[1] if res.head_dev is self.buffers[0] else self.buffers[0]
-        head_dev = rebase_view_state(res.head_dev, ix_dev[:vp], torch.from_numpy(rows).to(self.device), ix_dev[vp:], out=spare)
+        try:
+            FAULTS.check("rebase")
+            # perm padded to the buffer's rows (-1: pad rows stay dead), then
+            # the dirty rows' indices: one int64 upload
+            ix = np.full(vp + len(dirty_idx), -1, np.int64)
+            ix[:V] = perm
+            ix[vp:] = dirty_idx
+            ix_dev = torch.from_numpy(ix).to(self.device)
+            rows = sub.head0.astype(np.float32) if dirty_idx else np.zeros((0, head0.shape[1]), np.float32)
+            spare = self.buffers[1] if res.head_dev is self.buffers[0] else self.buffers[0]
+            head_dev = rebase_view_state(res.head_dev, ix_dev[:vp], torch.from_numpy(rows).to(self.device), ix_dev[vp:], out=spare)
+        except Exception as exc:
+            fault = classify(exc)
+            if fault is None:
+                raise
+            count_fault(fault)
+            self.invalidate("fault-device")
+            log.warning("device fault at the rebase (%s): residency voided, next pass full re-encode: %s", fault.kind, exc)
+            if fault is exc:
+                raise
+            raise fault from exc
+        if FAULTS.corrupt("rebase") == KIND_CORRUPT_DEVICE:
+            # seeded device-buffer corruption: one element of the rebased
+            # buffer perturbed on the device AFTER the rebase — the host
+            # mirror stays byte-exact, so only the auditor's device check
+            # (the resident rows against f32(head0)) can see it
+            head_dev[0, 0] += 1.0
+            log.warning("injected device-buffer corruption: resident head_dev[0, 0] perturbed")
         rebase_seconds = time.perf_counter() - t_rebase
 
         # next pass's healing window: ONLY the rows the journal named this

@@ -59,6 +59,7 @@ from ..flight import FLIGHT
 from ..ir.encode import DenseProblem, GroupKind, WarmViewEncoding, encode_warm_views
 from ..ops.warmfill import warm_fill_counts_device
 from ..utils import resources as res
+from .faults import FAULTS, classify
 
 # bucket kinds the scan distinguishes (mirrors the host loop's dispatch)
 _PLAIN = 0
@@ -396,14 +397,25 @@ def admission_counts(sizes: np.ndarray, head: np.ndarray, solver, head_dev: Opti
 def _device_counts(plan_: WarmFillPlan, solver) -> Optional[np.ndarray]:
     """One [S, V] admission-surface launch on the solver's device; None when
     the surface exceeds the device bounds (the scan then computes exact rows
-    lazily on host). A failure propagates."""
+    lazily on host). A failure propagates: typed where classify() names it
+    (the dense solve records it into the breaker), as it is where not."""
     S = plan_.sizes.shape[0]
     V = len(plan_.views)
     if S == 0 or S > _DEVICE_MAX_SIZES or S * V > _DEVICE_MAX_CELLS:
         return None
-    # the incremental engine's resident buffer (solver/incremental.py), when
-    # it produced the encoding: the kernel reads its first V rows in place
-    counts, (stage, enqueue, wait) = admission_counts(plan_.sizes, plan_.enc.head0, solver, plan_.enc.head_dev)
+    try:
+        # fault-domain injection seam (solver/faults.py): the admission
+        # surface is a dispatch seam like the bucket choice
+        FAULTS.check("warmfill")
+        # the incremental engine's resident buffer (solver/incremental.py),
+        # when it produced the encoding: the kernel reads its first V rows
+        # in place
+        counts, (stage, enqueue, wait) = admission_counts(plan_.sizes, plan_.enc.head0, solver, plan_.enc.head_dev)
+    except Exception as exc:
+        fault = classify(exc)
+        if fault is None or fault is exc:
+            raise
+        raise fault from exc
     if FLIGHT.enabled and solver.device.type == "cuda" and solver._flight_dispatch is None:
         # K2 launched: the flight record names the card even where no
         # bucket choice (K1) follows in this solve

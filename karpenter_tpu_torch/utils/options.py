@@ -4,11 +4,7 @@ Equivalent of pkg/utils/options/options.go — ports, client budgets,
 profiling, provider tuning — validated at boot.
 
 The port's copy of karpenter_tpu/utils/options.py, whole: every flag and its
-environment fallback. The Runtime (runtime.py) raises NotImplementedError,
-naming the ROADMAP item, for each option whose feature the port has not
-brought over yet (the recorders' switches, the coherence and invariant
-loops, the HBM budget, the solver breaker's threshold and backoff) when it
-is set away from its default.
+environment fallback. The Runtime (runtime.py) takes each of them.
 """
 
 from __future__ import annotations
@@ -132,15 +128,19 @@ class Options:
     # hot-loop the solver into the wall
     ice_backoff_seconds: float = 10.0
     # solver fault domain (solver/faults.py): pre-solve HBM-pressure budget —
-    # when the flight recorder's HBM-peak gauge exceeds this many bytes the
-    # dense dispatch chunks pre-emptively instead of building the full
-    # [B, T] surface (0 = no budget; requires --enable-solver-telemetry for
-    # the gauge to be live)
+    # when the peak of the solve in flight (the flight recorder's
+    # torch.cuda.memory_stats reading) exceeds this many bytes, the bucket
+    # choice launches K1 once per half of the bucket axis, each half's
+    # [2, B/2, R] stats and [B/2, T] mask uploaded just before its launch.
+    # That bounds only those operands, at half their bytes; K1 builds no
+    # [B, T] surface, and the rest of the solve's memory is as it was.
+    # (0 = no budget; requires --enable-solver-telemetry for the recorder
+    # to be live)
     solver_hbm_budget_bytes: int = 0
     # the solver circuit breaker: this many CONSECUTIVE classified device
-    # faults short-circuit the device attempt entirely (the exact host loop
-    # owns every batch), and after the backoff the next real solve runs a
-    # half-open recovery probe that re-admits the fast path on success
+    # faults open it and every batch is held (no encode, no launch, no host
+    # loop), and after the backoff the next real solve runs a half-open
+    # recovery probe on the card that re-admits the batches on success
     solver_breaker_threshold: int = 3
     solver_breaker_backoff: float = 30.0
     # incremental solve engine (solver/incremental.py): keep the warm-view

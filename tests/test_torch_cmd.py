@@ -141,9 +141,23 @@ class TestBuildKubeBackend:
 
 
 class TestControllerMain:
-    def test_unported_flag_raises_before_binding(self):
-        with pytest.raises(NotImplementedError, match="solver_breaker_threshold: .*ROADMAP A7"):
-            controller.main(["--solver-breaker-threshold", "5", "--health-probe-port", "1"])
+    def test_unported_flag_raises_before_binding(self, monkeypatch):
+        """Named when --solver-breaker-threshold raised, naming ROADMAP A7:
+        the entry point now configures the process-wide breaker from the
+        flags, before its Runtime reaches for the card (there is none here,
+        so it raises there, before binding any port)."""
+        import torch
+
+        from karpenter_tpu_torch.solver.faults import BREAKER
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        saved = (BREAKER.threshold, BREAKER.backoff, BREAKER.clock)
+        try:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                controller.main(["--solver-breaker-threshold", "5", "--solver-breaker-backoff", "12.5", "--health-probe-port", "1"])
+            assert (BREAKER.threshold, BREAKER.backoff) == (5, 12.5)
+        finally:
+            BREAKER.threshold, BREAKER.backoff, BREAKER.clock = saved
 
     def test_without_a_card_the_runtime_raises(self, monkeypatch):
         import torch

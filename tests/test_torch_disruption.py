@@ -35,6 +35,7 @@ import logging
 
 import pytest
 
+from karpenter_tpu_torch.solver.faults import SolverDeviceLostError
 from tests.test_torch_consolidation import (  # noqa: F401
     MODES,
     DKit,
@@ -764,9 +765,12 @@ class TestDenseOrchestratorPass:
 
 
 class TestWhatIfFaults:
-    """A kernel or device exception raised inside a what-if leaves
-    DisruptionController.reconcile() (the reference logs a failed propose()
-    and goes on; the port does not copy that) and is not logged as handled."""
+    """A kernel fault raised inside a what-if (classified: a SolverFault)
+    ends that source's pass with no action, is not logged as handled, and
+    the next pass retries; an exception classify() has no name for, and a
+    device-lost the card raised (its context stays broken), leave
+    DisruptionController.reconcile() (the reference logs any failed
+    propose() and goes on; the port does not copy that)."""
 
     @pytest.mark.parametrize("source", ["consolidation", "expiration"])
     @pytest.mark.parametrize("seam", ["bucket_cost_packed", "warm_fill_counts_device"])
@@ -794,13 +798,53 @@ class TestWhatIfFaults:
 
         def fault(*args, **kwargs):
             calls.append(seam)
-            raise RuntimeError("CUDA error: an illegal memory access was encountered")
+            raise RuntimeError("bucket_cost kernel launch failed: cudaErrorInvalidValue: invalid argument (CUDA error 1)")
 
         monkeypatch.setattr(dense_module if seam == "bucket_cost_packed" else fill_module, seam, fault)
         caplog.set_level(logging.DEBUG, logger="karpenter_tpu_torch")
-        with pytest.raises(RuntimeError, match="illegal memory access"):
-            env.disruption.reconcile()
+        env.disruption.reconcile()  # held: the source's pass ends with no action
         assert calls == [seam]
         assert not [r for r in caplog.records if r.exc_info], "the fault was logged as handled"
+        assert any("held by a kernel fault" in r.getMessage() for r in caplog.records)
+        assert sorted(n.name for n in env.kube.list_nodes()) == nodes
+        assert not env.disruption._queue and env.disruption.tracker.total_in_flight() == 0
+
+        def novel(*args, **kwargs):
+            calls.append(seam)
+            raise ValueError("a failure classify has no name for")
+
+        monkeypatch.setattr(dense_module if seam == "bucket_cost_packed" else fill_module, seam, novel)
+        with pytest.raises(ValueError, match="no name for"):
+            env.disruption.reconcile()
+        assert calls == [seam, seam], "the next pass retried the what-if"
+        assert sorted(n.name for n in env.kube.list_nodes()) == nodes
+
+    @pytest.mark.parametrize("source", ["consolidation", "expiration"])
+    @pytest.mark.parametrize("seam", ["bucket_cost_packed", "warm_fill_counts_device"])
+    def test_device_lost_the_card_raised_leaves_reconcile(self, seam, source, monkeypatch):
+        """A device-lost the card raised leaves the CUDA context broken: no
+        later pass can succeed in this process, so it is not held."""
+        from karpenter_tpu_torch.solver import dense as dense_module
+        from karpenter_tpu_torch.solver import warmfill as fill_module
+
+        k = DKit("port", "dense")
+        prov = k.consolidatable() if source == "consolidation" else k.make_provisioner(ttl_seconds_until_expired=3600)
+        env = k.disrupt_env(provisioners=[prov], instance_types=k.big_small())
+        pods = [k.owned(requests={"cpu": "8"}) for _ in range(1 if seam == "bucket_cost_packed" else 2)]
+        for pod in pods:
+            env.launch_node_with_pods(pod)
+        for pod in pods:
+            pod.spec.containers[0].resources.requests["cpu"] = 0.5
+            env.kube.update(pod)
+        env.clock.step(3601 if source == "expiration" else 400)
+        nodes = sorted(n.name for n in env.kube.list_nodes())
+
+        def lost(*args, **kwargs):
+            raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+        monkeypatch.setattr(dense_module if seam == "bucket_cost_packed" else fill_module, seam, lost)
+        with pytest.raises(SolverDeviceLostError, match="illegal memory access") as raised:
+            env.disruption.reconcile()
+        assert not raised.value.injected
         assert sorted(n.name for n in env.kube.list_nodes()) == nodes
         assert not env.disruption._queue and env.disruption.tracker.total_in_flight() == 0

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from tests.test_torch_journal import recorder_copy
+from tests.test_torch_provisioning import reference_singletons  # noqa: F401
 from tests.test_torch_tracing import without
 
 _FLIGHT = recorder_copy(
@@ -142,14 +143,26 @@ class TestRecordContents(
         assert flight.FlightRecorder.hbm_snapshot() == (0, 0)
 
     def test_snapshot_has_no_fault_domain_block(self, recorder):
-        """The /debug/solver index's fault-domain block is solver/faults.py's
-        (ROADMAP A7)."""
+        """Named when solver/faults.py was not ported yet and the block was
+        missing: the /debug/solver index's fault-domain block is now the
+        reference's, key for key, with the breaker block equal on both
+        packages after the same healthy solve."""
+        from karpenter_tpu import flight as ref_flight
+        from karpenter_tpu.solver.faults import BREAKER as REF_BREAKER
         from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
         from karpenter_tpu_torch.solver import DenseSolver
+        from karpenter_tpu_torch.solver.faults import BREAKER, KINDS, RUNGS
 
+        for breaker in (REF_BREAKER, BREAKER):
+            breaker.reset()
+            breaker.configure(threshold=3, backoff=30.0)
         _solve_once(DenseSolver(min_batch=1, device="cpu"), FakeCloudProvider(instance_types(50)), _workload(300))
         snapshot = recorder.snapshot()
-        assert "fault_domain" not in snapshot
+        block, ref_block = snapshot["fault_domain"], ref_flight.FLIGHT.snapshot()["fault_domain"]
+        assert list(block) == list(ref_block) == ["breaker", "faults_total", "degraded_solves_total"]
+        assert block["breaker"] == ref_block["breaker"]
+        assert block["breaker"]["state"] == "closed" and block["breaker"]["consecutive_faults"] == 0
+        assert set(block["faults_total"]) <= set(KINDS) and set(block["degraded_solves_total"]) <= set(RUNGS)
         assert snapshot["records"][0]["dispatch"] == "plain"
         assert snapshot["records"][0]["faults"] == {} and snapshot["records"][0]["breaker"] == "closed"
 

@@ -37,6 +37,7 @@ import logging
 
 import pytest
 
+from karpenter_tpu_torch.solver.faults import SolverDeviceLostError
 from tests.test_torch_consolidation import DKit, reference_auditor_off  # noqa: F401
 from tests.test_torch_provisioning import MODES, _unnamed, reference_singletons, run_both  # noqa: F401
 
@@ -658,10 +659,12 @@ class TestInterruptionCatalog:
 
 
 class TestReSolveFaults:
-    """A kernel or device exception raised inside the proactive re-solve
-    leaves poll_once(), is not logged as handled, leaves the notice on the
-    queue and the victim undrained, and clears the victim's one-solve claim
-    so the redelivered notice solves again."""
+    """A kernel fault raised inside the proactive re-solve (classified: a
+    SolverFault) is held: poll_once() logs it, not as handled, leaves the
+    notice on the queue and the victim undrained, and clears the victim's
+    one-solve claim so the redelivered notice solves again on the card. An
+    exception classify() has no name for, and a device-lost the card raised
+    (its context stays broken), leave poll_once() the same way."""
 
     @pytest.mark.parametrize("seam", ["bucket_cost_packed", "warm_fill_counts_device"])
     def test_kernel_fault_leaves_poll_once(self, seam, monkeypatch, caplog):
@@ -684,13 +687,13 @@ class TestReSolveFaults:
 
         def fault(*args, **kwargs):
             calls.append(seam)
-            raise RuntimeError("CUDA error: an illegal memory access was encountered")
+            raise RuntimeError("bucket_cost kernel launch failed: cudaErrorInvalidValue: invalid argument (CUDA error 1)")
 
         monkeypatch.setattr(dense_module if seam == "bucket_cost_packed" else fill_module, seam, fault)
         caplog.set_level(logging.DEBUG, logger="karpenter_tpu_torch")
-        with pytest.raises(RuntimeError, match="illegal memory access"):
-            env.interruption.poll_once()
+        assert env.interruption.poll_once() == 1  # held, left for redelivery
         assert calls == [seam]
+        assert any("held by a kernel fault" in r.getMessage() for r in caplog.records)
         assert not [r for r in caplog.records if r.exc_info], "the fault was logged as handled"
         assert {n.name for n in env.kube.list_nodes()} == nodes, "no replacement launched"
         victim = env.kube.get_node(node.name)
@@ -698,8 +701,46 @@ class TestReSolveFaults:
         queue = env.backend.notifications
         assert queue.depth() == 1 and queue.in_flight() == 1, "the notice stays on the queue"
         assert not env.interruption._replaced, "the one-solve claim is cleared"
+
+        def novel(*args, **kwargs):
+            calls.append(seam)
+            raise ValueError("a failure classify has no name for")
+
+        monkeypatch.setattr(dense_module if seam == "bucket_cost_packed" else fill_module, seam, novel)
+        env.clock.step(31)
+        with pytest.raises(ValueError, match="no name for"):
+            env.interruption.poll_once()
+        assert calls == [seam, seam], "the redelivered notice solved again"
+        assert queue.depth() == 1 and not env.interruption._replaced
         monkeypatch.undo()
         env.clock.step(31)
         env.converge()
         assert env.kube.get_node(node.name) is None, "the redelivered notice drains the victim"
         assert queue.depth() == 0
+
+    @pytest.mark.parametrize("seam", ["bucket_cost_packed", "warm_fill_counts_device"])
+    def test_device_lost_the_card_raised_leaves_poll_once(self, seam, monkeypatch):
+        """A device-lost the card raised leaves the CUDA context broken: no
+        redelivery can succeed in this process, so it is not held."""
+        from karpenter_tpu_torch.solver import dense as dense_module
+        from karpenter_tpu_torch.solver import warmfill as fill_module
+
+        k = SKit("port", "dense")
+        env = k.interruption_env()
+        node, _pods = env.launch_node_with_pods(3)
+        if seam == "warm_fill_counts_device":
+            env.kube.create(k.owned(requests={"cpu": "3", "memory": "1Gi"}))
+            env.provision()
+            env.bind_nominated()
+        env.backend.interrupt_spot_instance(env.instance_id(node))
+
+        def lost(*args, **kwargs):
+            raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+        monkeypatch.setattr(dense_module if seam == "bucket_cost_packed" else fill_module, seam, lost)
+        with pytest.raises(SolverDeviceLostError, match="illegal memory access") as raised:
+            env.interruption.poll_once()
+        assert not raised.value.injected
+        queue = env.backend.notifications
+        assert queue.depth() == 1 and not env.interruption._replaced, "the notice stays for the restarted process"
+        assert env.kube.get_node(node.name).metadata.deletion_timestamp is None

@@ -18,7 +18,9 @@ min_batch=1 (the reference's DenseSolver on JAX's CPU, without the mesh;
 the port's on device="cpu", the kernels' plain versions). The reference's
 process-wide singletons that a round touches (the metrics registry, the
 tracer, the journal, the flight recorder, the fault injector, the breaker
-and the residency auditor) are restored after every test.
+and the residency auditor) are restored after every test, and so are the
+port's fault injector and breaker and both packages' DeltaJournal corruption
+seam (ir/delta.py), which an installed fault plan arms.
 
 The helpers of this module (Kit, both, outcome and the autouse fixture)
 serve the other test_torch_*provisioning/ICE/dense-existing files too.
@@ -56,23 +58,32 @@ def _restore(obj, saved: dict) -> None:
 
 @pytest.fixture(autouse=True)
 def reference_singletons():
-    """Snapshot the JAX package's process-wide singletons and put them back
-    after the test, however it ends."""
+    """Snapshot the JAX package's process-wide singletons, the port's fault
+    injector and breaker, and both packages' DeltaJournal corruption seam,
+    and put them back after the test, however it ends: a plan left
+    installed or a breaker left open would fail whichever test the worker
+    runs next."""
     from karpenter_tpu.flight import FLIGHT
+    from karpenter_tpu.ir import delta as ref_delta
     from karpenter_tpu.journal import JOURNAL
     from karpenter_tpu.metrics import REGISTRY
     from karpenter_tpu.solver.audit import AUDITOR
     from karpenter_tpu.solver.faults import BREAKER, FAULTS
     from karpenter_tpu.tracing import DECISIONS, TRACER
+    from karpenter_tpu_torch.ir import delta as port_delta
+    from karpenter_tpu_torch.solver.faults import BREAKER as PORT_BREAKER, FAULTS as PORT_FAULTS
 
-    objs = (AUDITOR, TRACER, DECISIONS, JOURNAL, FLIGHT, FAULTS, BREAKER)
+    objs = (AUDITOR, TRACER, DECISIONS, JOURNAL, FLIGHT, FAULTS, BREAKER, PORT_FAULTS, PORT_BREAKER)
     saved = [(obj, _state(obj)) for obj in objs]
+    seams = [(module, module._corrupt_consult) for module in (ref_delta, port_delta)]
     metrics = {name: _state(metric) for name, metric in REGISTRY._metrics.items()}
     try:
         yield
     finally:
         for obj, state in saved:
             _restore(obj, state)
+        for module, consult in seams:
+            module.set_corrupt_seam(consult)
         for name, metric in list(REGISTRY._metrics.items()):
             if name in metrics:
                 _restore(metric, metrics[name])

@@ -89,6 +89,9 @@ def recorded_round(side: str) -> dict:
         enable_solver_telemetry=True, enable_journal=True, enable_slo=True, enable_capsules=True,
         journal_ring_size=65536,
     )
+    # nodes launch one at a time, so both packages' clusters hold them in one
+    # order and sum the cluster's $/hour in it (ROADMAP C)
+    rt.provisioner.LAUNCH_WORKERS = 1
     try:
         for pod in _workload(kit):
             kube.create(pod)

@@ -803,10 +803,25 @@ def test_options_bad_env_value_exits(monkeypatch):
     ("solver_breaker_threshold", 5, "A7"),
     ("solver_breaker_backoff", 60.0, "A7"),
 ])
-def test_unported_option_raises_naming_its_item(option, value, item):
-    kit = RKit("port")
-    with pytest.raises(NotImplementedError, match=f"{option}: .*ROADMAP {item}"):
-        kit.build(kit.KubeCluster(), kit.fake_provider(3), leader_elect=False, dense_solver_enabled=False, **{option: value})
+def test_unported_option_raises_naming_its_item(option, value, item, runtimes):
+    """Named when these options raised, naming ROADMAP A7: the fault domain
+    is ported, so a Runtime built with each option set runs on both
+    packages, and the process-wide breaker's threshold and backoff and the
+    dense solver's HBM budget are equal on both sides."""
+    got = {}
+    for side in SIDES:
+        kit = RKit(side)
+        kube = kit.KubeCluster()
+        kube.create(kit.make_provisioner())
+        for _ in range(2):
+            kube.create(kit.make_pod(requests={"cpu": 0.5}))
+        rt = runtimes(kit, kube, kit.fake_provider(3), leader_elect=False, dense_min_batch=1, **{option: value})
+        breaker = importlib.import_module(f"{kit.root}.solver.faults").BREAKER
+        rt.provision_once()
+        nominated = sum(len(n.pods) for n in rt.provisioner.last_results.new_nodes)
+        got[side] = (breaker.threshold, breaker.backoff, rt.dense_solver.hbm_budget_bytes, nominated)
+    assert got["ref"] == got["port"] and got["port"][3] == 2
+    assert {"solver_hbm_budget_bytes": got["port"][2], "solver_breaker_threshold": got["port"][0], "solver_breaker_backoff": got["port"][1]}[option] == value
 
 
 # each recorder option, and what shows that the Runtime turned it on
@@ -915,6 +930,32 @@ class TestNoHiddenFailure:
             kube.create(kit.make_pod(requests={"cpu": 0.5}))
         assert _wait(lambda: not rt.healthy(), timeout=5.0)
         with pytest.raises(RuntimeError, match="K1 launch failed"):
+            rt.stop()
+        assert not kube.list_nodes()
+
+    def test_a_device_lost_the_card_raised_fails_health_and_stop(self, runtimes, monkeypatch):
+        """A device-lost the card raised (not a fault plan's) leaves the CUDA
+        context broken, so the batch loop ends on it rather than hold the
+        batch for a retry on the same context: healthy() turns false and a
+        restart gets a fresh context."""
+        import karpenter_tpu_torch.solver.dense as dense
+        from karpenter_tpu_torch.solver.faults import SolverDeviceLostError
+
+        kit = RKit("port")
+        kube = kit.KubeCluster()
+        rt = runtimes(kit, kube, kit.fake_provider(6), leader_elect=False, dense_min_batch=1, batch_idle_duration=0.05, batch_max_duration=0.2)
+
+        def asserting(*args, **kwargs):
+            raise RuntimeError("CUDA error: device-side assert triggered")
+
+        monkeypatch.setattr(dense, "bucket_cost_packed", asserting)
+        kube.create(kit.make_provisioner())
+        rt.start()
+        for _ in range(3):
+            kube.create(kit.make_pod(requests={"cpu": 0.5}))
+        assert _wait(lambda: not rt.healthy(), timeout=5.0)
+        assert isinstance(rt.error, SolverDeviceLostError) and not rt.error.injected
+        with pytest.raises(SolverDeviceLostError, match="device-side assert"):
             rt.stop()
         assert not kube.list_nodes()
 

@@ -175,16 +175,20 @@ MISSING_FAMILIES = {
     "karpenter_chaos_injected_total": "scenarios/chaos_orchestrator.py",
     "karpenter_kube_conflicts_total": "kube/chaos.py",
     "karpenter_kube_faults_injected_total": "kube/chaos.py",
-    "karpenter_solver_breaker_state": "solver/faults.py",
-    "karpenter_solver_breaker_transitions_total": "solver/faults.py",
-    "karpenter_solver_degraded_solves_total": "solver/faults.py",
-    "karpenter_solver_faults_total": "solver/faults.py",
 }
 
 # shared families whose help text the port words for its own instrument: the
 # flight recorder counts nvcc kernel builds where the JAX package counts XLA
-# compilations (flight.py keeps the family names so dashboards line up)
-HELP_DIFFERS = ("karpenter_jax_compilations_total", "karpenter_jax_compile_seconds_total")
+# compilations (flight.py keeps the family names so dashboards line up); the
+# solver fault domain holds batches where the JAX package falls back to the
+# host loop (solver/faults.py)
+HELP_DIFFERS = (
+    "karpenter_jax_compilations_total",
+    "karpenter_jax_compile_seconds_total",
+    "karpenter_solver_faults_total",
+    "karpenter_solver_degraded_solves_total",
+    "karpenter_solver_breaker_state",
+)
 
 
 def _rows(module: str) -> dict:
