@@ -408,6 +408,26 @@ GRPC_TIMEOUT_S = 300.0
 # cluster
 RUNTIME_ROUND_HTTP = ("runtime_round_http", HEADLINE_PODS, 300)
 CONTROLLER_PROCESS_HTTP = ("controller_process_http", HEADLINE_PODS)
+# the kube fault domain (kube/chaos.py) on runtime_round's cell: conflicts
+# on the batch's binds (pod updates) and one stale read; the watch gap, its
+# compaction and the lease steal are the phase's actions
+RUNTIME_ROUND_KUBE_CHAOS = ("runtime_round_kube_chaos", HEADLINE_PODS, 300)
+KUBE_CHAOS_SPECS = (
+    {"fault": "conflict", "verb": "update", "obj_kind": "Pod", "nth": 5, "count": 3},
+    {"fault": "conflict", "verb": "update", "obj_kind": "Pod", "nth": 4000, "count": 2},
+    {"fault": "stale-read", "verb": "get", "obj_kind": "Pod", "nth": 7, "count": 1},
+)
+KUBE_CHAOS_SEED = 16
+KUBE_CHAOS_LEASE = ("3.0", "0.5")  # --lease-duration, --lease-renew-period: a stolen lease expires in the phase
+KUBE_CHAOS_JOURNAL_RING = 131072
+KUBE_CHAOS_DEADLINE_S = 60.0
+# the scenario campaign (scenarios/): (scenario, transports); every run's
+# Runtime on the dense path, so K1 and K2 carry each batch
+SCENARIO_RUNS = (("smoke_burst", ("inprocess", "http")), ("device_fault_storm", ("inprocess",)), ("watch_gap_storm", ("inprocess",)))
+SCENARIO_ZERO_SCORES = (
+    "lost_pods", "budget_violations", "leaked_instances", "double_launches", "informer_divergences",
+    "invariant_violations", "leaked_threads", "leaked_watches",
+)
 HTTP_ROUND_DEADLINE_S = 180.0
 NODES_SETTLE_S = 3.0
 THREAD_JOIN_DEADLINE_S = 60.0
@@ -4952,6 +4972,259 @@ def controller_process_http(dev, card_name, command=None) -> dict:
     return line
 
 
+def bind_with_retries(kube, placed) -> dict:
+    """bind_placed as a kube-scheduler does it under conflicts: each pod is
+    read back from the store (a stale read may answer) and bound; a bind
+    that loses to a 409 is read again and retried until it lands (the store
+    hands out its own objects, so the lost attempt's fields are already on
+    the pod read back: only a write that lands is seen by the watches).
+    Returns the bindings made and the conflicts caught."""
+    from karpenter_tpu_torch.kube.cluster import Conflict
+
+    bound = caught = 0
+    for node_name, pod_list in placed:
+        for placed_pod in pod_list:
+            for _attempt in range(8):
+                pod = kube.get("Pod", placed_pod.name, placed_pod.namespace)
+                if pod is None:
+                    break
+                try:
+                    kube.bind_pod(pod, node_name)
+                    bound += 1
+                    break
+                except Conflict:
+                    caught += 1
+    return {"bound": bound, "conflicts_caught": caught}
+
+
+def runtime_round_kube_chaos(dev, card_name, plain_line) -> dict:
+    """The control-plane fault domain (kube/chaos.py) on runtime_round's
+    cell: the same store, batch and catalog, the crossover runtime_round
+    measured, with --enable-journal, --coherence-interval 1 and a short
+    Lease, under a seeded KubeFaultPlan (KUBE_CHAOS_SPECS: conflicts on the
+    batch's binds, one stale read). The batch is created inside a watch gap
+    whose events a forced compaction drops, so the Runtime's informers learn
+    of it from the relist. Once it is nominated, the batch is bound by a
+    stand-in for the kube-scheduler that retries its conflicts, the Lease
+    is stolen, and the phase waits until the Runtime has won it back and
+    run its recovery. Held: runtime_round's outcome (launches by type, pods
+    onto standing nodes, $/hour), no lost pod (every batch pod bound to a
+    node in the store), no node launched twice, every K1/K2 call bit for bit,
+    zero informer divergences at quiesce, the plan's conflicts counted in
+    karpenter_kube_conflicts_total, and `watch-gap` and `relist` in the
+    journal."""
+    import hashlib
+    from types import SimpleNamespace
+
+    from karpenter_tpu_torch import journal
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.kube import chaos
+    from karpenter_tpu_torch.kube.coherence import COHERENCE, divergences_total
+    from karpenter_tpu_torch.kube.leaderelection import steal_lease
+    from karpenter_tpu_torch.runtime import Runtime
+    from karpenter_tpu_torch.utils.options import parse
+
+    name, pods_n, standing = RUNTIME_ROUND_KUBE_CHAOS
+    kube, pods = runtime_store(pods_n, standing, "rkc")
+    catalog = instance_types(HEADLINE_TYPES)
+    provider = FakeCloudProvider(catalog)
+    options = parse([
+        "--dense-min-batch", str(plain_line["min_batch"]), "--enable-journal", "--journal-ring-size", str(KUBE_CHAOS_JOURNAL_RING),
+        "--coherence-interval", "1", "--lease-duration", KUBE_CHAOS_LEASE[0], "--lease-renew-period", KUBE_CHAOS_LEASE[1],
+    ])
+    rt = Runtime(kube=kube, cloud_provider=provider, options=options, device=dev)
+    env = SimpleNamespace(controller=rt.provisioner, solver=rt.dense_solver, kube=kube, cluster=rt.cluster)
+    names = {p.name for p in pods}
+    JOURNAL = journal.JOURNAL
+    plan = chaos.KubeFaultPlan.from_specs(list(KUBE_CHAOS_SPECS), seed=KUBE_CHAOS_SEED)
+    conflicts_before, divergences_before = chaos.conflicts_total(), divergences_total()
+
+    def write_batch():
+        # the batch lands inside a watch gap, and a forced compaction drops
+        # the gap's events: the informers learn of it from the relist
+        t0 = time.perf_counter()
+        kube.chaos_watch_gap_begin()
+        for pod in pods:
+            kube.create(pod)
+        kube.chaos_compact()
+        kube.chaos_watch_gap_end()
+        return t0, time.perf_counter()
+
+    def after_round(run):
+        t_bind = time.perf_counter()
+        binding = bind_with_retries(kube, run["placed"])
+        bind_ms = (time.perf_counter() - t_bind) * 1e3
+        t_steal = time.perf_counter()
+        stolen = steal_lease(kube, identity="kube-chaos-thief")
+        lost = regained = False
+        deadline = time.perf_counter() + KUBE_CHAOS_DEADLINE_S
+        while time.perf_counter() < deadline and rt.healthy():
+            lost = lost or not rt.elector.is_leader()
+            if lost and rt.elector.is_leader() and rt._may_act():
+                regained = True
+                break
+            time.sleep(0.02)
+        regain_ms = (time.perf_counter() - t_steal) * 1e3
+        standing_divergences = COHERENCE.final_check(timeout=10.0)
+        return {
+            "binding": binding, "bind_ms": bind_ms, "stolen": stolen, "deposed": lost, "regained": regained,
+            "regain_ms": regain_ms, "standing_divergences": [str(d) for d in standing_divergences],
+        }
+
+    chaos.KUBE_CHAOS.install(plan)
+    try:
+        run = drive_runtime_round(rt, env, dev, names, write_batch, RUNTIME_DEADLINE_S, before_stop=after_round)
+    finally:
+        chaos.KUBE_CHAOS.clear()
+        kube_events = [(e["entity"], e["event"], e["attrs"]) for e in reversed(JOURNAL.events(limit=KUBE_CHAOS_JOURNAL_RING)) if e["kind"] == journal.KIND_KUBE]
+        JOURNAL.disable()
+        JOURNAL.reset()
+    after = run["before_stop"]
+    released, holds, got = runtime_reads(rt, kube, run, catalog, dev)
+    same = same_outcome(got, plain_line)
+    history = plan.history()
+    launched_names = [n for n, _pods in run["placed"] if kube.get_node(n) is not None and kube.get_node(n).spec.provider_id]
+    pods_now = {p.name: p for p in kube.list_pods()}
+    lost_pods = sorted(n for n in names if not pods_now[n].spec.node_name or kube.get_node(pods_now[n].spec.node_name) is None)
+    line = {
+        "phase": name,
+        "card": card_name,
+        "pods": pods_n,
+        "standing_nodes": standing,
+        "types": HEADLINE_TYPES,
+        "min_batch": plain_line["min_batch"],
+        "specs": list(KUBE_CHAOS_SPECS),
+        "seed": KUBE_CHAOS_SEED,
+        "create_in_gap_ms": (run["created"] - run["t0"]) * 1e3,
+        "pods_to_last_nomination_ms": (run["done"] - run["t0"]) * 1e3,
+        "runtime_round_pods_to_last_nomination_ms": plain_line["pods_to_last_nomination_ms"],
+        "nominated": len(run["nominated"] & names),
+        "nodes_launched": len(got["launched"]),
+        "pods_nominated_onto_standing": sum(len(n[1]) for n in got["standing"]),
+        "price_per_hour": got["price_per_hour"],
+        "same_outcome": same,
+        "binding": after["binding"],
+        "bind_ms": after["bind_ms"],
+        "lease": {"stolen": after["stolen"], "deposed": after["deposed"], "regained": after["regained"], "regain_ms": after["regain_ms"]},
+        "kube_faults_injected": plan.fired(),
+        "kube_conflicts_total": chaos.conflicts_total() - conflicts_before,
+        "history_digest": hashlib.sha256(json.dumps(history, sort_keys=True).encode()).hexdigest()[:16],
+        "history": history,
+        "journal_kube_events": kube_events,
+        "lost_pods": len(lost_pods),
+        # a node name placed twice, or a cloud create with no node of its own
+        "double_launches": (len(launched_names) - len(set(launched_names))) + (len(provider.create_calls) - len(set(launched_names))),
+        "informer_divergences": len(after["standing_divergences"]) + divergences_total() - divergences_before,
+        "kernel_launches": run["launches"],
+        "kernel_holds": holds,
+        "broken": run["broken"],
+        "healthy": run["healthy"],
+        "lease_released": released,
+    }
+    emit(line)
+    faults = [h["fault"] for h in history if "fault" in h]
+    actions = [h["action"] for h in history if "action" in h]
+    events = [e[1] for e in kube_events]
+    gap_events = [e for e in events if e in ("watch-gap", "relist")]
+    check(run["healthy"], f"{name}: the Runtime turned unhealthy")
+    check(names <= run["nominated"], f"{name}: {len(names - run['nominated'])} of {pods_n} pods never nominated")
+    check(all(same.values()), f"{name}: the outcome differs from runtime_round's: {same}")
+    check(line["lost_pods"] == 0, f"{name}: lost pods {lost_pods[:10]}")
+    check(line["double_launches"] == 0, f"{name}: a node launched twice ({len(provider.create_calls)} creates, {len(launched_names)} launched)")
+    check(line["informer_divergences"] == 0, f"{name}: informer divergences {after['standing_divergences']}")
+    check(after["binding"]["bound"] == pods_n, f"{name}: bound {after['binding']['bound']} of {pods_n}")
+    check(faults.count("conflict") == 5 and faults.count("stale-read") == 1, f"{name}: the plan fired {faults}")
+    check(line["kube_conflicts_total"] == after["binding"]["conflicts_caught"] == 5, f"{name}: conflicts counted {line['kube_conflicts_total']}, caught {after['binding']['conflicts_caught']}")
+    check(actions == ["watch-gap-begin", "compact", "watch-gap-end", "lease-steal"], f"{name}: the plan recorded actions {actions}")
+    check(gap_events == ["watch-gap", "relist"], f"{name}: the journal's watch-gap events {kube_events}")
+    check(events.count("conflict-storm") == 5 and "lease-lost" in events, f"{name}: the journal's kube events {kube_events}")
+    check(after["stolen"] and after["deposed"] and after["regained"], f"{name}: the lease steal {line['lease']}")
+    check(run["launches"]["bucket_type_cost"] >= 1 and run["launches"]["warm_fill_counts"] >= 1, f"{name}: the window launched {run['launches']}")
+    check(holds and all(h["identical"] for h in holds), f"{name}: a kernel call differs from its plain version: {[h for h in holds if not h['identical']]}")
+    check(not any(run["broken"].values()), f"{name}: the round broke placements: {run['broken']}")
+    check(released, f"{name}: the Lease was not released")
+    return line
+
+
+def scenario_campaign(dev, card_name) -> dict:
+    """The scenario campaign (scenarios/) through CampaignRunner on the
+    card: SCENARIO_RUNS, each a live Runtime with its own threads, batcher,
+    interruption loop and disruption orchestrator, the workload stand-in
+    around it, each scenario on the dense path (`dense_solver=True`: K1 and
+    K2 carry every batch). smoke_burst on both cloud transports; device_fault_storm (the
+    breaker opened by injected device-lost faults, the burst held and solved
+    by the recovery probe) and watch_gap_storm (watch gaps, a compaction and
+    a 409 storm on node registration) in process. Each run's document
+    validates through scenario_doc_errors, converges, and has every zero
+    score zero; each run launches K1, the phase K2; every K1/K2 call of each
+    run is captured and held bit for bit. Artifacts go to a temporary
+    directory."""
+    import dataclasses
+    import tempfile
+
+    from karpenter_tpu_torch.scenarios import CampaignRunner, default_campaign, scenario_doc_errors, smoke_campaign
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+
+    by_name = {s.name: s for s in default_campaign() + smoke_campaign()}
+    runs, seams = [], (dense_module.bucket_cost_packed, fill_module.admission_counts)
+    with tempfile.TemporaryDirectory() as out:
+        for scenario_name, transports in SCENARIO_RUNS:
+            for transport in transports:
+                runner = CampaignRunner(out_dir=out, transports=(transport,), device=str(dev))
+                captures = []
+                capture_kernel_calls(captures)
+                read_launches()
+                t0 = time.perf_counter()
+                try:
+                    (doc,) = runner.run([dataclasses.replace(by_name[scenario_name], dense_solver=True)])
+                finally:
+                    dense_module.bucket_cost_packed, fill_module.admission_counts = seams
+                wall_s = time.perf_counter() - t0
+                sync(dev)
+                launches = read_launches()
+                holds = hold_kernel_calls(captures, dev)
+                (run,) = doc["runs"]
+                scores = run["scores"]
+                runs.append({
+                    "scenario": scenario_name,
+                    "transport": transport,
+                    "converged": run["converged"],
+                    "doc_errors": scenario_doc_errors(doc),
+                    "wall_s": wall_s,
+                    "duration_s": run["duration_seconds"],
+                    "zero_scores": {k: scores[k] for k in SCENARIO_ZERO_SCORES},
+                    "pods": [scores["pods_bound"], scores["pods_desired"]],
+                    "pending_latency_s": scores["pending_latency_seconds"],
+                    "solver_faults": [scores["solver_faults_injected"], scores["solver_faults_total"]],
+                    "breaker_state": scores["breaker_state"],
+                    "kube": [scores["kube_faults_injected"], scores["kube_conflicts_total"]],
+                    "capsule_triggers": sorted(scores["capsule_triggers"]),
+                    "kernel_launches": launches,
+                    "kernel_calls_held": len(holds),
+                    "kernel_calls_identical": sum(h["identical"] for h in holds),
+                })
+    line = {"phase": "scenario_campaign", "card": card_name, "runs": runs}
+    emit(line)
+    for r in runs:
+        where = f"scenario_campaign {r['scenario']}/{r['transport']}"
+        check(not r["doc_errors"], f"{where}: invalid document {r['doc_errors']}")
+        check(r["converged"], f"{where}: did not converge")
+        check(not any(r["zero_scores"].values()), f"{where}: nonzero scores {r['zero_scores']}")
+        check(r["pods"][0] == r["pods"][1] > 0, f"{where}: bound {r['pods']}")
+        check(r["kernel_launches"]["bucket_type_cost"] >= 1, f"{where}: launched {r['kernel_launches']}")
+        check(r["kernel_calls_held"] > 0 and r["kernel_calls_identical"] == r["kernel_calls_held"], f"{where}: {r['kernel_calls_identical']} of {r['kernel_calls_held']} kernel calls identical")
+    # K2 runs where a batch finds standing nodes: device_fault_storm holds
+    # every burst until its probe, which places them all on an empty cluster
+    k2_launches = sum(r["kernel_launches"]["warm_fill_counts"] for r in runs)
+    check(k2_launches >= 1, f"scenario_campaign: K2 never launched ({[r['kernel_launches'] for r in runs]})")
+    storm = next(r for r in runs if r["scenario"] == "device_fault_storm")
+    check(storm["capsule_triggers"] == ["breaker-open"] and storm["breaker_state"] == "closed", f"scenario_campaign device_fault_storm: {storm}")
+    gaps = next(r for r in runs if r["scenario"] == "watch_gap_storm")
+    check(gaps["kube"][0] >= 1 and gaps["kube"][1] >= gaps["kube"][0], f"scenario_campaign watch_gap_storm: kube faults/conflicts {gaps['kube']}")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5275,12 +5548,19 @@ def main() -> int:
     # and recovered on the card, the budget split, the corruptions, the
     # plans' determinism
     faulted_line = runtime_round_faulted(dev, card_name, runtime_line)
+    # 12c4. the control-plane fault domain: the batch created in a compacted
+    # watch gap, conflicts on its binds, a stale read and a lease steal,
+    # held to the plain round's outcome
+    kube_chaos_line = runtime_round_kube_chaos(dev, card_name, runtime_line)
     sidecar_line = solver_sidecar(dev, card_name)
 
     # 12d. the wire: the Runtime's cell over HTTP against an apiserver
     # process, then a fresh controller process against one
     runtime_http_line = runtime_round_http(dev, card_name, runtime_line)
     controller_process_http(dev, card_name)
+    # 12e. the scenario campaign: live Runtimes under the workload stand-in
+    # and seeded chaos, every batch through K1 and K2
+    campaign_line = scenario_campaign(dev, card_name)
     logsetup.set_level("warning")
 
     def runtime_launches(kernel_name):
@@ -5321,6 +5601,10 @@ def main() -> int:
             "budget_split": faulted_line["budget_split"]["launches"][kernel_name],
             "corruptions": {c["kind"]: c["launches"][kernel_name] for c in faulted_line["corruptions"]},
         }
+
+    def campaign_launches(kernel_name):
+        """The scenario campaign's launches of one kernel, by run."""
+        return {f"{r['scenario']}/{r['transport']}": r["kernel_launches"][kernel_name] for r in campaign_line["runs"]}
 
     def interruption_launches(kernel_name):
         """The wave's launches of one kernel over its timed runs, in the
@@ -5395,6 +5679,8 @@ def main() -> int:
                 "traced_launches": traced_line["kernel_launches"]["bucket_type_cost"],
                 "recorded_launches": recorded_launches("bucket_type_cost"),
                 "faulted_launches": faulted_launches("bucket_type_cost"),
+                "kube_chaos_launches": kube_chaos_line["kernel_launches"]["bucket_type_cost"],
+                "campaign_launches": campaign_launches("bucket_type_cost"),
                 "sidecar_launches": sidecar_line["kernel_launches"]["bucket_type_cost"],
                 "sidecar_grpc_launches": sidecar_line["grpc"]["kernel_launches"]["bucket_type_cost"],
                 "http_launches": http_launches("bucket_type_cost"),
@@ -5430,6 +5716,8 @@ def main() -> int:
                 "traced_launches": traced_line["kernel_launches"]["warm_fill_counts"],
                 "recorded_launches": recorded_launches("warm_fill_counts"),
                 "faulted_launches": faulted_launches("warm_fill_counts"),
+                "kube_chaos_launches": kube_chaos_line["kernel_launches"]["warm_fill_counts"],
+                "campaign_launches": campaign_launches("warm_fill_counts"),
                 "sidecar_launches": sidecar_line["kernel_launches"]["warm_fill_counts"],
                 "sidecar_grpc_launches": sidecar_line["grpc"]["kernel_launches"]["warm_fill_counts"],
                 "http_launches": http_launches("warm_fill_counts"),

@@ -7,10 +7,14 @@ breaker looked like, the pending-latency waterfall at capture time, and the
 fault timeline leading up to the trigger:
 
     python -m karpenter_tpu_torch.cmd.capsule inspect CAPSULE_breaker-open_0001.json
+    python -m karpenter_tpu_torch.cmd.capsule inspect CAPSULE_... --replay [--compress 60]
 
-The port's copy of karpenter_tpu/cmd/capsule.py. `--replay` rebuilds the arrival schedule
-through scenarios/replay.py, which the port does not have yet (ROADMAP
-A10): it exits 2 and says so.
+`--replay` feeds the capsule's embedded journal slice through
+scenarios/replay.py `ReplayTrace` and prints the reconstructed arrival
+schedule — the recorded load pattern that produced the incident, ready to
+re-present to a live Runtime (the capture-to-reproduction loop).
+
+The port's copy of karpenter_tpu/cmd/capsule.py.
 """
 
 from __future__ import annotations
@@ -86,10 +90,29 @@ def _print_fault_timeline(doc: dict, limit: int = 40) -> None:
         print(f"  t={event['t']:>10.3f}  {event['kind']:<6} {event['entity']:<24} {event['event']}{extra}")
 
 
+def _print_replay(doc: dict, compress: float) -> int:
+    from ..scenarios.replay import JournalSchemaError, ReplayTrace
+
+    events = (doc.get("journal") or {}).get("events") or []
+    source = doc["capsule"]["id"]
+    try:
+        trace = ReplayTrace.from_events(events, compress=compress, source=source)
+    except JournalSchemaError as exc:
+        print(f"capsule journal slice failed replay validation: {exc}", file=sys.stderr)
+        return 1
+    print(f"\nreplay schedule (compress {compress:g}x, digest {trace.source_digest})")
+    if not trace.arrivals:
+        print("  no pod `created` events in the capsule's journal slice — nothing to replay")
+        return 0
+    print(f"  {len(trace.arrivals)} arrivals over {trace.total_seconds():.3f}s")
+    for delay, name in trace.schedule()[:20]:
+        print(f"  +{delay:>8.3f}s  {name}")
+    if len(trace.arrivals) > 20:
+        print(f"  ... {len(trace.arrivals) - 20} more")
+    return 0
+
+
 def inspect(path: str, replay: bool = False, compress: float = 1.0) -> int:
-    if replay:
-        print("capsule inspect --replay needs scenarios/replay.py, which is not ported yet (ROADMAP A10)", file=sys.stderr)
-        return 2
     try:
         with open(path, encoding="utf-8") as f:
             doc = json.load(f)
@@ -106,6 +129,8 @@ def inspect(path: str, replay: bool = False, compress: float = 1.0) -> int:
     _print_fault_domain(doc)
     _print_waterfall(doc)
     _print_fault_timeline(doc)
+    if replay:
+        return _print_replay(doc, compress)
     return 0
 
 
@@ -114,7 +139,7 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
     cmd = sub.add_parser("inspect", help="print a capsule's waterfall, burn rates, and fault timeline")
     cmd.add_argument("path", help="path to a CAPSULE_*.json file")
-    cmd.add_argument("--replay", action="store_true", help="rebuild the arrival schedule via ReplayTrace (ROADMAP A10; exits 2)")
+    cmd.add_argument("--replay", action="store_true", help="rebuild the arrival schedule via ReplayTrace")
     cmd.add_argument("--compress", type=float, default=1.0, help="replay clock compression (default 1.0)")
     args = parser.parse_args(argv)
     return inspect(args.path, replay=args.replay, compress=args.compress)

@@ -21,8 +21,9 @@ the SLO snapshot's (--enable-slo: /debug/slo), the flight recorder's
 (--enable-capsules: /debug/capsules), the residency auditor's
 (--residency-audit-interval: /debug/residency), the coherence witness's
 (--coherence-interval: /debug/coherence) and the invariant monitor's
-(--invariants-interval: /debug/invariants). The fault domain's flags raise
-through the Runtime (ROADMAP A7). A runtime whose loop dies ends the
+(--invariants-interval: /debug/invariants). The solver fault domain's flags
+(--solver-breaker-threshold, --solver-breaker-backoff, --solver-hbm-budget)
+configure the Runtime's breaker and budget split. A runtime whose loop dies ends the
 process: `main` leaves its wait, and `Runtime.stop()` re-raises.
 """
 

@@ -14,9 +14,7 @@ added or changed without regenerating the doc.
 
 The port's copy of karpenter_tpu/cmd/gen_docs.py. --check takes its path and
 has no default: the repository's METRICS.md is the JAX package's render,
-which the port neither checks nor writes. The families of modules the port
-does not have yet (the chaos orchestrator, ROADMAP A10, among them) are
-absent from its render.
+which the port neither checks nor writes.
 """
 
 from __future__ import annotations
@@ -61,6 +59,11 @@ def collect_registry():
     from ..cloudprovider.simulated.apiclient import CloudAPIClient
 
     CloudAPIClient("http://127.0.0.1:1")
+    # the chaos orchestrator's family registers at module import (the
+    # campaign harness is the only consumer, so the runtime never pulls it
+    # in); the invariant monitor's families ride the Runtime import above
+    from ..scenarios import chaos_orchestrator  # noqa: F401
+
     # the incremental solve engine's pass/invalidation families and the
     # residency auditor's also register at module import — the runtime
     # only pulls the modules in when --solver-incremental or

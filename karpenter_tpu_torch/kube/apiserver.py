@@ -25,11 +25,8 @@ State is wire-format dicts end to end; the server never imports the object
 model, so it exercises the codec + client exactly as a remote apiserver
 would.
 
-The port's copy of karpenter_tpu/kube/apiserver.py. The control-plane fault
-plan (injected conflicts, stale reads, refused and compacting watches) is
-left out (ROADMAP A7). The watch kill, the watch blackout and the forced
-compaction stay as plain server operations, which tests call directly. One
-change of cost only: the handler sets TCP_NODELAY on its connections.
+The port's copy of karpenter_tpu/kube/apiserver.py. One change of cost only:
+the handler sets TCP_NODELAY on its connections.
 """
 
 from __future__ import annotations
@@ -42,6 +39,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
+from .chaos import FAULT_COMPACT, FAULT_CONFLICT, FAULT_STALE_READ, FAULT_WATCH_DROP, KUBE_CHAOS
 from .codec import API_REGISTRY, ts_to_wire
 
 _JOURNAL_CAP = 50_000
@@ -90,7 +88,7 @@ class APIServerState:
         self._rv = 0
         self._journal: List[Tuple[int, str, str, dict]] = []  # (rv, kind, type, wire)
         self._watchers: List[Tuple[str, "queue.Queue"]] = []
-        self._watch_blocked = False  # watch blackout: subscribes refused 503
+        self._watch_blocked = False  # chaos blackout: subscribes refused 503
         self._clock = clock
         # admission webhook registrations: in-process registrations (the
         # test convenience) plus _dynamic_webhooks derived from stored
@@ -237,7 +235,17 @@ class APIServerState:
         if kind in self.WEBHOOK_CONFIG_KINDS:
             self._rebuild_dynamic_webhooks()
 
-    # -- watch and journal disruption (server operations) ---------------------
+    # -- chaos seam (kube/chaos.py) ------------------------------------------
+
+    def _chaos(self, verb: str, kind: str):
+        """Consult the control-plane fault plan at one verb boundary (one
+        attribute read when no plan is installed). An injected conflict is
+        the same 409 wire status an organic stale write gets — the CLIENT's
+        RetryOnConflict/relist machinery is what the storm exercises."""
+        fault = KUBE_CHAOS.check(verb, kind)
+        if fault == FAULT_CONFLICT:
+            raise ApiError(409, "Conflict", f"{kind}: injected conflict storm at verb {verb!r}")
+        return fault
 
     def chaos_kill_watches(self) -> None:
         """Drop every live watch stream (connection closed mid-stream): each
@@ -245,6 +253,7 @@ class APIServerState:
         with self._lock:
             for _, q in list(self._watchers):
                 q.put(None)
+        KUBE_CHAOS.record_action("watch-kill", transport="http")
 
     def chaos_watch_gap_begin(self) -> None:
         """Open a watch blackout: live streams are killed and re-subscribes
@@ -253,11 +262,13 @@ class APIServerState:
         in the journal."""
         with self._lock:
             self._watch_blocked = True
+        KUBE_CHAOS.record_action("watch-gap-begin", transport="http")
         self.chaos_kill_watches()
 
     def chaos_watch_gap_end(self) -> None:
         with self._lock:
             self._watch_blocked = False
+        KUBE_CHAOS.record_action("watch-gap-end", transport="http")
 
     def chaos_compact(self) -> None:
         """Forced journal compaction: everything but the newest record is
@@ -266,10 +277,12 @@ class APIServerState:
         with self._lock:
             if len(self._journal) > 1:
                 del self._journal[:-1]
+        KUBE_CHAOS.record_action("compact", transport="http")
 
     # -- verbs (wire dicts in, wire dicts out; raise (code, reason, msg)) ----
 
     def create(self, kind: str, namespace: str, wire: dict) -> dict:
+        self._chaos("create", kind)
         wire = self._admit(kind, wire, "CREATE")
         with self._lock:
             meta = wire.setdefault("metadata", {})
@@ -288,6 +301,7 @@ class APIServerState:
             return wire
 
     def update(self, kind: str, namespace: str, name: str, wire: dict) -> dict:
+        self._chaos("update", kind)
         wire = self._admit(kind, wire, "UPDATE")
         with self._lock:
             key = (kind, namespace, name)
@@ -316,6 +330,7 @@ class APIServerState:
             return wire
 
     def delete(self, kind: str, namespace: str, name: str, force: bool = False) -> dict:
+        self._chaos("delete", kind)
         with self._lock:
             key = (kind, namespace, name)
             current = self._objects.get(key)
@@ -338,6 +353,14 @@ class APIServerState:
             current = self._objects.get((kind, namespace, name))
             if current is None:
                 raise ApiError(404, "NotFound", f"{kind} {name!r} not found")
+        if self._chaos("get", kind) == FAULT_STALE_READ:
+            # serve the read one write behind: the resourceVersion handed
+            # back no longer matches the store, so the caller's next
+            # conditional PUT loses its CAS — a lagging replica's answer
+            stale = json.loads(json.dumps(current))
+            meta = stale.setdefault("metadata", {})
+            meta["resourceVersion"] = str(max(0, int(meta.get("resourceVersion") or 0) - 1))
+            return stale
         return current
 
     def list(self, kind: str, namespace: Optional[str]) -> Tuple[List[dict], int]:
@@ -350,8 +373,11 @@ class APIServerState:
             return json.loads(json.dumps(items)), self._rv
 
     def subscribe(self, kind: str, since_rv: int) -> Tuple["queue.Queue", List[tuple]]:
+        fault = self._chaos("watch", kind)
+        if fault == FAULT_COMPACT:
+            self.chaos_compact()
         with self._lock:
-            if self._watch_blocked:
+            if fault == FAULT_WATCH_DROP or self._watch_blocked:
                 raise ApiError(503, "ServiceUnavailable", "watch stream refused (chaos blackout)")
             if self._journal and since_rv and since_rv < self._journal[0][0] - 1:
                 raise ApiError(410, "Expired", f"resourceVersion {since_rv} is too old")
@@ -541,7 +567,7 @@ class _Handler(BaseHTTPRequestHandler):
                 except queue.Empty:
                     continue
                 if record is None:
-                    # watch kill sentinel: close the SOCKET, not just the
+                    # chaos kill sentinel: close the SOCKET, not just the
                     # handler — under HTTP/1.1 keep-alive a bare return
                     # leaves the client blocked on readline() forever
                     self.close_connection = True

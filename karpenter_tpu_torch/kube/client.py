@@ -19,8 +19,7 @@ Every verb serializes through kube/codec.py, so state observed by
 controllers is always a decoded wire copy — reference semantics, where
 mutating a local object never changes the cluster until written back.
 
-The port's copy of karpenter_tpu/kube/client.py. Left out: the conflict
-counter, defined in kube/chaos.py (ROADMAP A7).
+The port's copy of karpenter_tpu/kube/client.py, as the reference has it.
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ from urllib.parse import urlparse
 from ..api.objects import CSINode, Namespace, Node, PersistentVolume, PersistentVolumeClaim, Pod, StorageClass
 from ..api.provisioner import Provisioner
 from ..logsetup import get_logger
+from .chaos import KUBE_CONFLICTS
 from .cluster import ADDED, DELETED, MODIFIED, Conflict, ConflictExhausted, NotFound, WatchEvent
 from .codec import API_REGISTRY, from_wire, rest_path, to_wire
 
@@ -180,6 +180,7 @@ class HttpKubeClient:
             out = self._request("POST", rest_path(obj.kind, obj.metadata.namespace), wire)
         except ApiStatusError as err:
             if err.code == 409:
+                KUBE_CONFLICTS.inc(kind=obj.kind, verb="create")
                 raise Conflict(str(err)) from err
             raise
         stored = from_wire(out)
@@ -203,6 +204,7 @@ class HttpKubeClient:
                     raise NotFound(str(err)) from err
                 if err.code != 409:
                     raise
+                KUBE_CONFLICTS.inc(kind=obj.kind, verb="update")
                 if attempt == self.RETRY_ON_CONFLICT_ATTEMPTS - 1:
                     # typed exhaustion, never a raw ApiStatusError: callers
                     # dispatch on "every refresh round lost" explicitly
@@ -230,6 +232,7 @@ class HttpKubeClient:
             if err.code == 404:
                 raise NotFound(str(err)) from err
             if err.code == 409:
+                KUBE_CONFLICTS.inc(kind=obj.kind, verb="update_no_retry")
                 raise Conflict(str(err)) from err
             raise
         obj.metadata.resource_version = int(out.get("metadata", {}).get("resourceVersion") or 0)
@@ -253,6 +256,7 @@ class HttpKubeClient:
             if err.code == 409:
                 # a conflicted delete (injected storms included) must speak
                 # the same typed, counted surface the other verbs do
+                KUBE_CONFLICTS.inc(kind=obj.kind, verb="delete")
                 raise Conflict(str(err)) from err
             raise
         # surface the terminating timestamp on the caller's copy

@@ -11,10 +11,7 @@ Watches dispatch synchronously on the mutating thread, which makes controller
 tests deterministic (the reference needs TriggerAndWait plumbing for the same
 reason).
 
-The port's copy of karpenter_tpu/kube/cluster.py keeps the store, the watch,
-the resync list and the watch-gap mechanics. The control-plane fault plan
-(injected conflicts and stale reads) and its conflict counter are left out
-(ROADMAP A7), and so are the watch gap's journal events (A8b).
+The port's copy of karpenter_tpu/kube/cluster.py, as the reference has it.
 """
 
 from __future__ import annotations
@@ -24,6 +21,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 from ..api.objects import CSINode, Namespace, Node, PersistentVolume, PersistentVolumeClaim, Pod, PodDisruptionBudget, StorageClass
 from ..api.provisioner import Provisioner
+from .chaos import FAULT_CONFLICT, FAULT_STALE_READ, KUBE_CHAOS, KUBE_CONFLICTS
 
 ADDED = "ADDED"
 MODIFIED = "MODIFIED"
@@ -42,7 +40,8 @@ class Conflict(RuntimeError):
 
 class ConflictExhausted(Conflict):
     """The bounded RetryOnConflict budget ran out: every refresh-and-resend
-    round lost to another writer. Typed so controllers can dispatch on
+    round lost to another writer. Typed (and counted through
+    `karpenter_kube_conflicts_total`) so controllers can dispatch on
     exhaustion instead of treating it like a single routine 409."""
 
 
@@ -64,7 +63,7 @@ class KubeCluster:
         self._objects: Dict[str, Dict[tuple, object]] = {}
         self._watchers: Dict[str, List[Callable[[WatchEvent], None]]] = {}
         self._version = 0
-        # watch-gap state: while a gap is open,
+        # watch-gap chaos state (kube/chaos.py): while a gap is open,
         # dispatch buffers instead of delivering — the synchronous-transport
         # analog of a killed watch stream whose events wait in the server
         # journal until the informer reconnects
@@ -79,13 +78,25 @@ class KubeCluster:
         with self._lock:
             return self._version
 
+    def _chaos(self, verb: str, kind: str):
+        """Consult the control-plane fault plan at one verb boundary (a
+        single attribute read when no plan is installed). An injected
+        conflict is raised — and counted — exactly like an organic one."""
+        fault = KUBE_CHAOS.check(verb, kind)
+        if fault == FAULT_CONFLICT:
+            KUBE_CONFLICTS.inc(kind=kind, verb=verb)
+            raise Conflict(f"{kind}: injected conflict storm at verb {verb!r}")
+        return fault
+
     # -- verbs ---------------------------------------------------------------
 
     def create(self, obj) -> object:
+        self._chaos("create", obj.kind)
         with self._lock:
             store = self._objects.setdefault(obj.kind, {})
             key = _key(obj)
             if key in store:
+                KUBE_CONFLICTS.inc(kind=obj.kind, verb="create")
                 raise Conflict(f"{obj.kind} {key} already exists")
             self._version += 1
             obj.metadata.resource_version = self._version
@@ -96,6 +107,7 @@ class KubeCluster:
         return obj
 
     def update(self, obj) -> object:
+        self._chaos("update", obj.kind)
         with self._lock:
             store = self._objects.setdefault(obj.kind, {})
             key = _key(obj)
@@ -111,6 +123,7 @@ class KubeCluster:
         """Conditional update: the write only lands if obj carries the
         resourceVersion currently stored — the compare-and-swap primitive
         leader election requires. (Plain update() keeps last-write-wins.)"""
+        self._chaos("update_no_retry", obj.kind)
         with self._lock:
             store = self._objects.setdefault(obj.kind, {})
             key = _key(obj)
@@ -118,6 +131,7 @@ class KubeCluster:
             if current is None:
                 raise NotFound(f"{obj.kind} {key} not found")
             if obj.metadata.resource_version not in (0, current.metadata.resource_version):
+                KUBE_CONFLICTS.inc(kind=obj.kind, verb="update_no_retry")
                 raise Conflict(
                     f"{obj.kind} {key}: stale resourceVersion {obj.metadata.resource_version} "
                     f"(current {current.metadata.resource_version})"
@@ -138,6 +152,7 @@ class KubeCluster:
     def delete(self, obj, grace: bool = True) -> None:
         """Start (or finish) deletion. Objects with finalizers get a deletion
         timestamp and stay until finalizers clear, like the real API."""
+        self._chaos("delete", obj.kind)
         with self._lock:
             store = self._objects.get(obj.kind, {})
             key = _key(obj)
@@ -173,7 +188,17 @@ class KubeCluster:
 
     def get(self, kind: str, name: str, namespace: str = "default"):
         with self._lock:
-            return self._objects.get(kind, {}).get((namespace, name))
+            current = self._objects.get(kind, {}).get((namespace, name))
+        if current is not None and self._chaos("get", kind) == FAULT_STALE_READ:
+            import copy
+
+            # serve the read one write behind: a conditional update carrying
+            # this copy's resourceVersion loses its CAS, exactly what a
+            # lagging apiserver replica would have cost the caller
+            stale = copy.deepcopy(current)
+            stale.metadata.resource_version = max(0, int(stale.metadata.resource_version or 0) - 1)
+            return stale
+        return current
 
     def list(self, kind: str, namespace: Optional[str] = None) -> List[object]:
         with self._lock:
@@ -224,11 +249,12 @@ class KubeCluster:
         for handler in list(self._watchers.get(kind, [])):
             handler(event)
 
-    # -- watch gaps ------------------------------------------------------------
+    # -- watch-gap chaos (kube/chaos.py imperative verbs) ----------------------
 
     def chaos_gap_open(self) -> bool:
-        """True while a watch gap is suppressing dispatch: a cache behind a
-        gapped store is EXPECTED to lag, and is repaired at gap close."""
+        """True while an injected watch gap is suppressing dispatch — the
+        coherence witness skips its rounds then: a cache behind a gapped
+        store is EXPECTED incoherence, repaired at gap close, not a bug."""
         with self._lock:
             return self._gap_open
 
@@ -244,6 +270,11 @@ class KubeCluster:
             self._gap_dropped = False
             self._gap_buffer = []
             self._gap_snapshot = {kind: dict(store) for kind, store in self._objects.items()}
+        KUBE_CHAOS.record_action("watch-gap-begin", transport="inprocess")
+        from ..journal import JOURNAL
+
+        if JOURNAL.enabled:
+            JOURNAL.kube_event("kube-store", "watch-gap", transport="inprocess")
 
     def chaos_compact(self) -> None:
         """Forced journal compaction inside an open gap: the buffered events
@@ -254,6 +285,7 @@ class KubeCluster:
                 return
             self._gap_dropped = True
             self._gap_buffer = []
+        KUBE_CHAOS.record_action("compact", transport="inprocess")
 
     def chaos_watch_gap_end(self) -> None:
         """Close the gap: flush the buffered events in order (the reconnect
@@ -264,12 +296,16 @@ class KubeCluster:
         the replay fully drains: were the flag cleared first, a concurrent
         write could dispatch live and then be overwritten by the stale
         replay behind it — delivery order is the informer contract."""
+        dropped = False
+        relist_events = 0
+        total = 0
         first = True
         while True:
             with self._lock:
                 if not self._gap_open:
                     return
                 if first and self._gap_dropped:
+                    dropped = True
                     snapshot = self._gap_snapshot or {}
                     deliveries = []
                     kinds = set(snapshot) | set(self._objects)
@@ -280,6 +316,7 @@ class KubeCluster:
                         for key, obj in snapshot.get(kind, {}).items():
                             if key not in current:
                                 deliveries.append((kind, WatchEvent(DELETED, obj)))
+                    relist_events = len(deliveries)
                     self._gap_dropped = False  # later rounds drain the buffer
                     self._gap_buffer = []
                 else:
@@ -291,9 +328,15 @@ class KubeCluster:
                     self._gap_snapshot = None
                     break
                 first = False
+            total += len(deliveries)
             for kind, event in deliveries:
                 for handler in list(self._watchers.get(kind, [])):
                     handler(event)
+        KUBE_CHAOS.record_action("watch-gap-end", transport="inprocess", relist=dropped, events=total)
+        from ..journal import JOURNAL
+
+        if JOURNAL.enabled and dropped:
+            JOURNAL.kube_event("kube-store", "relist", transport="inprocess", events=relist_events)
 
     # -- typed conveniences ---------------------------------------------------
 

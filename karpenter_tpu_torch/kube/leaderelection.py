@@ -13,11 +13,12 @@ transitions — `on_started_leading` and `on_stopped_leading` — so a holder
 whose lease is stolen or whose renew fails steps its loops down before the
 successor's recovery acts; every lost transition is counted
 (`karpenter_leader_flaps_total`) and journaled (`lease-lost` /
-`lease-acquired` kube events), and a legal competing writer can steal the
-lease outright (`steal_lease`) to prove it.
+`lease-acquired` kube events), and the chaos seam (kube/chaos.py) can fail
+individual renew rounds (`lease-lost` fault) or steal the lease outright
+(`steal_lease`) to prove it.
 
-The port's copy of karpenter_tpu/kube/leaderelection.py. Left out: the
-control-plane fault plan's hooks (ROADMAP A7).
+The port's copy of karpenter_tpu/kube/leaderelection.py, as the reference has
+it.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Callable, Optional
 from ..api.objects import Lease, LeaseSpec, ObjectMeta
 from ..logsetup import get_logger
 from ..metrics import REGISTRY
+from .chaos import FAULT_CONFLICT, FAULT_LEASE_LOST, KUBE_CHAOS
 from .cluster import Conflict, NotFound
 
 log = get_logger("leaderelection")
@@ -81,6 +83,11 @@ class LeaseElector:
         the round — retry next period."""
         import copy
 
+        # the chaos seam: an injected lease-lost/conflict fails THIS round's
+        # CAS the way a racing candidate would — the loop below must step
+        # down, never free-run on a lease it cannot prove it holds
+        if KUBE_CHAOS.check("lease-renew", "Lease") in (FAULT_LEASE_LOST, FAULT_CONFLICT):
+            return False
         now = self.clock.now()
         lease = self.kube.get("Lease", self.name, self.namespace)
         # deepcopy before mutating: an in-memory backend returns live shared
@@ -180,7 +187,8 @@ class LeaseElector:
 
     @property
     def thread(self) -> Optional[threading.Thread]:
-        """The election loop's thread (None before start)."""
+        """The election loop's thread (None before start) — the Runtime
+        registers it with the invariants thread census."""
         return self._thread
 
     def wait_for_leadership(self, timeout: float = 30.0) -> bool:
@@ -204,7 +212,8 @@ class LeaseElector:
 
 
 def steal_lease(kube, identity: str = "chaos-thief", name: str = LEASE_NAME, namespace: str = LEASE_NAMESPACE, clock=None) -> bool:
-    """Adversarially overwrite the lease holder mid-renew. The steal itself obeys optimistic concurrency (a CAS
+    """Adversarially overwrite the lease holder mid-renew — the chaos seam's
+    lease-steal action. The steal itself obeys optimistic concurrency (a CAS
     loop), because a thief that bypassed the protocol would prove nothing:
     the point is that a LEGAL competing writer can take the lease, and the
     displaced holder must step down on its next renew round. The thief never
@@ -232,6 +241,7 @@ def steal_lease(kube, identity: str = "chaos-thief", name: str = LEASE_NAME, nam
             continue  # the holder renewed under us: retry the steal
         except NotFound:
             return False
+        KUBE_CHAOS.record_action("lease-steal", thief=identity, lease=name)
         log.warning("lease %s stolen by %s (transition %d)", name, identity, lease.spec.lease_transitions)
         return True
     return False

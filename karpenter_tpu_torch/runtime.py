@@ -69,6 +69,11 @@ class Runtime:
     options: Options = field(default_factory=Options)
     dense_solver: object = None
     device: str = "cuda"
+    # the residency auditor's sampled-draw seed and full-shadow cadence
+    # (None: the module default); a harness that restarts the Runtime
+    # passes the same values to every successor
+    audit_seed: int = 0
+    audit_shadow_every: Optional[int] = None
 
     def __post_init__(self):
         configure_logging(self.options.log_level)
@@ -140,7 +145,9 @@ class Runtime:
         if self.options.residency_audit_interval > 0:
             from .solver.audit import ResidencyAuditor
 
-            self.auditor = ResidencyAuditor(interval=self.options.residency_audit_interval)
+            self.auditor = ResidencyAuditor(
+                seed=self.audit_seed, interval=self.options.residency_audit_interval, shadow_every=self.audit_shadow_every
+            )
         if self.dense_solver is None and self.options.dense_solver_enabled:
             from .solver import DenseSolver
 

@@ -171,12 +171,13 @@ class ResidencyAuditor:
     advances and before the warm fill consumes the encoding — the one point
     where the resident state, the caller's view snapshot and the journal
     checkpoint all describe the same instant. `seed` seeds the sampled
-    draw."""
+    draw; every `shadow_every`-th audit is a full shadow."""
 
-    def __init__(self, seed: int = 0, interval: Optional[int] = None):
+    def __init__(self, seed: int = 0, interval: Optional[int] = None, shadow_every: Optional[int] = None):
         self._lock = WITNESS.lock("solver.audit")
         self.seed = int(seed)
         self.interval = INTERVAL if interval is None else int(interval)
+        self.shadow_every = SHADOW_EVERY if shadow_every is None else max(1, int(shadow_every))
         self.passes = 0
         self.audits = 0
         self.heals = 0
@@ -196,7 +197,7 @@ class ResidencyAuditor:
         """The rows audit `audit_index` compares, of V: all of them for a
         full shadow or a cluster no larger than the sample, else a seeded
         draw of SAMPLE_ROWS."""
-        shadow = audit_index % SHADOW_EVERY == 0 and V * SHADOW_ROW_BYTES <= SHADOW_BUDGET_BYTES
+        shadow = audit_index % self.shadow_every == 0 and V * SHADOW_ROW_BYTES <= SHADOW_BUDGET_BYTES
         if shadow or V <= SAMPLE_ROWS:
             return list(range(V))
         rng = random.Random(split_seed(self.seed, f"audit-{audit_index}"))
@@ -319,7 +320,7 @@ class ResidencyAuditor:
                 "enabled": True,
                 "interval": self.interval,
                 "sample_rows": SAMPLE_ROWS,
-                "shadow_every": SHADOW_EVERY,
+                "shadow_every": self.shadow_every,
                 "shadow_budget_bytes": SHADOW_BUDGET_BYTES,
                 "passes_seen": self.passes,
                 "audits": self.audits,

@@ -2,15 +2,11 @@
 
 tests/test_capsule.py as written on the port (a port copy of the module
 through `port_copy`), the breaker-open emit site and the capsule document's
-`fault_domain` block (solver/faults.py) included, less what waits for other
-ROADMAP items:
-
-- test_steady_recompile_fires_only_on_within_run_retrace needs a committed
-  solver contract (A13) and the JAX package's per-entry jit cache polling,
-  which the port has no counterpart of (flight.py);
-- test_replay_round_trips_the_journal_slice needs scenarios/replay.py
-  (A10): its port counterpart holds that `inspect --replay` exits 2 and
-  names A10.
+`fault_domain` block (solver/faults.py) and `inspect --replay` through the
+port's scenarios/replay.py included, less
+test_steady_recompile_fires_only_on_within_run_retrace: it needs a committed
+solver contract (ROADMAP A13) and the JAX package's per-entry jit cache
+polling, which the port has no counterpart of (flight.py).
 """
 
 from __future__ import annotations
@@ -26,12 +22,4 @@ TestEmitSites = without(_CAPSULE.TestEmitSites, "test_steady_recompile_fires_onl
 TestBurnRate = _CAPSULE.TestBurnRate
 TestSpool = _CAPSULE.TestSpool
 TestDebugRoute = _CAPSULE.TestDebugRoute
-
-
-class TestInspectCLI(without(_CAPSULE.TestInspectCLI, "test_replay_round_trips_the_journal_slice")):
-    def test_replay_waits_for_the_scenarios(self, tmp_path, capsys):
-        from karpenter_tpu_torch.cmd import capsule as cmd_capsule
-
-        path = self._spooled_capsule(tmp_path)
-        assert cmd_capsule.main(["inspect", path, "--replay", "--compress", "2"]) == 2
-        assert "ROADMAP A10" in capsys.readouterr().err
+TestInspectCLI = _CAPSULE.TestInspectCLI

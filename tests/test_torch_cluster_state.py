@@ -180,3 +180,44 @@ def test_a_watch_gap_buffers_then_replays_into_the_journal():
     port.kube.chaos_watch_gap_end()
     assert events == [(DELETED, "g-a")] and MODIFIED not in {t for t, _ in events}
     assert port.cluster.nodes_snapshot() == []
+
+
+def test_a_watch_gap_journals_the_same_kube_events_on_both_packages():
+    """With the journal on, a watch gap records `watch-gap` when it opens and,
+    when it closes after a compaction dropped its events, `relist`; an
+    installed kube fault plan records the gap's actions in its history. Both
+    packages record the same."""
+    import karpenter_tpu.journal as ref_journal
+    import karpenter_tpu.kube.chaos as ref_chaos
+    from karpenter_tpu_torch import journal
+    from karpenter_tpu_torch.kube import chaos
+
+    records = []
+    for side, journal_module, chaos_module in zip(_sides(), (ref_journal, journal), (ref_chaos, chaos)):
+        JOURNAL, KUBE_CHAOS = journal_module.JOURNAL, chaos_module.KUBE_CHAOS
+        JOURNAL.enable()
+        JOURNAL.reset()
+        KUBE_CHAOS.install(chaos_module.KubeFaultPlan([], seed=3))
+        try:
+            side.create_node("j-a", ZONES[0], 8)
+            side.kube.chaos_watch_gap_begin()  # a plain gap: replayed, no relist
+            side.bind("j-p", "j-a", 1.0, daemon=False)
+            side.kube.chaos_watch_gap_end()
+            side.kube.chaos_watch_gap_begin()  # a compacted gap: relisted
+            side.create_node("j-b", ZONES[1], 4)
+            side.delete_node("j-a")
+            side.kube.chaos_compact()
+            side.kube.chaos_watch_gap_end()
+            # events() is newest first
+            events = [(e["entity"], e["event"], e["attrs"]) for e in reversed(JOURNAL.events(limit=100)) if e["kind"] == "kube"]
+            records.append((events, KUBE_CHAOS.plan.history(), [n.node.name for n in side.cluster.nodes_snapshot()]))
+        finally:
+            KUBE_CHAOS.clear()
+            JOURNAL.disable()
+            JOURNAL.reset()
+    ref, port = records
+    assert [e[1] for e in port[0]] == ["watch-gap", "watch-gap", "relist"]
+    assert port[0][2][2] == {"transport": "inprocess", "events": 3}  # j-b and j-p live, j-a gone
+    assert [h["action"] for h in port[1]] == ["watch-gap-begin", "watch-gap-end", "watch-gap-begin", "compact", "watch-gap-end"]
+    assert port[2] == ["j-b"]
+    assert port == ref

@@ -106,6 +106,7 @@ def _port_sources():
     yield from sorted((REPO / "karpenter_tpu_torch").rglob("*.py"))
     yield REPO / "chip_smoke.py"
     yield REPO / "chip_sweep.py"
+    yield REPO / "chip_campaign.py"
 
 
 def test_port_imports_neither_jax_nor_the_reference():

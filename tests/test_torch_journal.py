@@ -2,10 +2,9 @@
 
 - tests/test_journal.py as written on the port (a port copy of the module
   through `port_copy`): recording, the bounds under load, disabled-is-free,
-  the waterfall, the watch hooks, the routes and the schema. Its
-  TestReplayTrace cases and test_pod_burst_journal_replays_exactly need
-  scenarios/ (ReplayTrace, the campaign runner), which waits for ROADMAP
-  A10;
+  the waterfall, the watch hooks, the routes, the schema, ReplayTrace, and
+  the pod_burst scenario's journal captured by the campaign runner (its
+  Runtime on the CPU) and replayed;
 - tests/test_leader_flap.py::TestLeaderFlap::test_flap_counts_and_journals
   on both packages: a stolen Lease journals `lease-lost` and the
   re-acquisition `lease-acquired`.
@@ -72,13 +71,7 @@ def coherence_witness():
 
 # -- tests/test_journal.py --------------------------------------------------------
 
-_JOURNAL = recorder_copy(
-    "test_journal",
-    extra=(
-        # scenarios/ is ROADMAP A10's: the ReplayTrace cases are left out below
-        ("from karpenter_tpu_torch.scenarios import ReplayTrace\n", "ReplayTrace = None\n"),
-    ),
-)
+_JOURNAL = recorder_copy("test_journal", extra=(("CampaignRunner(", 'CampaignRunner(device="cpu", '),))
 _lock_order_witness = _JOURNAL._lock_order_witness
 journal = _JOURNAL.journal
 TestRecording = _JOURNAL.TestRecording
@@ -88,6 +81,8 @@ TestWaterfall = _JOURNAL.TestWaterfall
 TestWatchDriven = _JOURNAL.TestWatchDriven
 TestRoutes = _JOURNAL.TestRoutes
 TestJournalSchema = _JOURNAL.TestJournalSchema
+TestReplayTrace = _JOURNAL.TestReplayTrace
+test_pod_burst_journal_replays_exactly = _JOURNAL.test_pod_burst_journal_replays_exactly
 
 
 # -- tests/test_leader_flap.py:111 ------------------------------------------------

@@ -11,7 +11,8 @@ resourceVersion, timestamps, Lease holders and times).
   TestLeaderElection and TestRuntimeOverHttp;
 - tests/test_conflict_storm.py;
 - tests/test_kube_recovery.py's stream-close, compaction, backoff-jitter
-  and renewal-failure cases (its fault-plan cases wait for ROADMAP A7);
+  and renewal-failure cases (its fault-plan cases are in
+  tests/test_torch_kube_chaos.py);
 - the port's client against the JAX package's server and the JAX package's
   client against the port's, on one CRUD and watch sequence: the two wires
   are one protocol.

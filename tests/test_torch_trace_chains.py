@@ -7,9 +7,9 @@ the port (port copies through `port_copy`):
   Runtime's capacity-failure rounds, with the launch-failure counter and the
   escalated pod's decision record;
 - tests/test_disruption_storm.py (marked slow, as the reference's is): the
-  storm under the port's lock witness, its teardown holding the acquisition
-  graph acyclic; the informer-coherence witness waits for kube/coherence.py
-  (ROADMAP A7).
+  storm under the port's lock witness and informer-coherence witness, its
+  teardown holding the acquisition graph acyclic and every informer cache
+  equal to its store.
 
 The port's tracer, decision log and witness are disabled and emptied after
 every test (`port_telemetry`), the JAX package's singletons restored
@@ -22,6 +22,7 @@ import pytest
 
 from tests.test_torch_provisioning import reference_singletons  # noqa: F401
 from tests.test_torch_scheduler_catalog import port_copy
+from tests.test_torch_journal import coherence_witness  # noqa: F401  the port's witness, for the storm
 from tests.test_torch_tracing import port_telemetry  # noqa: F401
 
 _DISRUPTION = port_copy(
@@ -59,9 +60,9 @@ _STORM = port_copy(
     extra=(
         ("from tests.test_disruption import DisruptionEnv", "DisruptionEnv = _DISRUPTION.DisruptionEnv"),
         ("def _lock_order_witness(lock_order_witness):", "def _lock_order_witness(port_lock_order_witness):"),
-        ("def _coherence_witness(coherence_witness):", "def _coherence_witness():"),
     ),
     inject={"_DISRUPTION": _DISRUPTION},
 )
 _lock_order_witness = _STORM._lock_order_witness
+_coherence_witness = _STORM._coherence_witness
 test_disruption_storm_budget_invariant = _STORM.test_disruption_storm_budget_invariant

@@ -170,12 +170,9 @@ def test_traced_dense_solve_spans_on_both_packages():
 
 # every family the JAX package registers that the port's render lacks, with
 # the JAX package's module that defines it; a slice that ports one of these
-# modules brings its families back and takes them off this list
-MISSING_FAMILIES = {
-    "karpenter_chaos_injected_total": "scenarios/chaos_orchestrator.py",
-    "karpenter_kube_conflicts_total": "kube/chaos.py",
-    "karpenter_kube_faults_injected_total": "kube/chaos.py",
-}
+# modules brings its families back and takes them off this list. Every
+# module that registers a family is ported, so the list is empty
+MISSING_FAMILIES: dict = {}
 
 # shared families whose help text the port words for its own instrument: the
 # flight recorder counts nvcc kernel builds where the JAX package counts XLA
