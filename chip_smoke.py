@@ -171,6 +171,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -431,6 +432,10 @@ SCENARIO_ZERO_SCORES = (
 HTTP_ROUND_DEADLINE_S = 180.0
 NODES_SETTLE_S = 3.0
 THREAD_JOIN_DEADLINE_S = 60.0
+# a child's log line at info level ("I12:34:56 ..."); controller_process_http
+# keeps the others (at most LOG_PROBLEMS_KEPT) in its line
+INFO_LINE = re.compile(r"I\d\d:\d\d:\d\d ")
+LOG_PROBLEMS_KEPT = 80
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 
@@ -4821,7 +4826,6 @@ def controller_process_http(dev, card_name, command=None) -> dict:
     shows one provisioned batch of every pod with none unschedulable and
     its solver on the card; the Lease is released in the server. The child
     is killed and the server stopped on any failure."""
-    import re
     import signal
 
     from karpenter_tpu_torch import testing
@@ -4955,8 +4959,13 @@ def controller_process_http(dev, card_name, command=None) -> dict:
         "in_process": {"kernels": kernels_solve, "plain": plain_solve_rec},
         "kernel_launches": "in the child (K1's probe at boot, K1 in the round), whose counts this process cannot read",
         "log_tail": log.splitlines()[-12:],
+        # every line of the child's log above info level: warnings, errors and tracebacks
+        "log_problems": [s for s in log.splitlines() if s.strip() and not INFO_LINE.match(s)][:LOG_PROBLEMS_KEPT],
     }
     emit(line)
+    if proc is not None and proc.returncode != 0:
+        print(f"chip_smoke: {name}: the child exited {proc.returncode}; its log above info level:", file=sys.stderr)
+        print("\n".join(line["log_problems"]), file=sys.stderr, flush=True)
     check(ready_ms is not None, f"{name}: the probes did not both answer 200 within {BOOT_DEADLINE_S} s (exit {proc.returncode if proc else None})")
     check(device is not None and device.group(1).startswith("cuda"), f"{name}: the child's solver ran on {line['solver_device']}")
     check(kernels_solve["launches"]["bucket_type_cost"] >= 1 and kernels_solve["launches"]["warm_fill_counts"] == 0, f"{name}: the in-process solve launched {kernels_solve['launches']}")

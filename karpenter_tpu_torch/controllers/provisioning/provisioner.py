@@ -17,7 +17,11 @@ Three deliberate differences from the reference:
   batch on a solver fault (solver/faults.py: a `SolverFault`, an open
   breaker's included): the pods stay Pending and the loop re-arms itself
   for max(now, the breaker's reopen time), since no pod event will wake it,
-  and retries on the card. Any other exception, a device-lost the card
+  and retries on the card. It holds the batch the same way when the cluster
+  state has not caught up with the API by the round's sync deadline
+  (`ClusterNotSynced`, the reference's TimeoutError): the round launched
+  nothing, and the loop re-triggers its batcher, as provisioner.go requeues
+  an unsynced reconcile. Any other exception, a device-lost the card
   raised included (faults.ends_the_loop), ends the loop at that round,
   stays in `error`, and `stop()` re-raises it;
 - its capacity-failure re-solve takes the cluster state as it stands,
@@ -57,6 +61,12 @@ from .batcher import Batcher
 from .volumetopology import VolumeTopology
 
 log = get_logger("provisioning")
+
+
+class ClusterNotSynced(TimeoutError):
+    """The cluster state had not caught up with the API by the round's sync
+    deadline, or the loop was stopped while the round waited for it. The
+    round launched nothing: its batch stays pending for the next round."""
 
 
 class ProvisionerController:
@@ -165,6 +175,15 @@ class ProvisionerController:
             self._fault_retry_at = None
             try:
                 self.provision()
+            except ClusterNotSynced as exc:
+                if self._stop.is_set():
+                    return
+                # a watch lagging the API (a scale-up's node events over
+                # HTTP) is transient: the batch re-enters through the
+                # batcher's window
+                log.warning("provisioning round held: %s; the batch stays pending and retries", exc)
+                self.batcher.trigger()
+                continue
             except Exception as exc:
                 if isinstance(exc, SolverFault) and not ends_the_loop(exc):
                     self._fault_retry_at = max(self.clock.now(), BREAKER.retry_at())
@@ -219,8 +238,8 @@ class ProvisionerController:
         if self.wait_for_cluster_sync:
             deadline = self.clock.now() + 10.0
             while not self.cluster.synchronized():
-                if self.clock.now() > deadline:
-                    raise TimeoutError("cluster state failed to synchronize")
+                if self.clock.now() > deadline or self._stop.is_set():
+                    raise ClusterNotSynced("cluster state failed to synchronize")
                 self.clock.sleep(0.05)
 
         state_nodes = self.cluster.nodes_snapshot()

@@ -107,6 +107,8 @@ def _port_sources():
     yield REPO / "chip_smoke.py"
     yield REPO / "chip_sweep.py"
     yield REPO / "chip_campaign.py"
+    yield REPO / "chip_process_http.py"
+    yield REPO / "chip_process_http.py"
 
 
 def test_port_imports_neither_jax_nor_the_reference():

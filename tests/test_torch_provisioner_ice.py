@@ -20,7 +20,9 @@ on both packages; and the port's batch loop, which stops on a failed round.
   instance_types(100), every offering of the 25 cheapest types marked
   unavailable, one round through the provisioning controller.
 - The port's own: a round whose solve raises ends the batch loop with the
-  error kept and re-raised by stop(); a failed remote solve raises out of
+  error kept and re-raised by stop(); a round whose cluster state has not
+  caught up with the API by the sync deadline is held and retried, and a
+  stop during that wait ends the loop with no error; a failed remote solve raises out of
   the round instead of falling back to the local scheduler; the
   batcher's window opens, extends and caps under a FakeClock as the JAX
   package's does.
@@ -31,6 +33,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -273,6 +276,65 @@ def test_raising_solve_ends_the_batch_loop_and_stop_reraises():
     assert env.kube.list_nodes() == []
     with pytest.raises(RuntimeError, match="device lost mid-solve"):
         controller.stop()
+
+
+def test_a_state_cache_behind_the_api_holds_the_round_and_the_loop_goes_on():
+    """The cluster state behind the API past the round's 10 s sync deadline
+    (a watch lagging a scale-up over HTTP) holds the round: nothing
+    launches, the loop goes on, and the batch is provisioned once the cache
+    has caught up (on the FakeClock, each 0.05 s poll of the wait steps it)."""
+    env = testing.Environment()
+    controller = env.provisioner_controller
+    controller.wait_for_cluster_sync = True
+    checks, synced = [], env.cluster.synchronized
+
+    def lagging():
+        checks.append((env.clock.now(), len(env.kube.list_nodes())))
+        return len(checks) > 250 and synced()
+
+    env.cluster.synchronized = lagging
+    env.kube.create(testing.make_provisioner())
+    controller.start()
+    try:
+        env.kube.create(testing.make_pod(requests={"cpu": "1"}))  # the pod event triggers the batcher
+        deadline = time.monotonic() + 30
+        while not env.kube.list_nodes() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert len(env.kube.list_nodes()) == 1, "the held batch was never provisioned"
+        assert controller.error is None and controller.thread.is_alive()
+        waited = [t for t, _ in checks]
+        assert waited[201] - waited[0] > 10.0, "the first round did not wait out its sync deadline"
+        assert all(nodes == 0 for _, nodes in checks[:251]), "a round launched before the cache caught up"
+    finally:
+        controller.stop()
+    assert controller.error is None and not controller.thread.is_alive()
+
+
+def test_a_stop_during_the_sync_wait_ends_the_loop_with_no_error():
+    """stop() while a round waits for a cache that never catches up ends
+    the batch loop at the next poll, not at the 10 s deadline, and keeps no
+    error."""
+    from karpenter_tpu_torch.utils.clock import Clock
+
+    env = testing.Environment(clock=Clock())
+    controller = env.provisioner_controller
+    controller.wait_for_cluster_sync = True
+    waiting = threading.Event()
+
+    def never():
+        waiting.set()
+        return False
+
+    env.cluster.synchronized = never
+    env.kube.create(testing.make_provisioner())
+    controller.start()
+    env.kube.create(testing.make_pod(requests={"cpu": "1"}))
+    assert waiting.wait(30), "no round reached the sync wait"
+    t0 = time.monotonic()
+    controller.stop()
+    assert time.monotonic() - t0 < 2.0
+    assert controller.error is None and not controller.thread.is_alive()
+    assert env.kube.list_nodes() == []
 
 
 def test_clean_stop_raises_nothing():
