@@ -12,6 +12,17 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
   - headline_10k_x_500: 10,000 pending pods x 500 instance types on an
     empty cluster (K1), also solved with K1's plain version and through the
     exact host loop;
+  - solver_mesh: the solver mesh (parallel/). K1's keyed launch, which
+    also returns each bucket's winning key, held bit for bit against its
+    plain version and the unkeyed launch; the sharded dispatch on 8 logical
+    blocks of the card (pods 4 x types 2), bit-equal to one K1 launch on
+    the headline solve's inputs, a padded shape, ties planted across the
+    type blocks and rows with no feasible type; the headline solve through
+    DenseSolver(mesh=...), with the unsharded solve's placements, node
+    count and $/hour and every block's K1 call held, timed in turns with
+    the unsharded solver; the two-process fleet
+    (parallel/peers.py) over gloo with both processes on the card; over
+    NCCL, one card per process, where there are several cards;
   - selectors_taints_5k_x_500 (K1);
   - repack_16k_x_2400: 16,000 pods x 100 types onto a warm cluster of
     2,400 nodes that takes every pod (K2, never K1), also solved with K2's
@@ -327,6 +338,7 @@ FAULTED_BACKOFF_S = 8.0  # long enough for the open breaker's checks, waited out
 FAULTED_JOURNAL_RING = 262144  # every pod's transitions over the faulted and recovered rounds
 FAULTED_OPEN_DEADLINE_S = 120.0
 FAULTED_NO_PLAN_RUNS = 2
+CAPSULE_SPOOL_WAIT_S = 10.0  # a capsule another thread's poll is still writing
 # the injected corruption kinds, their state seams and the audit finding each must give
 CORRUPTIONS = (
     ("corrupt-device", "rebase", "device-corrupt"),
@@ -429,6 +441,20 @@ SCENARIO_ZERO_SCORES = (
     "lost_pods", "budget_violations", "leaked_instances", "double_launches", "informer_divergences",
     "invariant_violations", "leaked_threads", "leaked_watches",
 )
+# the solver mesh (parallel/): 8 logical blocks on the one card, pods 4 x
+# types 2; the sharded dispatch's checks at (B, T, R[, kind]); the fleet of
+# two processes over gloo sharing the card (NCCL refuses two ranks on one
+# GPU), parallel/peers.py's demo shape
+MESH_BLOCKS, MESH_TYPES_PARALLEL = 8, 2
+MESH_SHAPES = [(30, 500, 8), (29, 501, 8), (30, 500, 8, "cross_block_ties"), (30, 500, 8, "all_infeasible")]
+MESH_DISPATCH_ITERS = 50
+FLEET = {"n_processes": 2, "devices_per_process": 4, "pod_count": 48, "solves": 3}
+FLEET_TIMEOUT_S = 300.0
+# cmd/solver_service.py --coordinator on the card: two processes over gloo,
+# 4 logical blocks each, serving the headline batch over gRPC
+SERVICE_FLEET = {"n_processes": 2, "devices_per_process": 4, "backend": "gloo"}
+SERVICE_TRIALS = 3
+SERVICE_BOOT_S, SERVICE_STOP_S = 180.0, 60.0
 HTTP_ROUND_DEADLINE_S = 180.0
 NODES_SETTLE_S = 3.0
 THREAD_JOIN_DEADLINE_S = 60.0
@@ -3954,7 +3980,14 @@ def runtime_round_faulted(dev, card_name, plain_line) -> dict:
             hold["engine_pending_invalidation"] = rt.dense_solver.incremental._pending_invalidate
             hold["retry_in_s"] = BREAKER.retry_at() - BREAKER.clock.now()
             CAPSULE.poll()
-            files = sorted(spool.glob(f"CAPSULE_{TRIGGER_BREAKER_OPEN}_*.json"))
+            # the metrics loop's own poll may have drained the trigger first
+            # and still be building the capsule: wait for its file
+            files = []
+            spool_deadline = time.perf_counter() + CAPSULE_SPOOL_WAIT_S
+            while not files and time.perf_counter() < spool_deadline:
+                files = sorted(spool.glob(f"CAPSULE_{TRIGGER_BREAKER_OPEN}_*.json"))
+                if not files:
+                    time.sleep(0.05)
             hold["capsule_files"] = [f.name for f in files]
             if files:
                 doc = json.loads(files[0].read_text())
@@ -5234,6 +5267,399 @@ def scenario_campaign(dev, card_name) -> dict:
     return line
 
 
+
+def fleet_placements_hold(fleet_out, dev) -> bool:
+    """The fleet coordinator's layouts against one in-process solve of the
+    same demo pods on the card, with no mesh."""
+    from karpenter_tpu_torch.api.provisioner import Provisioner
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.parallel.peers import _demo_pods, demo_layout
+    from karpenter_tpu_torch.scheduler import build_scheduler
+    from karpenter_tpu_torch.solver import DenseSolver
+
+    pods = _demo_pods(FLEET["pod_count"])
+    solver = DenseSolver(min_batch=1, device=dev, use_mesh=False)
+    want = demo_layout(build_scheduler([Provisioner()], FakeCloudProvider(instance_types(64)), pods, dense_solver=solver).solve(pods))
+    return fleet_out["layouts"] == [want] * FLEET["solves"]
+
+
+def service_fleet_headline(pods, provider, provisioners, dense_out) -> dict:
+    """cmd/solver_service.py --coordinator on the card, as a deployment
+    starts it: SERVICE_FLEET["n_processes"] processes on cuda:0 over gloo
+    with 4 logical blocks each (an 8-block mesh); process 0 serves gRPC with
+    DenseSolver(min_batch=1, peer_fabric=...), process 1 follows its
+    solves. The headline batch through service.client.SolverClient: a
+    warm-up and SERVICE_TRIALS solves, each one's placements, node count and
+    $/hour held against the in-process unsharded solve (dense_out); the
+    coordinator's Scheduler.solve alone, from its health answer; SIGTERM to
+    process 0 releases the peer, and both exit 0."""
+    import os
+    import signal
+    import tempfile
+
+    from karpenter_tpu_torch.service.client import SolverClient
+
+    n = SERVICE_FLEET["n_processes"]
+    coordinator, address = f"127.0.0.1:{free_port()}", f"127.0.0.1:{free_port()}"
+    argv = [
+        sys.executable, "-m", "karpenter_tpu_torch.cmd.solver_service",
+        "--coordinator", coordinator, "--address", address,
+        "--backend", SERVICE_FLEET["backend"], "--devices-per-process", str(SERVICE_FLEET["devices_per_process"]),
+        "--log-level", "info",
+    ]
+    instance_types = {p.name: provider.get_instance_types(p) for p in provisioners}
+    procs, runs, client = [], [], None
+    boot_s = None
+    with tempfile.TemporaryDirectory() as logs:
+        paths = [f"{logs}/process-{pid}.log" for pid in range(n)]
+        try:
+            t0 = time.perf_counter()
+            for pid in range(n):
+                env = {**os.environ, "KARPENTER_TPU_NUM_PROCESSES": str(n), "KARPENTER_TPU_PROCESS_ID": str(pid)}
+                with open(paths[pid], "w") as log:
+                    procs.append(subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT, text=True, env=env, cwd=os.path.dirname(os.path.abspath(__file__))))
+            client = SolverClient(address, timeout=GRPC_TIMEOUT_S)
+            while boot_s is None and all(p.poll() is None for p in procs) and time.perf_counter() - t0 < SERVICE_BOOT_S:
+                try:
+                    client.health()
+                    boot_s = time.perf_counter() - t0
+                except Exception:  # noqa: BLE001 - not serving yet
+                    time.sleep(0.25)
+            if boot_s is not None:
+                for _ in range(1 + SERVICE_TRIALS):
+                    t1 = time.perf_counter()
+                    results = client.solve(provisioners, instance_types, pods)
+                    wall_ms = (time.perf_counter() - t1) * 1e3
+                    health = client.health()
+                    runs.append({"client_wall_ms": wall_ms, "coordinator_solve_ms": health["last_solve_seconds"] * 1e3, "sharded_batches": health["sharded_batches"], "outcome": outcome(results, pods)})
+                procs[0].send_signal(signal.SIGTERM)
+                t2 = time.perf_counter()
+                for p in procs:
+                    try:
+                        p.wait(timeout=max(1.0, SERVICE_STOP_S - (time.perf_counter() - t2)))
+                    except subprocess.TimeoutExpired:
+                        pass
+        finally:
+            if client is not None:
+                client.close()
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            texts = []
+            for path in paths:
+                try:
+                    with open(path) as log:
+                        texts.append(log.read())
+                except OSError:
+                    texts.append("")
+    codes = [p.returncode for p in procs]
+    released = re.search(r"peer 1 released after (\d+) solves", texts[1]) if len(texts) > 1 else None
+    timed = runs[1:]
+    line = {
+        "command": argv[1:],
+        "processes": n,
+        "devices_per_process": SERVICE_FLEET["devices_per_process"],
+        "backend": SERVICE_FLEET["backend"],
+        "pods": len(pods),
+        "boot_to_serving_s": boot_s,
+        "coordinator_solve_ms": statistics.median(r["coordinator_solve_ms"] for r in timed) if timed else None,
+        "coordinator_solve_ms_runs": [r["coordinator_solve_ms"] for r in timed],
+        "client_wall_ms": statistics.median(r["client_wall_ms"] for r in timed) if timed else None,
+        "client_wall_ms_runs": [r["client_wall_ms"] for r in timed],
+        "warmup_coordinator_solve_ms": runs[0]["coordinator_solve_ms"] if runs else None,
+        "sharded_batches": runs[-1]["sharded_batches"] if runs else None,
+        "nodes": [len(r["outcome"]["nodes"]) for r in runs],
+        "cost": [r["outcome"]["cost"] for r in runs],
+        "placements_identical": bool(runs) and all(r["outcome"]["nodes"] == dense_out["nodes"] for r in runs),
+        "peer_served": int(released.group(1)) if released else None,
+        "exit_codes": codes,
+    }
+    if any(codes):
+        for pid, text in enumerate(texts):
+            print(f"chip_smoke: solver_service process {pid} exited {codes[pid]}; its log's end:\n{text[-3000:]}", file=sys.stderr, flush=True)
+    check(boot_s is not None, f"the solver service fleet did not serve within {SERVICE_BOOT_S} s (exit codes {codes})")
+    check(len(runs) == 1 + SERVICE_TRIALS, f"the solver service fleet answered {len(runs)} solves")
+    check(line["placements_identical"], "the solver service fleet placed the headline differently from the in-process solve")
+    check(all(r["outcome"]["cost"] == dense_out["cost"] and r["outcome"]["scheduled"] == len(pods) and r["outcome"]["unschedulable"] == 0 for r in runs), f"the solver service fleet's $/hour or scheduled pods differ: {line['cost']}")
+    check(line["sharded_batches"] == 1 + SERVICE_TRIALS, f"the coordinator dispatched {line['sharded_batches']} sharded batches in {1 + SERVICE_TRIALS} solves")
+    check(codes == [0] * n, f"the solver service processes exited {codes}")
+    check(line["peer_served"] == 1 + SERVICE_TRIALS, f"the peer served {line['peer_served']} solves")
+    return line
+
+
+def solver_mesh_phase(dev, card_name, headline_inputs, pods, provider, provisioners, dense_out) -> dict:
+    """The solver mesh on the card (parallel/): K1's keyed launch held
+    against its plain version; make_sharded_bucket_cost on 8 logical blocks
+    of the card (pods 4 x types 2), bit-equal to one unsharded K1 launch at
+    the headline's shape, a padded shape, ties planted across the type
+    blocks and rows with no feasible type; the headline solve through
+    DenseSolver(mesh=...) with the unsharded solve's placements, types, node
+    count and $/hour, every block's K1 call held; the two-process fleet over
+    gloo on the card, at the reference's demo shape and, through
+    cmd/solver_service.py --coordinator, at the headline's; the NCCL fleet
+    over every card where there are several."""
+    from karpenter_tpu_torch.ops import bucket_cost
+    from karpenter_tpu_torch.ops.bucket_cost import bucket_cost_keyed, bucket_cost_packed
+    from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_keyed
+    from karpenter_tpu_torch.parallel import sharded as sharded_module
+    from karpenter_tpu_torch.parallel.mesh import solver_mesh
+    from karpenter_tpu_torch.parallel.peers import run_demo_fleet
+    from karpenter_tpu_torch.scheduler import build_scheduler
+    from karpenter_tpu_torch.solver import DenseSolveStats, DenseSolver
+    from karpenter_tpu_torch import testing
+
+    def keyed_holds(inputs):
+        """(packed equal, key equal, max |diff| of the packed, of the finite
+        keys): the keyed launch against its plain version on the same card
+        tensors, and its packed against the unkeyed launch's."""
+        packed, key = bucket_cost_keyed(*inputs)
+        want_packed, want_key = bucket_type_cost_keyed(*inputs)
+        unkeyed = bucket_cost_packed(*inputs)
+        torch.cuda.synchronize()
+        same_packed = bool(torch.equal(packed, want_packed)) and bool(torch.equal(packed, unkeyed))
+        same_key = bool(torch.equal(key, want_key))
+        diff = int(torch.maximum((packed.long() - want_packed.long()).abs(), (packed.long() - unkeyed.long()).abs()).max()) if packed.numel() else 0
+        finite = torch.isfinite(want_key) & torch.isfinite(key)
+        kdiff = float((key[finite] - want_key[finite]).abs().max()) if bool(finite.any()) else 0.0
+        if not torch.equal(torch.isfinite(key), torch.isfinite(want_key)):
+            kdiff = float("inf")
+        return same_packed, same_key, diff, kdiff
+
+    # 1. K1's keyed launch against its plain version, both outputs, and
+    # against the unkeyed launch
+    mismatches, max_err, key_err = [], 0, 0.0
+    for B, T, R, *kind in PARITY_SHAPES:
+        for seed in PARITY_SEEDS:
+            arrays = testing.bucket_cost_problem(np.random.default_rng(seed * 1000 + B), B, T, R, *kind)
+            same_packed, same_key, diff, kdiff = keyed_holds([torch.from_numpy(a).to(dev) for a in arrays])
+            max_err, key_err = max(max_err, diff), max(key_err, kdiff)
+            if not (same_packed and same_key):
+                mismatches.append([B, T, R, *kind, seed])
+    keyed_parity = {"shapes": len(PARITY_SHAPES), "seeds": len(PARITY_SEEDS), "tolerance": "exact", "mismatches": mismatches, "max_abs_err": max_err, "key_max_abs_err": key_err}
+    check(not mismatches, f"K1's keyed launch disagrees with its plain version at {mismatches}")
+    same_packed, same_key, diff, kdiff = keyed_holds(headline_inputs)
+    check(same_packed and same_key, "K1's keyed launch disagrees with its plain version at the headline solve's inputs")
+
+    # 2. the sharded dispatch on 8 logical blocks of the card
+    card_dev = torch.device("cuda", torch.cuda.current_device()) if dev.type == "cuda" else dev
+    mesh = solver_mesh(MESH_BLOCKS, types_parallel=MESH_TYPES_PARALLEL, devices=[card_dev] * MESH_BLOCKS)
+    cost = sharded_module.make_sharded_bucket_cost(mesh)
+    headline_host = [t.cpu().numpy() for t in headline_inputs]
+    dispatches = []
+    cases = [("headline_solve_inputs", headline_host)] + [
+        ("x".join(map(str, shape)), testing.bucket_cost_problem(np.random.default_rng(17 * shape[0] + shape[1]), *shape))
+        for shape in MESH_SHAPES
+    ]
+    for name, arrays in cases:
+        one_launch = bucket_cost_packed(*[torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]).cpu().numpy()
+        before = bucket_cost.KEYED_LAUNCHES
+        got = cost(*arrays)
+        launches = bucket_cost.KEYED_LAUNCHES - before
+        dispatches.append({
+            "case": name,
+            "shape": [int(arrays[0].shape[1]), int(arrays[1].shape[0]), int(arrays[0].shape[2])],
+            "bit_equal_to_one_launch": bool(np.array_equal(got, one_launch)),
+            "max_abs_err": int(np.abs(got.astype(np.int64) - one_launch).max()) if got.size else 0,
+            "launches": launches,
+            "feasible": int(got[2].sum()),
+        })
+        check(dispatches[-1]["bit_equal_to_one_launch"], f"the sharded dispatch disagrees with one K1 launch at {name}")
+        check(launches == mesh.size, f"the sharded dispatch at {name} launched K1 {launches} times, expected {mesh.size}")
+
+    # the dispatch's time at the headline's inputs: the padded batch's
+    # uploads, 8 keyed launches and copies, the wait and the host combine
+    stats, caps, prices, allowed = headline_host
+    caps_p, prices_p = sharded_module.pad_catalog(mesh, caps, prices)
+    stats_p, allowed_p = sharded_module.pad_batch(mesh, stats, allowed, caps_p.shape[0])
+    placed = cost.place_catalog(caps_p, prices_p)
+    host_ms = []
+    for _ in range(3):
+        cost.dispatch(stats_p, placed, allowed_p).wait()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(MESH_DISPATCH_ITERS):
+        t0 = time.perf_counter()
+        cost.dispatch(stats_p, placed, allowed_p).wait()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    end.record()
+    end.synchronize()
+    dispatch_ms = start.elapsed_time(end) / MESH_DISPATCH_ITERS
+    blocks = cost.dispatch(stats_p, placed, allowed_p).blocks().numpy()
+    combine_ms = []
+    for _ in range(MESH_DISPATCH_ITERS):
+        t0 = time.perf_counter()
+        cost.combine(blocks, caps_p.shape[0])
+        combine_ms.append((time.perf_counter() - t0) * 1e3)
+    Bb, Tb = stats_p.shape[1] // mesh.shape["pods"], caps_p.shape[0] // mesh.shape["types"]
+    block_inputs = [
+        sharded_module.block_of(mesh, a, spec, 0, 0).to(dev)
+        for a, spec in ((stats_p, sharded_module.STATS_SPEC), (caps_p, sharded_module.CAPS_SPEC), (prices_p, sharded_module.PRICES_SPEC), (allowed_p, sharded_module.ALLOWED_SPEC))
+    ]
+    block_device_ms, block_why = profiled_device_ms(lambda: bucket_cost_keyed(*block_inputs), KERNEL_ITERS, "bucket_cost_kernel")
+
+    # 3. the headline solve through DenseSolver(mesh=...): a recorded
+    # warm-up, then SOLVE_TRIALS timed solves in turns with the unsharded
+    # solver's, the counts zeroed just before each and read just after
+    calls = []
+
+    def recording(stats_t, caps_t, prices_t, allowed_t):
+        packed, key = bucket_cost_keyed(stats_t, caps_t, prices_t, allowed_t)
+        calls.append(((stats_t, caps_t, prices_t, allowed_t), packed, key))
+        return packed, key
+
+    solver = DenseSolver(min_batch=1, device=dev, mesh=mesh)
+    sharded_module.bucket_cost_keyed = recording
+    try:
+        scheduler = build_scheduler(provisioners, provider, pods, dense_solver=solver)
+        warm = outcome(scheduler.solve(pods), pods)
+    finally:
+        sharded_module.bucket_cost_keyed = bucket_cost_keyed
+    torch.cuda.synchronize()
+    held = []
+    for operands, packed, key in calls:
+        want_packed, want_key = bucket_type_cost_keyed(*operands)
+        held.append(bool(torch.equal(packed, want_packed)) and bool(torch.equal(key, want_key)))
+    check(len(calls) == mesh.size and all(held), f"the mesh solve's K1 calls: {len(calls)} captured, {held.count(False)} disagree with the plain version")
+    # the timed solves, the mesh's beside the unsharded solver's in turns
+    # (mesh, unsharded, unsharded, mesh, mesh, unsharded), each solver warm
+    unsharded = DenseSolver(min_batch=1, device=dev)
+    build_scheduler(provisioners, provider, pods, dense_solver=unsharded).solve(pods)
+    phase_names = ("encode", "fill", "device", "mask", "assemble", "device_wait", "commit")
+    runs = {"mesh": [], "unsharded": []}
+    keyed_launches, unkeyed_in_mesh, sharded_batches, results = 0, 0, 0, None
+    for which in ("mesh", "unsharded", "unsharded", "mesh", "mesh", "unsharded"):
+        timed = solver if which == "mesh" else unsharded
+        timed.stats = DenseSolveStats()
+        scheduler = build_scheduler(provisioners, provider, pods, dense_solver=timed)
+        read_launches()
+        keyed_before = bucket_cost.KEYED_LAUNCHES
+        t0 = time.perf_counter()
+        got_results = scheduler.solve(pods)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        runs[which].append({"wall_ms": ms, "phases_ms": {k: getattr(timed.stats, f"{k}_seconds") * 1e3 for k in phase_names}})
+        if which == "mesh":
+            keyed_launches += bucket_cost.KEYED_LAUNCHES - keyed_before
+            unkeyed_in_mesh += launches["bucket_type_cost"]
+            sharded_batches += timed.stats.sharded_batches
+            results = got_results
+    got = outcome(results, pods)
+
+    def medians(which):
+        return {k: statistics.median(r["phases_ms"][k] for r in runs[which]) for k in phase_names}
+
+    headline = {
+        "config": "solver_mesh_headline",
+        "pods": len(pods),
+        "wall_ms": statistics.median(r["wall_ms"] for r in runs["mesh"]),
+        "wall_ms_runs": [r["wall_ms"] for r in runs["mesh"]],
+        "phases_ms": medians("mesh"),
+        "unsharded_wall_ms": statistics.median(r["wall_ms"] for r in runs["unsharded"]),
+        "unsharded_wall_ms_runs": [r["wall_ms"] for r in runs["unsharded"]],
+        "unsharded_phases_ms": medians("unsharded"),
+        "order": "mesh, unsharded, unsharded, mesh, mesh, unsharded",
+        "sharded_batches": sharded_batches,
+        "keyed_launches": keyed_launches,
+        "unkeyed_launches_in_mesh_solves": unkeyed_in_mesh,
+        "kernel_holds": {"calls": len(calls), "identical": held.count(True)},
+        "nodes": len(got["nodes"]),
+        "cost": got["cost"],
+        "unsharded_nodes": len(dense_out["nodes"]),
+        "unsharded_cost": dense_out["cost"],
+        "placements_identical": got["nodes"] == dense_out["nodes"] and warm["nodes"] == dense_out["nodes"],
+        "scheduled": got["scheduled"],
+    }
+    check(sharded_batches == SOLVE_TRIALS, f"the mesh solves dispatched {sharded_batches} sharded batches")
+    check(keyed_launches == SOLVE_TRIALS * mesh.size, f"the mesh solves launched the keyed K1 {keyed_launches} times")
+    check(unkeyed_in_mesh == 0, "the mesh solve launched the unsharded K1")
+    check(headline["placements_identical"], "the mesh solve placed pods differently from the unsharded solve")
+    check(got["cost"] == dense_out["cost"] and len(got["nodes"]) == len(dense_out["nodes"]), "the mesh solve's $/hour or node count differs")
+    check(got["scheduled"] == len(pods) and got["unschedulable"] == 0, "the mesh solve left pods unscheduled")
+
+    # 4. the two-process fleet over gloo, both processes on this card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"], capture_output=True, text=True, timeout=30)
+    compute_mode = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "unknown"
+    check(compute_mode == "Default", f"the card's compute mode is {compute_mode!r}: two processes cannot share it")
+    t0 = time.perf_counter()
+    coord, peer = run_demo_fleet(**FLEET, timeout=FLEET_TIMEOUT_S, device="cuda", backend="gloo")
+    fleet = {
+        # the reference's demo shape: both processes' start-up (torch, the
+        # CUDA context, the group) and FLEET["solves"] solves of 48 pods
+        "startup_and_solves_s": time.perf_counter() - t0,
+        "coordinator_solve_ms_runs": coord["solve_ms"],
+        "compute_mode": compute_mode,
+        "scheduled": coord["scheduled"],
+        "requested": coord["requested"],
+        "unschedulable": coord["unschedulable"],
+        "catalog_broadcasts": coord["catalog_broadcasts"],
+        "served": peer["served"],
+        "mesh": coord["mesh"],
+        "devices": [coord["device"], peer["device"]],
+        "backend": coord["backend"],
+        "sharded_batches": coord["sharded_batches"],
+        "k1_launches": {"coordinator": coord["k1_launches"], "peer": peer["k1_launches"]},
+        "placements_held": fleet_placements_hold(coord, dev),
+    }
+    requested = FLEET["pod_count"] * FLEET["solves"]
+    check(coord["scheduled"] == requested and coord["unschedulable"] == 0, f"the fleet scheduled {coord['scheduled']} of {requested} pods")
+    check(coord["catalog_broadcasts"] == 1, f"the fleet broadcast the catalog {coord['catalog_broadcasts']} times")
+    check(peer["served"] >= FLEET["solves"], f"the peer served {peer['served']} solves")
+    check(coord["devices"] == peer["devices"] == FLEET["n_processes"] * FLEET["devices_per_process"], "the fleet's mesh is not 8 blocks")
+    check(fleet["devices"] == ["cuda:0", "cuda:0"], f"the fleet ran on {fleet['devices']}")
+    check(coord["k1_launches"] > 0 and peer["k1_launches"] > 0, f"a fleet process launched no keyed K1: {fleet['k1_launches']}")
+    check(fleet["placements_held"], "the fleet's placements differ from the in-process solve")
+
+    # 4b. cmd/solver_service.py --coordinator at the headline's width
+    service = service_fleet_headline(pods, provider, provisioners, dense_out)
+
+    # 5. NCCL across cards, where there are several
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        outs = run_demo_fleet(
+            n_processes=cards, devices_per_process=1, pod_count=FLEET["pod_count"], solves=FLEET["solves"],
+            timeout=FLEET_TIMEOUT_S, device="cuda", backend="nccl",
+        )
+        multi_card = {
+            "cards": cards,
+            "devices": [o["device"] for o in outs],
+            "scheduled": outs[0]["scheduled"],
+            "catalog_broadcasts": outs[0]["catalog_broadcasts"],
+            "k1_launches": [o["k1_launches"] for o in outs],
+        }
+        check(outs[0]["scheduled"] == requested and all(o["k1_launches"] > 0 for o in outs), f"the NCCL fleet: {multi_card}")
+    else:
+        multi_card = "not run: 1 card"
+
+    keyed_ms = cuda_ms(lambda: bucket_cost_keyed(*headline_inputs), KERNEL_ITERS)
+    keyed_plain_ms = cuda_ms(lambda: bucket_type_cost_keyed(*headline_inputs), PLAIN_ITERS)
+    keyed_device_ms, keyed_why = profiled_device_ms(lambda: bucket_cost_keyed(*headline_inputs), KERNEL_ITERS, "bucket_cost_kernel")
+    line = {
+        "phase": "solver_mesh",
+        "card": card_name,
+        "mesh": {"blocks": mesh.size, **mesh.shape, "device": str(dev)},
+        "keyed_parity": keyed_parity,
+        "dispatches": dispatches,
+        "dispatch_ms": dispatch_ms,
+        "dispatch_host_ms": statistics.median(host_ms),
+        "combine_host_ms": statistics.median(combine_ms),
+        "block_shape": [Bb, Tb, int(stats_p.shape[2])],
+        "block_device_ms": block_device_ms,
+        "keyed_ms": keyed_ms,
+        "keyed_plain_ms": keyed_plain_ms,
+        "keyed_device_ms": keyed_device_ms,
+        "device_ms_missing": keyed_why or block_why or None,
+        "headline": headline,
+        "fleet": fleet,
+        "service_fleet": service,
+        "multi_card": multi_card,
+    }
+    emit(line)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5424,6 +5850,11 @@ def main() -> int:
     check(host_out["scheduled"] == len(pods) and host_out["unschedulable"] == 0, "host loop left pods unscheduled")
     check(within, f"dense cost {dense_out['cost']} exceeds {HOST_COST_SLACK} x host cost {host_out['cost']}")
     del host_results
+
+    # 6b. the solver mesh: K1's keyed launch, the sharded dispatch on 8
+    # logical blocks of the card, the headline solve over that mesh, and the
+    # two-process fleet sharing the card
+    mesh_line = solver_mesh_phase(dev, card_name, headline_inputs, pods, provider, provisioners, dense_out)
 
     # 7. the selectors + taints configuration
     tainted = testing.make_provisioner(taints=[Taint(key="dedicated", value="batch", effect="NoSchedule")])
@@ -5710,6 +6141,35 @@ def main() -> int:
                 "device_ms is the kernel's own time in the profiler's trace, launch_floor_ms that of a "
                 "1-element fill. The bound is far below both: latency sets the kernel's time "
                 "(kernel_scaling phase)",
+            },
+            {
+                "name": "bucket_type_cost_keyed",
+                "route": "cuda",
+                "source": "karpenter_tpu_torch/csrc/bucket_cost.cu",
+                "replaces": "karpenter_tpu/ops/pallas_kernels.py:35",
+                "launches": mesh_line["headline"]["keyed_launches"],
+                "fleet_launches": mesh_line["fleet"]["k1_launches"],
+                "max_abs_err": max(mesh_line["keyed_parity"]["max_abs_err"], mesh_line["keyed_parity"]["key_max_abs_err"]),
+                "ms": mesh_line["keyed_ms"],
+                "kernel_ms": mesh_line["keyed_ms"],
+                "plain_ms": mesh_line["keyed_plain_ms"],
+                "bound_ms": max(bytes_ms + B * 4 / H100_BYTES_PER_S * 1e3, ops_ms),
+                "bound_by": "bytes" if bytes_ms + B * 4 / H100_BYTES_PER_S * 1e3 >= ops_ms else "operations",
+                "library_ms": None,
+                "parity": True,
+                "shape": [B, T, R],
+                "device_ms": mesh_line["keyed_device_ms"],
+                "block_shape": mesh_line["block_shape"],
+                "block_device_ms": mesh_line["block_device_ms"],
+                "dispatch_ms": mesh_line["dispatch_ms"],
+                "combine_host_ms": mesh_line["combine_host_ms"],
+                "launch_floor_ms": launch_floor_ms,
+                "device_ms_missing": mesh_line["device_ms_missing"],
+                "note": "K1's keyed mode (each bucket's winning key as a second output), launched once per "
+                "block of the solver mesh. launches are those of the solver_mesh phase's 3 timed headline "
+                "solves over 8 blocks of the card; ms, plain_ms and device_ms at the headline's whole "
+                "(B, T, R), block_device_ms at one block's; dispatch_ms is one sharded dispatch (uploads, "
+                "8 launches, copies, the combine) in CUDA events, combine_host_ms the combine alone",
             },
             {
                 "name": "warm_fill_counts",

@@ -61,7 +61,7 @@ COLD_BYTES = 64 << 20
 K1_SHIM = """
 extern "C" int bucket_cost_sweep(const void* stats, const void* caps, const void* prices, const void* allowed,
                                  void* out, int B, int T, int R, int threads, int blocks, void* stream) {
-    return launch_r(stats, caps, prices, allowed, out, B, T, R, Geometry{threads, blocks}, stream);
+    return launch_r(stats, caps, prices, allowed, out, nullptr, B, T, R, Geometry{threads, blocks}, stream);
 }
 
 extern "C" int bucket_cost_sweep_default(int B, int T, int* geometry) {

@@ -4,15 +4,23 @@
 
 The control plane connects with --solver-service-address (utils/options.py).
 
-The port's copy of karpenter_tpu/cmd/solver_service.py, for one card. The
-multi-host fabric (--coordinator, or $KARPENTER_TPU_COORDINATOR) is not
-ported yet: either raises NotImplementedError (ROADMAP A12).
+Multi-process: start the SAME command in every process with a shared
+--coordinator (or KARPENTER_TPU_COORDINATOR) and each process's
+KARPENTER_TPU_NUM_PROCESSES and KARPENTER_TPU_PROCESS_ID. Process 0 serves
+gRPC and coordinates; every other process enters the peer loop
+(parallel/peers.py) and computes its blocks of each sharded solve over the
+global mesh, with torch.distributed collectives (nccl across cards).
+--backend gloo carries them over the host instead, which processes that
+share one card need (NCCL refuses two ranks on one GPU), and
+--devices-per-process gives each process that many logical mesh blocks on
+its card (default: one block per visible card).
+
+The port's copy of karpenter_tpu/cmd/solver_service.py.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import threading
 
 from ..logsetup import configure, get_logger
@@ -25,13 +33,46 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="karpenter-tpu-solver")
     parser.add_argument("--address", default="127.0.0.1:7473")
     parser.add_argument("--log-level", default="info")
-    parser.add_argument("--coordinator", default=None, help="multi-host fabric coordinator (host:port); also KARPENTER_TPU_COORDINATOR")
+    parser.add_argument("--coordinator", default=None, help="multi-process fabric coordinator (host:port); also KARPENTER_TPU_COORDINATOR")
+    parser.add_argument("--backend", default=None, help="gloo or nccl (default: nccl)")
+    parser.add_argument(
+        "--devices-per-process",
+        type=int,
+        default=None,
+        help="logical mesh blocks this process holds on its card (default: one per visible card)",
+    )
     args = parser.parse_args(argv)
-    if args.coordinator or os.environ.get("KARPENTER_TPU_COORDINATOR"):
-        raise NotImplementedError("--coordinator: the multi-host fabric (parallel/multihost) is not ported yet (ROADMAP A12)")
     configure(args.log_level)
-    # SIGTERM (the kubelet's termination signal) stops the server exactly
-    # like Ctrl-C
+    # join the fabric before any solve: the solver mesh then spans every
+    # process's cards
+    from ..parallel.multihost import initialize
+
+    if not initialize(coordinator_address=args.coordinator, backend=args.backend):
+        run(args.address)
+        return
+    import torch.distributed as dist
+
+    from ..parallel.peers import PeerFabric
+
+    try:
+        fabric = PeerFabric(blocks=args.devices_per_process)
+        if fabric.is_coordinator():
+            run(args.address, fabric)
+        else:
+            # peers never serve RPC: they follow the coordinator's solves
+            # through the broadcast barrier until released
+            log.info("process %d entering the peer loop", fabric.process_index)
+            fabric.serve()
+    finally:
+        dist.destroy_process_group()
+
+
+def run(address: str, fabric=None) -> None:
+    """Serve gRPC until SIGTERM or SIGINT; with a fabric, solve over its
+    mesh and release its peers on the way out."""
+    # SIGTERM (the kubelet's termination signal) must release the peer
+    # barrier exactly like Ctrl-C, and so must any startup failure — a
+    # coordinator that dies silently leaves every peer wedged
     import signal
 
     stop = threading.Event()
@@ -39,11 +80,18 @@ def main(argv=None) -> None:
     signal.signal(signal.SIGINT, lambda *_: stop.set())
     server = None
     try:
-        server, port, _ = serve(args.address)
+        dense_solver = None
+        if fabric is not None:
+            from ..solver import DenseSolver
+
+            dense_solver = DenseSolver(min_batch=1, peer_fabric=fabric)
+        server, port, _ = serve(address, dense_solver=dense_solver)
         stop.wait()
     finally:
         if server is not None:
-            server.stop(grace=2.0)
+            server.stop(grace=2.0).wait()
+        if fabric is not None:
+            fabric.shutdown(best_effort=True)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,10 @@
 //   key   = frac*price + bins*1e-4 + price*1e-7, or inf where !ok
 //
 // and per bucket the first-index argmin t*, bins at t* (0 where t* is not
-// ok), and any(ok), written as one packed [3, B] int32 array.
+// ok), and any(ok), written as one packed [3, B] int32 array. The keyed
+// entry point also writes each bucket's winning key, [B] f32 (inf where no
+// type is ok): a mesh launches K1 on each block of types and combines the
+// blocks' (key, t) winners across them (karpenter_tpu_torch/parallel/).
 //
 // What bounds it on this card: neither bytes nor operations. The inputs are
 // the B*T bytes of `allowed` plus a few KB of catalog and bucket stats (at
@@ -141,7 +144,8 @@ template <int R, int J, bool VEC>
 __global__ void __launch_bounds__(kMaxThreads)
     bucket_cost_kernel(const float* __restrict__ sum_req, const float* __restrict__ max_req,
                        const float* __restrict__ caps, const float* __restrict__ prices,
-                       const unsigned char* __restrict__ allowed, int* __restrict__ out, int B, int T) {
+                       const unsigned char* __restrict__ allowed, int* __restrict__ out,
+                       float* __restrict__ keys, int B, int T) {
     __shared__ float warp_key[2][kMaxWarps];
     __shared__ int warp_t[2][kMaxWarps];
     __shared__ int warp_bins[2][kMaxWarps];
@@ -229,6 +233,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                 out[b] = w.t == INT_MAX ? 0 : w.t;
                 out[B + b] = w.bins;
                 out[2 * B + b] = block_any ? 1 : 0;
+                if (keys != nullptr) keys[b] = w.key;
             }
         }
         buf ^= 1;
@@ -258,23 +263,23 @@ Geometry default_geometry(int B, int T, int sms) {
 
 template <int R, bool VEC>
 cudaError_t launch(const float* stats, const float* caps, const float* prices, const unsigned char* allowed, int* out,
-                   int B, int T, Geometry g, cudaStream_t stream) {
+                   float* keys, int B, int T, Geometry g, cudaStream_t stream) {
     const float* sum_req = stats;
     const float* max_req = stats + (size_t)B * R;
     const int j = (T + g.threads - 1) / g.threads;
     if (j <= 1) {
-        bucket_cost_kernel<R, 1, VEC><<<g.blocks, g.threads, 0, stream>>>(sum_req, max_req, caps, prices, allowed, out, B, T);
+        bucket_cost_kernel<R, 1, VEC><<<g.blocks, g.threads, 0, stream>>>(sum_req, max_req, caps, prices, allowed, out, keys, B, T);
     } else if (j <= 2) {
-        bucket_cost_kernel<R, 2, VEC><<<g.blocks, g.threads, 0, stream>>>(sum_req, max_req, caps, prices, allowed, out, B, T);
+        bucket_cost_kernel<R, 2, VEC><<<g.blocks, g.threads, 0, stream>>>(sum_req, max_req, caps, prices, allowed, out, keys, B, T);
     } else {
         bucket_cost_kernel<R, kMaxTypesPerThread, VEC>
-            <<<g.blocks, g.threads, 0, stream>>>(sum_req, max_req, caps, prices, allowed, out, B, T);
+            <<<g.blocks, g.threads, 0, stream>>>(sum_req, max_req, caps, prices, allowed, out, keys, B, T);
     }
     return cudaGetLastError();
 }
 
-int launch_r(const void* stats, const void* caps, const void* prices, const void* allowed, void* out, int B, int T,
-             int R, Geometry g, void* stream) {
+int launch_r(const void* stats, const void* caps, const void* prices, const void* allowed, void* out, void* keys,
+             int B, int T, int R, Geometry g, void* stream) {
     if (B <= 0) return cudaSuccess;
     if (T < 1 || g.threads < kWarp || g.threads > kMaxThreads || g.threads % kWarp != 0 || g.blocks < 1) {
         return cudaErrorInvalidValue;
@@ -284,18 +289,19 @@ int launch_r(const void* stats, const void* caps, const void* prices, const void
     const float* p = static_cast<const float*>(prices);
     const unsigned char* a = static_cast<const unsigned char*>(allowed);
     int* o = static_cast<int*>(out);
+    float* k = static_cast<float*>(keys);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     // rows of 4 or 8 floats are 16-byte aligned when the base pointers are
     const bool vec = ((reinterpret_cast<size_t>(stats) | reinterpret_cast<size_t>(caps)) & 15) == 0;
     switch (R) {
-        case 1: return launch<1, false>(s, c, p, a, o, B, T, g, st);
-        case 2: return launch<2, false>(s, c, p, a, o, B, T, g, st);
-        case 3: return launch<3, false>(s, c, p, a, o, B, T, g, st);
-        case 4: return vec ? launch<4, true>(s, c, p, a, o, B, T, g, st) : launch<4, false>(s, c, p, a, o, B, T, g, st);
-        case 5: return launch<5, false>(s, c, p, a, o, B, T, g, st);
-        case 6: return launch<6, false>(s, c, p, a, o, B, T, g, st);
-        case 7: return launch<7, false>(s, c, p, a, o, B, T, g, st);
-        case 8: return vec ? launch<8, true>(s, c, p, a, o, B, T, g, st) : launch<8, false>(s, c, p, a, o, B, T, g, st);
+        case 1: return launch<1, false>(s, c, p, a, o, k, B, T, g, st);
+        case 2: return launch<2, false>(s, c, p, a, o, k, B, T, g, st);
+        case 3: return launch<3, false>(s, c, p, a, o, k, B, T, g, st);
+        case 4: return vec ? launch<4, true>(s, c, p, a, o, k, B, T, g, st) : launch<4, false>(s, c, p, a, o, k, B, T, g, st);
+        case 5: return launch<5, false>(s, c, p, a, o, k, B, T, g, st);
+        case 6: return launch<6, false>(s, c, p, a, o, k, B, T, g, st);
+        case 7: return launch<7, false>(s, c, p, a, o, k, B, T, g, st);
+        case 8: return vec ? launch<8, true>(s, c, p, a, o, k, B, T, g, st) : launch<8, false>(s, c, p, a, o, k, B, T, g, st);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -310,15 +316,21 @@ int sm_count(int* sms) {
 }  // namespace
 
 // stats: [2, B, R] f32 (sum, max); caps: [T, R] f32; prices: [T] f32;
-// allowed: [B, T] one byte each; out: [3, B] int32. All device pointers,
-// contiguous. Launches on `stream` with the default geometry and returns
-// cudaGetLastError().
-extern "C" int bucket_cost_launch(const void* stats, const void* caps, const void* prices, const void* allowed,
-                                  void* out, int B, int T, int R, void* stream) {
+// allowed: [B, T] one byte each; out: [3, B] int32; keys: [B] f32 or null.
+// All device pointers, contiguous. Launches on `stream` with the default
+// geometry and returns cudaGetLastError().
+extern "C" int bucket_cost_keyed_launch(const void* stats, const void* caps, const void* prices, const void* allowed,
+                                        void* out, void* keys, int B, int T, int R, void* stream) {
     int sms = 0;
     const int err = sm_count(&sms);
     if (err != cudaSuccess) return err;
-    return launch_r(stats, caps, prices, allowed, out, B, T, R, default_geometry(B, T, sms), stream);
+    return launch_r(stats, caps, prices, allowed, out, keys, B, T, R, default_geometry(B, T, sms), stream);
+}
+
+// The same launch without the keys.
+extern "C" int bucket_cost_launch(const void* stats, const void* caps, const void* prices, const void* allowed,
+                                  void* out, int B, int T, int R, void* stream) {
+    return bucket_cost_keyed_launch(stats, caps, prices, allowed, out, nullptr, B, T, R, stream);
 }
 
 // The CUDA runtime's name and text for an error code the entry points

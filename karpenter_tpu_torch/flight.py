@@ -11,7 +11,8 @@ Three instruments, one bounded ring:
 - **per-solve records** — every dense presolve appends one `SolveRecord`:
   pod/group/bucket/type/zone cardinalities, the dispatch flavor ("cuda"
   where K1 or K2 launched on the card, "plain" where K1's plain version ran
-  on the CPU, "none" where no bucket choice ran) and its padded vs actual
+  on the CPU, "sharded" where the bucket choice ran over a solver mesh,
+  "none" where no bucket choice ran) and its padded vs actual
   shapes (with padding-waste %), every `DenseSolveStats` phase delta
   (encode/fill/device/mask/assemble/commit), fill routing, and the
   build/memory attribution below. Served at `/debug/solver` (index +
@@ -180,7 +181,7 @@ class SolveRecord:
     id: int
     timestamp: float  # epoch seconds
     signature: Dict[str, int]  # the _SIGNATURE_DIMS cardinalities
-    dispatch: str  # cuda | plain | none (no device dispatch ran)
+    dispatch: str  # cuda | plain | sharded | none (no device dispatch ran)
     padding_waste_pct: float  # 100 * padded-but-dead share of the dispatch surface
     phases: Dict[str, float]  # per-phase seconds, this solve only (stats delta)
     fill_routing: Dict[str, int]  # fills/pods via the vectorized vs host fill

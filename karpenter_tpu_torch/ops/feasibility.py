@@ -46,7 +46,7 @@ def availability_counts(pair: torch.Tensor, cube: torch.Tensor) -> torch.Tensor:
     return torch.matmul(pair, cube.T) > 0.5
 
 
-def bucket_type_cost(sum_requests: torch.Tensor, max_requests: torch.Tensor, caps: torch.Tensor, prices: torch.Tensor, allowed: torch.Tensor):
+def bucket_type_cost(sum_requests: torch.Tensor, max_requests: torch.Tensor, caps: torch.Tensor, prices: torch.Tensor, allowed: torch.Tensor, keyed: bool = False):
     """Vectorized bucket -> instance-type choice.
 
     For each pack bucket b (a set of pods that will share nodes):
@@ -58,7 +58,9 @@ def bucket_type_cost(sum_requests: torch.Tensor, max_requests: torch.Tensor, cap
 
     Returns (tstar [B] int32, bins [B] int32, feasible_any [B] bool). tstar
     is the first index of the minimum key (0 on a row with no feasible
-    type), and bins is 0 where tstar is not feasible.
+    type), and bins is 0 where tstar is not feasible. With `keyed`, a fourth
+    output: the minimum key of each row, [B] f32 (inf on a row with no
+    feasible type).
     """
     safe_caps = torch.clamp_min(caps, _EPS)  # [T, R]
     ratio = sum_requests[:, None, :] / safe_caps[None, :, :]  # [B, T, R]
@@ -73,7 +75,8 @@ def bucket_type_cost(sum_requests: torch.Tensor, max_requests: torch.Tensor, cap
     tstar = torch.argmin(key, dim=1)  # first index of the minimum
     at_star = tstar[:, None]
     chosen_bins = torch.where(ok.gather(1, at_star), bins.gather(1, at_star), 0.0)[:, 0]
-    return tstar.to(torch.int32), chosen_bins.to(torch.int32), ok.any(dim=1)
+    out = (tstar.to(torch.int32), chosen_bins.to(torch.int32), ok.any(dim=1))
+    return (*out, key.gather(1, at_star)[:, 0]) if keyed else out
 
 
 def bucket_type_cost_packed(bucket_stats: torch.Tensor, caps: torch.Tensor, prices: torch.Tensor, allowed: torch.Tensor) -> torch.Tensor:
@@ -82,3 +85,11 @@ def bucket_type_cost_packed(bucket_stats: torch.Tensor, caps: torch.Tensor, pric
     (tstar, bins, feasible)."""
     tstar, bins, feasible = bucket_type_cost(bucket_stats[0], bucket_stats[1], caps, prices, allowed)
     return torch.stack([tstar, bins, feasible.to(torch.int32)])
+
+
+def bucket_type_cost_keyed(bucket_stats: torch.Tensor, caps: torch.Tensor, prices: torch.Tensor, allowed: torch.Tensor):
+    """bucket_type_cost_packed and each row's winning key: (packed int32
+    [3, B], key f32 [B], inf where no type is feasible). The plain version
+    of K1's keyed launch (ops/bucket_cost.py:bucket_cost_keyed)."""
+    tstar, bins, feasible, key = bucket_type_cost(bucket_stats[0], bucket_stats[1], caps, prices, allowed, keyed=True)
+    return torch.stack([tstar, bins, feasible.to(torch.int32)]), key

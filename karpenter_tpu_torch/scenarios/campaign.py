@@ -30,7 +30,8 @@ The port's copy of karpenter_tpu/scenarios/campaign.py. Its changes:
   through the Runtime's own arguments, and `residency_settled` reads the
   live Runtime's auditor.
 - The solver fault specs name the port's seams: "cuda" (K1's launch) where
-  the reference names "pallas", and no "sharded" spec (no mesh yet).
+  the reference names "pallas"; "plain" and "sharded" as the reference
+  names them. A run with no mesh never consults "sharded".
 - `device_fault_storm`: while the breaker is open the batch is held until
   the half-open probe (solver/faults.py); the reference's host loop takes
   it. `hbm_pressure`: an injected HBM fault holds the batch for a retry, and
@@ -1057,9 +1058,11 @@ def default_campaign() -> List[Scenario]:
             # launch) until the backoff ends and the half-open recovery
             # probe solves it. On the card K1's own seam ("cuda") is
             # consulted after "plain", so its three faults fail the first
-            # probes and re-open the breaker before one closes it
+            # probes and re-open the breaker before one closes it. A run over
+            # a solver mesh consults "sharded" in place of "plain"
             fault_specs=[
                 {"kind": "device-lost", "entry": "plain", "nth": 1, "count": 3},
+                {"kind": "device-lost", "entry": "sharded", "nth": 1, "count": 3},
                 {"kind": "device-lost", "entry": "cuda", "nth": 1, "count": 3},
             ],
             settled=breaker_reclosed,
@@ -1091,6 +1094,7 @@ def default_campaign() -> List[Scenario]:
             solver_hbm_budget_bytes=1024,
             fault_specs=[
                 {"kind": "hbm", "entry": "plain", "nth": 1, "count": 2},
+                {"kind": "hbm", "entry": "sharded", "nth": 1, "count": 2},
                 {"kind": "hbm", "entry": "cuda", "nth": 1, "count": 2},
             ],
             settled=hbm_degraded_settled,

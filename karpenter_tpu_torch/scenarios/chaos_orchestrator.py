@@ -38,8 +38,9 @@ single-domain storms cannot. This module is that composer:
   a flaky multi-hour failure becomes a tier-1-sized seeded test.
 
 The port's copy of karpenter_tpu/scenarios/chaos_orchestrator.py. The
-seeded solver specs name the port's dispatch seams, "plain" and "cuda"
-(K1's launch), where the reference names "plain", "sharded" and "pallas".
+seeded solver specs name the port's dispatch seams, "plain", "sharded" and
+"cuda" (K1's launch), where the reference names "plain", "sharded" and
+"pallas".
 """
 
 from __future__ import annotations
@@ -113,8 +114,9 @@ DEFAULT_ACTIONS: Tuple[Tuple[str, float], ...] = (
 
 _SOLVER_FAULT_KINDS = ("hbm", "device-lost", "compile")
 # the port's dispatch seams: "plain" before every unsplit bucket choice,
-# "cuda" at K1's launch (the card only)
-_SOLVER_ENTRIES = ("plain", "cuda")
+# "sharded" before one over a solver mesh, "cuda" at K1's launch (the card
+# only)
+_SOLVER_ENTRIES = ("plain", "sharded", "cuda")
 # (fault, verb, obj_kind) combos the kube draw picks from — each legal at
 # its verb per kube/chaos._FAULTS_BY_VERB, each absorbed by an existing
 # retry/relist path (the storms must stress, never wedge)

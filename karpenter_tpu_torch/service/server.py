@@ -17,13 +17,16 @@ The port's copy of karpenter_tpu/service/server.py. `SolverServer` and
 DenseSolver(min_batch=1). `SolverServer.schedule_bytes` is the handler
 `serve` registers: pickled request in, pickled response out. The server
 takes messages up to wire.MAX_MESSAGE_BYTES, where the reference keeps
-gRPC's 4 MiB default and refuses a 10,000-pod request.
+gRPC's 4 MiB default and refuses a 10,000-pod request. The health answer
+adds the last request's solve time on the server's clock and the dense
+solver's sharded batches.
 """
 
 from __future__ import annotations
 
 import pickle
 import threading
+import time
 from concurrent import futures
 from typing import Optional
 
@@ -86,6 +89,8 @@ class SolverServer:
         self.dense_solver = dense_solver if dense_solver is not None else DenseSolver(min_batch=1, device=device)
         self._lock = threading.Lock()  # one solve at a time owns the device
         self.solves = 0
+        # the last request's Scheduler.solve alone, on the server's clock
+        self.last_solve_seconds = 0.0
 
     def schedule_bytes(self, request_bytes: bytes) -> bytes:
         return pickle.dumps(self.schedule(pickle.loads(request_bytes)))
@@ -126,7 +131,9 @@ class SolverServer:
                 opts=opts,
                 dense_solver=self.dense_solver,
             )
+            t0 = time.perf_counter()
             results = scheduler.solve(request.pods)
+            self.last_solve_seconds = time.perf_counter() - t0
 
         new_nodes = [
             WireNewNode(
@@ -160,7 +167,12 @@ def serve(address: str = "127.0.0.1:0", dense_solver: Optional[DenseSolver] = No
         return handler.schedule_bytes(request_bytes)
 
     def _health(request_bytes, context):
-        return pickle.dumps({"ok": True, "solves": handler.solves})
+        return pickle.dumps({
+            "ok": True,
+            "solves": handler.solves,
+            "last_solve_seconds": handler.last_solve_seconds,
+            "sharded_batches": handler.dense_solver.stats.sharded_batches,
+        })
 
     generic = grpc.method_handlers_generic_handler(
         SERVICE_NAME,

@@ -45,6 +45,13 @@ encode or launch. The one degraded rung is planned before any launch: over
 the --solver-hbm-budget the bucket choice runs as two K1 launches, one per
 half of the bucket axis.
 
+With a (pods x types) mesh (parallel/, explicit or auto-detected over
+several cards) the bucket choice runs as K1 on each block of the mesh and
+an exact combine over the type blocks ('sharded' flavor); with a peer
+fabric the other processes compute their blocks in lockstep. A fault there
+is classified, counted and raised like any other: the mesh is never
+retired for one device.
+
 With tracing on, each solve records its phases (encode, fill, device with
 mask and assemble under it, commit) as child spans of the ambient solve
 span. With the flight recorder on (flight.py), each solve appends one record:
@@ -55,6 +62,7 @@ card's memory after it.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -187,6 +195,7 @@ class DenseSolveStats:
     pods_on_existing: int = 0  # subset of pods_committed placed on existing nodes
     pods_to_host: int = 0
     nodes_created: int = 0
+    sharded_batches: int = 0  # batches dispatched over a multi-block mesh
     encode_seconds: float = 0.0
     fill_seconds: float = 0.0  # existing-node fill (incl. its exact commits)
     device_seconds: float = 0.0
@@ -264,6 +273,38 @@ class _Bucket:
     preset_pack: Optional[tuple] = None
     compat_row: Optional[np.ndarray] = None
 
+def resolve_mesh(device: torch.device, mesh=None, use_mesh: bool = True, hbm_budget_bytes: int = 0):
+    """The (pods x types) mesh a solver on `device` dispatches its bucket
+    choice over, or None.
+
+    A given mesh must hold its local blocks on the solver's device type.
+    Without one, a CUDA solver that sees more than one card builds one over
+    them (host_mesh_axes keeps the types axis small); KARPENTER_TPU_MESH=0
+    disables that, and an integer value asks for that many cards, which
+    raises when fewer are visible. A CPU solver takes a mesh only when given
+    one; use_mesh=False pins the single-device flavor. A mesh with an HBM
+    budget raises: the budget split has no per-block form yet (ROADMAP
+    A12b)."""
+    if mesh is not None:
+        local = {dev.type for _, _, dev in mesh.blocks(0)}
+        if local != {device.type}:
+            raise ValueError(f"the mesh's blocks are on {sorted(local)}, the solver on {device}")
+    elif use_mesh and device.type == "cuda":
+        setting = os.environ.get("KARPENTER_TPU_MESH", "")
+        if setting != "0":
+            from ..parallel.mesh import default_mesh
+            from ..parallel.multihost import host_mesh_axes
+
+            n = int(setting) if setting else torch.cuda.device_count()
+            if n > 1:
+                _, types_parallel = host_mesh_axes(n, n)
+                cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                mesh = default_mesh(n, types_parallel=types_parallel, devices=cards)
+    if mesh is not None and hbm_budget_bytes > 0:
+        raise NotImplementedError("--solver-hbm-budget under a solver mesh: the budget split has no per-block form yet (ROADMAP A12b)")
+    return mesh
+
+
 class DenseSolver:
     """Attachable device presolver for Scheduler (scheduler.py).
 
@@ -281,12 +322,32 @@ class DenseSolver:
     `hbm_budget_bytes` is the pre-solve device-memory budget
     (--solver-hbm-budget; 0 = none): while the flight recorder is on and its
     `torch.cuda.memory_stats` peak exceeds it, the bucket choice launches K1
-    once per half of the bucket axis (the 'chunked' rung)."""
+    once per half of the bucket axis (the 'chunked' rung). The split has no
+    per-block form: a budget under a mesh raises NotImplementedError when
+    the solver is built.
+
+    `mesh` is a parallel.mesh.SolverMesh whose blocks run the bucket choice
+    (the 'sharded' flavor); `peer_fabric` a parallel.peers.PeerFabric whose
+    mesh spans processes (its mesh becomes the mesh). Without either, a
+    CUDA solver builds a mesh over the visible cards when there are several
+    (KARPENTER_TPU_MESH=0 disables that, an integer asks for that many
+    cards); use_mesh=False pins the single-device flavor. The mesh is
+    resolved at construction (resolve_mesh)."""
 
     # the budget split's halves of the bucket axis
     _CHUNK_SPLIT = 2
 
-    def __init__(self, min_batch: int = MIN_BATCH_DEFAULT, device="cuda", incremental=None, auditor=None, hbm_budget_bytes: int = 0):
+    def __init__(
+        self,
+        min_batch: int = MIN_BATCH_DEFAULT,
+        device="cuda",
+        incremental=None,
+        auditor=None,
+        hbm_budget_bytes: int = 0,
+        mesh=None,
+        peer_fabric=None,
+        use_mesh: bool = True,
+    ):
         self.min_batch = min_batch
         self.device = resolve_device(device)
         if incremental is not None and incremental.device != self.device:
@@ -296,6 +357,12 @@ class DenseSolver:
         # the solver fault domain (faults.py): the pre-solve budget, and this
         # solve's classified faults and rungs for the flight record
         self.hbm_budget_bytes = int(hbm_budget_bytes)
+        # multi-process: with a PeerFabric (parallel/peers.py) every process
+        # of the global mesh takes part in each dispatch; the fabric's mesh
+        # becomes the mesh. The mesh is resolved here, so that a setting it
+        # cannot serve is refused when the solver is built, not at a solve
+        self.peer_fabric = peer_fabric
+        self._mesh = resolve_mesh(self.device, mesh if mesh is not None or peer_fabric is None else peer_fabric.mesh, use_mesh, self.hbm_budget_bytes)
         self._solve_faults: Dict[str, int] = {}
         self._solve_rungs: List[str] = []
         # the catalog's availability cube resident on the device, as (host
@@ -328,6 +395,14 @@ class DenseSolver:
         # CatalogEncoding — holds refs to the keyed lists, so FIFO eviction
         # here also releases them)
         self._catalog_encodings: Dict[tuple, object] = {}
+        # the sharded flavor's padded catalogs, placed per type block and
+        # kept like _device_catalog
+        self._sharded_catalog: Dict[tuple, tuple] = {}
+
+    def _active_mesh(self):
+        """The (pods x types) mesh of this solver's bucket choice, or None
+        (resolve_mesh, at construction)."""
+        return self._mesh
 
     # -- Scheduler hook ------------------------------------------------------
 
@@ -1668,6 +1743,32 @@ class DenseSolver:
             cached = self._device_catalog[key] = load_catalog(caps_eff, prices, self.device)
         return cached
 
+    def _sharded_dispatch(self, mesh, caps_eff: np.ndarray, prices: np.ndarray, bucket_stats: np.ndarray, allowed: np.ndarray):
+        """Dispatch the bucket->type choice over the mesh: the catalog padded
+        to the types dimension (placed per type block once, or broadcast by
+        the peer fabric with its epoch), the batch padded to the pods
+        dimension, K1 on every block. Returns the result in flight; its
+        wait() gives the packed [3, Bp], which the caller trims."""
+        FAULTS.check("sharded")
+        from ..parallel.sharded import ShardedBucketCost, pad_batch, pad_catalog
+
+        key = (caps_eff.tobytes(), prices.tobytes())
+        cached = self._sharded_catalog.get(key)
+        if cached is None:
+            while len(self._sharded_catalog) >= self._catalogs_kept:
+                self._sharded_catalog.pop(next(iter(self._sharded_catalog)))  # FIFO
+            caps_p, prices_p = pad_catalog(mesh, caps_eff, prices)
+            placed = None if self.peer_fabric is not None else ShardedBucketCost(mesh).place_catalog(caps_p, prices_p)
+            cached = self._sharded_catalog[key] = (caps_p, prices_p, placed)
+        caps_p, prices_p, placed = cached
+        stats_p, allowed_p = pad_batch(mesh, bucket_stats, allowed, caps_p.shape[0])
+        if self._flight_dispatch is not None:
+            self._flight_dispatch.update(flavor="sharded", buckets_padded=int(stats_p.shape[1]), types_padded=int(caps_p.shape[0]))
+        if self.peer_fabric is not None:
+            # every process of the fabric's mesh computes its blocks
+            return self.peer_fabric.dispatch(stats_p, caps_p, prices_p, allowed_p)
+        return ShardedBucketCost(mesh).dispatch(stats_p, placed, allowed_p)
+
     def _device_solve(self, scheduler, problem: DenseProblem, buckets: List[_Bucket], taken: Optional[np.ndarray] = None):
         """Bucket→type choice on the device; packing via counts (see
         pack_counts.py).
@@ -1757,66 +1858,90 @@ class DenseSolver:
         # the per-batch inputs move host->device; the catalog stays resident.
         # The launch returns at once, and the result's copy into pinned host
         # memory queues behind it on the same stream.
-        caps_dev, prices_dev = self._catalog(caps_eff, problem.prices)
-        if self._hbm_over_budget():
-            # decided before any launch or upload, never from an `except`
-            self._note_rung(RUNG_CHUNKED, reason="hbm-budget")
-            packed_dev = self._split_dispatch(bucket_stats, caps_dev, prices_dev, allowed)
+        mesh = self._active_mesh()
+        sharded = packed_host = landed = None
+        if mesh is not None:
+            # K1 on every block of the mesh, each block's result queued into
+            # one pinned host buffer behind its launch; combined after the
+            # speculation
+            sharded = self._sharded_dispatch(mesh, caps_eff, problem.prices, bucket_stats, allowed)
         else:
-            FAULTS.check("plain")
-            packed_dev = bucket_cost_packed(
-                torch.from_numpy(bucket_stats).to(self.device),
-                caps_dev,
-                prices_dev,
-                torch.from_numpy(allowed).to(self.device),
-            )
-        if self.device.type == "cuda":
-            packed_host = torch.empty(packed_dev.shape, dtype=packed_dev.dtype, pin_memory=True)
-            packed_host.copy_(packed_dev, non_blocking=True)
-            landed = torch.cuda.Event()
-            landed.record()
-        else:
-            packed_host, landed = packed_dev, None
-
-        # speculate under the in-flight round trip
-        prev_tstar, prev_feasible, prev_key = _preview_type_cost(bucket_stats, caps_eff.astype(np.float32), problem.prices.astype(np.float32), allowed)
-        # small batches refine the per-bucket pack over several candidate
-        # types (_best_pack) — the one-type-per-bucket argmin wastes the
-        # last bin on mixed-size streams where the host loop's FFD ladder
-        # downsizes adaptively; at scale the last-bin effect vanishes and
-        # the single argmin pack keeps wall-clock flat
-        refine = problem.P <= self._PACK_REFINE_MAX_PODS
-        local: List[tuple] = []
-        for b, bucket in enumerate(buckets):
-            rows = np.asarray(bucket.pod_rows, dtype=np.int64)
-            reqs = problem.requests[rows]
-            if not prev_feasible[b]:
-                pack = None
-            elif bucket.preset_pack is not None:
-                pack = bucket.preset_pack
-            elif refine and not bucket.dedicated:
-                # dedicated packs are type-invariant (one pod per bin for
-                # every candidate) and each bin is priced at its cheapest
-                # audited type at commit — refinement would re-pack and
-                # re-price N identical bins per candidate for nothing
-                pack = self._best_pack(problem, bucket, reqs, caps_eff, int(prev_tstar[b]))
+            caps_dev, prices_dev = self._catalog(caps_eff, problem.prices)
+            if self._hbm_over_budget():
+                # decided before any launch or upload, never from an `except`
+                self._note_rung(RUNG_CHUNKED, reason="hbm-budget")
+                packed_dev = self._split_dispatch(bucket_stats, caps_dev, prices_dev, allowed)
             else:
-                pack = self._pack_bucket(bucket, reqs, caps_eff[prev_tstar[b]])
-            local.append((rows, reqs, pack))
+                FAULTS.check("plain")
+                packed_dev = bucket_cost_packed(
+                    torch.from_numpy(bucket_stats).to(self.device),
+                    caps_dev,
+                    prices_dev,
+                    torch.from_numpy(allowed).to(self.device),
+                )
+            if self.device.type == "cuda":
+                packed_host = torch.empty(packed_dev.shape, dtype=packed_dev.dtype, pin_memory=True)
+                packed_host.copy_(packed_dev, non_blocking=True)
+                landed = torch.cuda.Event()
+                landed.record()
+            else:
+                packed_host = packed_dev
 
-        # speculative assembly + audit + full commit preparation (node
-        # construction), still under the in-flight round trip
-        reroute = bool(scheduler.existing_nodes)
-        t_asm = time.perf_counter()
-        sol = self._assemble(problem, buckets, local, bucket_extra, caps_eff, reroute_fragments=reroute)
-        prep = self._prepare_commit(scheduler, problem, buckets, sol, taken)
-        self.stats.assemble_seconds += time.perf_counter() - t_asm
+        try:
+            # speculate under the in-flight round trip
+            prev_tstar, prev_feasible, prev_key = _preview_type_cost(bucket_stats, caps_eff.astype(np.float32), problem.prices.astype(np.float32), allowed)
+            # small batches refine the per-bucket pack over several candidate
+            # types (_best_pack) — the one-type-per-bucket argmin wastes the
+            # last bin on mixed-size streams where the host loop's FFD ladder
+            # downsizes adaptively; at scale the last-bin effect vanishes and
+            # the single argmin pack keeps wall-clock flat
+            refine = problem.P <= self._PACK_REFINE_MAX_PODS
+            local: List[tuple] = []
+            for b, bucket in enumerate(buckets):
+                rows = np.asarray(bucket.pod_rows, dtype=np.int64)
+                reqs = problem.requests[rows]
+                if not prev_feasible[b]:
+                    pack = None
+                elif bucket.preset_pack is not None:
+                    pack = bucket.preset_pack
+                elif refine and not bucket.dedicated:
+                    # dedicated packs are type-invariant (one pod per bin for
+                    # every candidate) and each bin is priced at its cheapest
+                    # audited type at commit — refinement would re-pack and
+                    # re-price N identical bins per candidate for nothing
+                    pack = self._best_pack(problem, bucket, reqs, caps_eff, int(prev_tstar[b]))
+                else:
+                    pack = self._pack_bucket(bucket, reqs, caps_eff[prev_tstar[b]])
+                local.append((rows, reqs, pack))
 
-        if landed is not None:
+            # speculative assembly + audit + full commit preparation (node
+            # construction), still under the in-flight round trip
+            reroute = bool(scheduler.existing_nodes)
+            t_asm = time.perf_counter()
+            sol = self._assemble(problem, buckets, local, bucket_extra, caps_eff, reroute_fragments=reroute)
+            prep = self._prepare_commit(scheduler, problem, buckets, sol, taken)
+            self.stats.assemble_seconds += time.perf_counter() - t_asm
+        except BaseException:
+            if sharded is not None and self.peer_fabric is not None:
+                # the peers wait in the dispatch's gather: enter it, so the
+                # fleet stays in lockstep, before the error goes up
+                try:
+                    sharded.wait()
+                except Exception:  # noqa: BLE001 - the first error is the one raised
+                    pass
+            raise
+
+        if sharded is not None:
             t_wait = time.perf_counter()
-            landed.synchronize()  # blocks until the device result lands
+            packed = sharded.wait()[:, :B]  # every block landed, then the combine
             self.stats.device_wait_seconds += time.perf_counter() - t_wait
-        packed = packed_host.numpy()
+            self.stats.sharded_batches += 1
+        else:
+            if landed is not None:
+                t_wait = time.perf_counter()
+                landed.synchronize()  # blocks until the device result lands
+                self.stats.device_wait_seconds += time.perf_counter() - t_wait
+            packed = packed_host.numpy()
         tstar, feasible = packed[0], packed[2].astype(bool)
         changed = False
         for b, bucket in enumerate(buckets):

@@ -16,7 +16,8 @@ The port's copy of karpenter_tpu/solver/faults.py. Its parts:
   else is None, as in the reference.
 - **injection seam** — `FaultPlan` + the process-wide `FAULTS` injector:
   seeded, per-entry-name, nth-call triggers consulted at every dispatch
-  seam: 'plain' (the dense solve's bucket choice), 'cuda' (K1's launch,
+  seam: 'plain' (the dense solve's bucket choice), 'sharded' (the same
+  choice over a solver mesh, parallel/), 'cuda' (each K1 launch,
   ops/bucket_cost.py: the counterpart of the reference's 'pallas'),
   'chunk' (each half of a budget split), 'warmfill' (K2's surface) and
   'rebase' (the incremental engine's device rebase); corruption kinds at
@@ -313,7 +314,7 @@ def degraded_total() -> int:
 @dataclass
 class FaultSpec:
     """One planned trigger. `entry` names the dispatch boundary ('plain',
-    'cuda', 'chunk', 'warmfill', 'rebase', or '*' — corruption
+    'sharded', 'cuda', 'chunk', 'warmfill', 'rebase', or '*' — corruption
     kinds target the state seams 'resident-row', 'journal-record',
     'rebase'); `nth` fires on the nth matching call (1-based) for `count`
     consecutive matching calls; with `nth` None, `probability` draws a

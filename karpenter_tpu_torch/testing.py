@@ -511,7 +511,11 @@ def bucket_cost_problem(rng: np.random.Generator, B: int, T: int, R: int, kind: 
     resource no type has), so their keys are all inf and t* must be 0.
     "unrequested" is the headline solve's resource pattern: past the first
     three resources (cpu, memory, pods) no bucket asks for anything and no
-    type offers it, so most sums are zero."""
+    type offers it, so most sums are zero. For a mesh's two type blocks:
+    "cross_block_ties" repeats the first half of a "random" catalog (and
+    its `allowed` columns) in the second, so each bucket's best key sits in
+    both blocks; "all_infeasible" allows no type to the last half of the
+    buckets."""
     sum_req = (rng.random((B, R)) * 20).astype(np.float32)
     max_req = (sum_req * rng.random((B, R))).astype(np.float32)
     caps = (rng.random((T, R)) * 16).astype(np.float32)
@@ -537,6 +541,11 @@ def bucket_cost_problem(rng: np.random.Generator, B: int, T: int, R: int, kind: 
         sum_req[:, 3:] = 0.0
         max_req[:, 3:] = 0.0
         caps[:, 3:] = 0.0
+    elif kind == "cross_block_ties":
+        half = T // 2
+        caps[half : 2 * half], prices[half : 2 * half], allowed[:, half : 2 * half] = caps[:half], prices[:half], allowed[:, :half]
+    elif kind == "all_infeasible":
+        allowed[B // 2 :] = False
     elif kind != "random":
         raise ValueError(f"unknown problem kind {kind!r}")
     return np.stack([sum_req, max_req]), caps, prices, allowed

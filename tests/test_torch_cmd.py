@@ -11,7 +11,9 @@
   always runs on the card): the crossover measured with K1's probe at boot,
   /healthz and /readyz answering 200, exit code 0 on SIGTERM.
 - `cmd/solver_service.main`: --coordinator and $KARPENTER_TPU_COORDINATOR
-  raise, naming ROADMAP A12.
+  without a process count raise before connecting; with one, two
+  processes on the CPU (gloo) serve a gRPC solve over the fabric, placed as
+  an in-process solve places it, and SIGTERM releases the peer.
 - tests/test_e2e_process.py's two topology cases on both packages: an
   apiserver, the webhook process and the controller process wired only
   through sockets (the port's controller through the CPU wrapper), the
@@ -220,15 +222,91 @@ def test_controller_process_boots_answers_probes_and_stops_on_sigterm():
     assert "dense_solver=cpu" in err and "leader election won" in err
 
 
+# the solver service's entry point with its fabric, its mesh and its solver
+# on the CPU: the entry point itself always runs on the card
+_CPU_SOLVER_SERVICE = """
+import functools, sys
+from karpenter_tpu_torch import solver
+from karpenter_tpu_torch.parallel import multihost, peers
+multihost.initialize = functools.partial(multihost.initialize, device="cpu")
+peers.PeerFabric = functools.partial(peers.PeerFabric, device="cpu")
+solver.DenseSolver = functools.partial(solver.DenseSolver, device="cpu")
+from karpenter_tpu_torch.cmd import solver_service
+solver_service.main(sys.argv[1:])
+"""
+
+
 class TestSolverServiceMain:
+    """--coordinator joins the fabric (parallel/multihost.initialize): with
+    no process count and id it raises before any connection is tried; with
+    them, process 0 serves gRPC over the fabric's mesh and process 1 follows
+    its solves until SIGTERM releases it."""
+
+    @pytest.fixture(autouse=True)
+    def _no_fabric_env(self, monkeypatch):
+        for name in ("KARPENTER_TPU_NUM_PROCESSES", "KARPENTER_TPU_PROCESS_ID"):
+            monkeypatch.delenv(name, raising=False)
+
     def test_coordinator_flag_raises(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            solver_service.main(["--coordinator", "10.0.0.1:1234"])
+        with pytest.raises(ValueError, match="KARPENTER_TPU_NUM_PROCESSES"):
+            solver_service.main(["--coordinator", "127.0.0.1:1"])
 
     def test_coordinator_env_raises(self, monkeypatch):
-        monkeypatch.setenv("KARPENTER_TPU_COORDINATOR", "10.0.0.1:1234")
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        monkeypatch.setenv("KARPENTER_TPU_COORDINATOR", "127.0.0.1:1")
+        with pytest.raises(ValueError, match="KARPENTER_TPU_NUM_PROCESSES"):
             solver_service.main([])
+
+    def test_coordinator_serves_over_the_fabric(self):
+        from karpenter_tpu_torch import testing
+        from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+        from karpenter_tpu_torch.scheduler import build_scheduler
+        from karpenter_tpu_torch.service.client import SolverClient
+        from karpenter_tpu_torch.solver import DenseSolver
+
+        coordinator, address = f"127.0.0.1:{_free_port()}", f"127.0.0.1:{_free_port()}"
+        procs = []
+        for pid in range(2):
+            env = {**os.environ, "KARPENTER_TPU_NUM_PROCESSES": "2", "KARPENTER_TPU_PROCESS_ID": str(pid)}
+            procs.append(subprocess.Popen(
+                [
+                    sys.executable, "-c", _CPU_SOLVER_SERVICE, "--coordinator", coordinator, "--address", address,
+                    "--backend", "gloo", "--devices-per-process", "4", "--log-level", "info",
+                ],
+                cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            ))
+        client = SolverClient(address, timeout=60.0)
+        try:
+            deadline = time.monotonic() + 120
+            while True:
+                assert all(p.poll() is None for p in procs), [p.communicate()[1][-2000:] for p in procs]
+                try:
+                    client.health()
+                    break
+                except Exception:
+                    assert time.monotonic() < deadline, "the coordinator never served gRPC"
+                    time.sleep(0.2)
+            provisioner = testing.make_provisioner()
+            provider = FakeCloudProvider(instance_types(20))
+            pods = [testing.make_pod(name=f"fabric-{i:03d}", requests={"cpu": [0.25, 0.5, 1.0][i % 3], "memory": "512Mi"}) for i in range(60)]
+            remote = client.solve([provisioner], {provisioner.name: provider.get_instance_types(provisioner)}, pods)
+            local = build_scheduler([provisioner], provider, pods, dense_solver=DenseSolver(min_batch=1, device="cpu")).solve(pods)
+
+            def layout(results):
+                return sorted((n.instance_type_options[0].name(), sorted(p.metadata.name for p in n.pods)) for n in results.new_nodes)
+
+            assert sum(len(n.pods) for n in remote.new_nodes) == len(pods) and not remote.unschedulable
+            assert layout(remote) == layout(local)
+            assert client.health()["sharded_batches"] == 1
+            procs[0].send_signal(signal.SIGTERM)
+            outs = [p.communicate(timeout=60) for p in procs]
+        finally:
+            client.close()
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        assert [p.returncode for p in procs] == [0, 0], [err[-2000:] for _, err in outs]
+        assert "entering the peer loop" in outs[1][1] and "released after 1 solves" in outs[1][1]
 
 
 # -- tests/test_e2e_process.py: the deployment topology, both packages ---------

@@ -7,8 +7,9 @@
   the kernel wrappers raise, torch's CUDA messages, `torch.cuda.OutOfMemoryError`
   and a failed nvcc build;
 - port counterparts of TestLadderRungs, TestBreakerEndToEnd,
-  TestFaultObservability and the determinism case (use_mesh=False; the
-  mesh case waits for ROADMAP A12), under the port's semantics: a fault is
+  TestFaultObservability and the determinism case (both flavors: the
+  single-device dispatch and an 8-block CPU mesh), under the port's
+  semantics: a fault is
   classified, counted, journaled, recorded into the breaker and raised
   typed, and the batch is held; there is no flavor retirement, no host rung
   and no chunking from an `except`. Each runs the same seeded batch and
@@ -49,6 +50,7 @@ from karpenter_tpu_torch.journal import JOURNAL, KIND_SOLVER
 from karpenter_tpu_torch.ops import bucket_cost
 from karpenter_tpu_torch.ops._cuda_build import KernelBuildError
 from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
+from karpenter_tpu_torch.parallel.mesh import solver_mesh
 from karpenter_tpu_torch.scheduler import build_scheduler
 from karpenter_tpu_torch.scheduler.scheduler import SchedulerOptions
 from karpenter_tpu_torch.solver import DenseSolver
@@ -300,16 +302,34 @@ class TestLadderRungs:
         assert ref["history"] == port["history"] and ref["counted"] == port["counted"]
 
     def test_kernel_fault_on_sharded_retires_the_flavor(self):
-        """Port: no flavor to retire. A kernel fault at the bucket choice is
-        raised; the next solve dispatches on the same path and places the
-        batch as the reference does."""
-        ref, port = _inject_both([{"kind": "kernel", "entry": "plain", "nth": 1}])
-        self._held(port, SolverKernelError, KIND_KERNEL)
-        solver = port["solver"]
-        placed, exc = SIDES[1].solve(solver, count=40)
-        ref_placed, _ = SIDES[0].solve(SIDES[0].solver(), count=40)
-        assert exc is None and placed == ref_placed and len(placed) == 40
-        assert solver._flight_dispatch is None and solver.stats.batches == 2
+        """Port: no flavor to retire. A kernel fault at the 'sharded' seam of
+        a port mesh (8 CPU blocks) is classified, counted and raised; the
+        mesh stays, and the next solve dispatches on it and places the batch
+        as the reference, which retired its mesh, did."""
+        specs = [{"kind": "kernel", "entry": "sharded", "nth": 1}]
+        ref_side, port_side = SIDES
+        ref_side.install(specs)
+        ref_solver = RefDenseSolver(min_batch=1)
+        ref_placed, ref_exc = ref_side.solve(ref_solver, count=40)
+        ref_history = ref_faults.FAULTS.plan.history()
+        ref_faults.FAULTS.clear()
+        assert ref_exc is None and len(ref_placed) == 40
+        assert ref_solver._solve_rungs == [ref_faults.RUNG_FLAVOR] and ref_solver._mesh is None
+
+        mesh = solver_mesh(8, types_parallel=2, devices=[torch.device("cpu")] * 8)
+        port_side.install(specs)
+        before = port_side.fault_count(KIND_KERNEL)
+        solver = DenseSolver(min_batch=1, device="cpu", mesh=mesh)
+        placed, exc = port_side.solve(solver, count=40)
+        assert isinstance(exc, SolverKernelError) and exc.kind == KIND_KERNEL and placed is None
+        assert port_side.fault_count(KIND_KERNEL) == before + 1
+        assert solver._solve_faults == {KIND_KERNEL: 1} and solver._solve_rungs == []
+        assert FAULTS.plan.history() == ref_history == [{"call": 1, "entry": "sharded", "kind": KIND_KERNEL}]
+        assert solver._mesh is mesh and solver.stats.sharded_batches == 0
+        assert BREAKER.consecutive == 1 and BREAKER.last_fault_kind == KIND_KERNEL
+        placed, exc = port_side.solve(solver, count=40)
+        assert exc is None and placed == ref_placed
+        assert solver.stats.sharded_batches == 1 and solver.stats.batches == 2
 
     def test_kernel_fault_on_pallas_retires_the_kernel(self):
         """Port: K2's seam ('warmfill') raises a kernel fault on a warm
@@ -413,33 +433,43 @@ class TestBreakerEndToEnd:
 
 
 class TestFaultPlanDeterminismEndToEnd:
+    """Both dispatch flavors, as the reference's case: the single-device
+    bucket choice ('plain' seam) and the 8-block CPU mesh ('sharded' seam,
+    which a mesh consults in place of 'plain')."""
+
     SPECS = (
         {"kind": "hbm", "entry": "plain", "nth": 1},
+        {"kind": "hbm", "entry": "sharded", "nth": 1},
         {"kind": "kernel", "entry": "warmfill", "nth": 1},
         {"kind": "device-lost", "entry": "*", "nth": 4},
     )
 
-    def _run(self):
+    def _run(self, use_mesh):
         FAULTS.clear()
         BREAKER.reset()
         FAULTS.install(FaultPlan.from_specs([dict(s) for s in self.SPECS], seed=11))
         side = SIDES[1]
         provider = side.provider()
-        solver = side.solver()
+        mesh = solver_mesh(8, types_parallel=2, devices=[torch.device("cpu")] * 8) if use_mesh else None
+        solver = side.solver(mesh=mesh, use_mesh=use_mesh)
         kinds, tallies = [], []
         for i in range(5):
             placed, exc = side.solve(solver, count=25, tag=f"d{i}", provider=provider)
             kinds.append(exc.kind if exc is not None else len(placed))
             tallies.append(dict(solver._solve_faults))
         history = FAULTS.plan.history()
+        sharded = solver.stats.sharded_batches
         FAULTS.clear()
-        return history, kinds, tallies, BREAKER.snapshot()["consecutive_faults"]
+        return history, kinds, tallies, BREAKER.snapshot()["consecutive_faults"], sharded
 
-    def test_two_runs_are_identical(self):
-        first, second = self._run(), self._run()
+    @pytest.mark.parametrize("use_mesh", [False, True], ids=["plain", "sharded"])
+    def test_two_runs_are_identical(self, use_mesh):
+        first, second = self._run(use_mesh), self._run(use_mesh)
         assert first == second
         assert first[1] == [KIND_HBM, 25, 25, KIND_DEVICE_LOST, 25]
+        assert first[0][0] == {"call": 1, "entry": "sharded" if use_mesh else "plain", "kind": KIND_HBM}
         assert all(h["kind"] in faults.KINDS for h in first[0])
+        assert first[4] == (3 if use_mesh else 0)
 
 
 # -- observability (tests/test_solver_faults.py:TestFaultObservability) ----------------------

@@ -5,7 +5,7 @@
 - the stand-in's workload pod, every scenario's provenance config and
   derived seeds, and a replayed journal's schedule, equal on both packages
   (the solver fault specs once the port's seam names are put in: "cuda" for
-  "pallas", no "sharded");
+  "pallas", "sharded" as it is);
 - smoke_campaign() on both packages and both cloud transports, through a
   live Runtime each: the scores that do not depend on time are equal, and
   the acceptance bars hold (all the zero scores zero);
@@ -38,9 +38,9 @@ _CAMPAIGN = port_copy("test_scenario_campaign", optional=SCENARIO_SUBSTITUTIONS)
 TestSchemaValidator = _CAMPAIGN.TestSchemaValidator
 
 # the port's names for the JAX package's solver seams: K1's launch is "cuda"
-# where the JAX package's Pallas kernel is "pallas"; the sharded mesh has no
-# seam in the port yet
-SEAM_NAMES = {"pallas": "cuda", "sharded": None}
+# where the JAX package's Pallas kernel is "pallas"; the solver mesh's seam
+# is "sharded" in both
+SEAM_NAMES = {"pallas": "cuda", "sharded": "sharded"}
 
 # the scores held equal on both packages; the latency quantiles, the pending
 # integral and the waterfall depend on time, and degraded_solves_total and
