@@ -45,7 +45,7 @@ def main(argv=None) -> int:
         hogs = [subprocess.Popen([sys.executable, "-c", "while True: pass"]) for _ in range(busy)]
         t0 = time.perf_counter()
         try:
-            chip_smoke.controller_process_http(dev, card_name)
+            chip_smoke.controller_process_http(dev, card_name, pods_n=chip_smoke.HEADLINE_PODS)
             status = "ok"
         except chip_smoke.PhaseFailed as exc:
             status, failed = str(exc), failed + 1

@@ -137,20 +137,39 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     the same request over a gRPC loopback (service.server.serve() and
     service.client.SolverClient) and holds that plan and its kernel calls
     the same way;
-  - the wire (kube/apiserver.py, kube/client.py, kube/codec.py):
-    runtime_round_http runs runtime_round's cell with the Runtime on an
+  - the wire (kube/apiserver.py, kube/client.py, kube/codec.py), at a
+    fifth of the headline's depth: runtime_round_http runs runtime_round's
+    cell, 2,000 pods on 60 standing nodes, with the Runtime on an
     HttpKubeClient (built by cmd/controller.build_kube_backend for
     --apiserver-url, 200 QPS / 300 burst) against an APIServer on
     127.0.0.1 in a child process, the standing nodes and the batch written
     in that process as other clients' writes; its LIST, watch delivery and
     node POSTs are measured, every K1/K2 call held, and the outcome must
-    equal the in-memory round's; controller_process_http boots `python -m
+    equal a provision_once() on an in-memory store of the same shape;
+    controller_process_http boots `python -m
     karpenter_tpu_torch.cmd.controller --apiserver-url <url>` as a child
-    against an apiserver process, writes the headline batch onto the empty
-    cluster, times the first pod
+    against an apiserver process, writes a 2,000-pod batch onto the empty
+    cluster (chip_process_http.py runs it at the headline's 10,000), times
+    the first pod
     to the last Node the child POSTs, holds the node types against an
     in-process solve (kernels and plain versions), and requires the Lease
-    released and exit code 0 on SIGTERM.
+    released and exit code 0 on SIGTERM;
+  - analysis_contracts: `python -m karpenter_tpu_torch.cmd.analyze
+    --contracts --check --device cuda` as a child (exit 0), then every
+    registered device entry of analysis/contracts.py traced on the card at
+    both grid points: its dtype, in-place, promotion, host-constant and
+    library facts equal to the committed contract (written from the CPU),
+    no kernel build, and K1's, keyed K1's and K2's outputs bit-equal to
+    their plain versions on the same inputs; per entry the host->device
+    bytes and builds of each call;
+  - cost_regret: tests/test_cost_regret.py's six instances
+    (testing.cost_regret_cases), each solved by the exhaustive MILP
+    (solver/optimal.py, HiGHS), by the dense path on the card
+    (DenseSolver(min_batch=1), K1, every call held bit for bit) and by the
+    exact host loop, at the reference's gates: dense within 3% of the
+    optimum, the host loop within 25%, neither below it; the
+    mixed-constraints instance, outside the MILP's model, dense within 3%
+    of the host loop.
 
 K2 is held against its plain version three ways per input: through its
 wrapper on CUDA tensors, through the warm solve's round trip from host
@@ -168,9 +187,10 @@ The card's name and power limit are read first and printed in every line of
 the churn and controller phases. Then it measures, on the same card: the launch floor (the device time of
 the smallest kernel PyTorch launches); how each kernel's device time
 scales with its shape (kernel_scaling); and each kernel's time at its main
-path's shape beside its bound. It prints one JSON object per phase.
-chip_sweep.py holds the measurements that chose the kernels' launch
-geometries and K2's round trip. The last line is
+path's shape beside its bound. It prints one JSON object per phase, then
+the script's wall time and the card's name and power limit, each on a line
+of its own. chip_sweep.py holds the measurements that chose the kernels'
+launch geometries and K2's round trip. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -182,6 +202,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -192,6 +213,8 @@ import time
 import numpy as np
 import torch
 
+SCRIPT_T0 = time.perf_counter()
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # (B, T, R[, kind]): test_pallas.py's shapes, then K1's edges: T past one
 # block and not a multiple of it, B past the grid cap, a tie-heavy catalog
 # (price in proportion to capacity) and buckets with no feasible type
@@ -419,8 +442,13 @@ GRPC_TIMEOUT_S = 300.0
 # the wire (kube/apiserver.py, kube/client.py): runtime_round's cell over
 # HTTP, and a fresh controller process against an apiserver on an empty
 # cluster
-RUNTIME_ROUND_HTTP = ("runtime_round_http", HEADLINE_PODS, 300)
-CONTROLLER_PROCESS_HTTP = ("controller_process_http", HEADLINE_PODS)
+# the wire's two cells at a fifth of the headline's depth, the round on a
+# fifth of its standing nodes (the same pods per node): over HTTP each
+# topology LIST decodes every pod, so their wall grows with pods x groups;
+# each is held against an in-memory run of its own shape.
+# chip_process_http.py runs the fresh process at the headline's full depth
+RUNTIME_ROUND_HTTP = ("runtime_round_http", 2000, 60)
+CONTROLLER_PROCESS_HTTP = ("controller_process_http", 2000)
 # the kube fault domain (kube/chaos.py) on runtime_round's cell: conflicts
 # on the batch's binds (pod updates) and one stale read; the watch gap, its
 # compaction and the lease steal are the phase's actions
@@ -467,6 +495,10 @@ H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (`at_s`), so the lines split the script's wall."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - SCRIPT_T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -2608,7 +2640,17 @@ def drive_runtime_round(rt, env, dev, names, write_batch, deadline_s: float, bef
     `ends`. `before_stop(run)`, where given, runs with the Runtime still
     up and the kernel calls still captured, just before stop(); what it
     returns is the run's "before_stop". The seams are put back whatever
-    happens, and the Runtime is stopped."""
+    happens, and the Runtime is stopped.
+
+    The objects alive when the round starts are frozen out of the garbage
+    collector's reach (gc.freeze) until the Runtime stops: by then the
+    script's heap holds millions of them, and a full collection over it
+    took 0.22-1.48 s on the host of an NVIDIA H100 80GB HBM3 (700.00 W)
+    machine (chip_gc_pauses.py); one during the batch's writes held every
+    thread past the batcher's 1 s idle window, which closed on part of the
+    batch."""
+    import gc
+
     from karpenter_tpu_torch.solver import dense as dense_module
     from karpenter_tpu_torch.solver import warmfill as fill_module
 
@@ -2617,6 +2659,8 @@ def drive_runtime_round(rt, env, dev, names, write_batch, deadline_s: float, bef
     seams = dense_module.bucket_cost_packed, fill_module.admission_counts
     capture_kernel_calls(captures)
     stopped = False
+    gc.collect()
+    gc.freeze()
     try:
         t_start = time.perf_counter()
         rt.start()
@@ -2663,6 +2707,7 @@ def drive_runtime_round(rt, env, dev, names, write_batch, deadline_s: float, bef
         dense_module.bucket_cost_packed, fill_module.admission_counts = seams
         if not stopped:
             rt.stop()
+        gc.unfreeze()
     return {
         "placed": placed, "ends": ends, "captures": captures, "start_ms": start_ms, "recovered": recovered,
         "t0": t0, "created": created, "done": done, "nominated": nominated, "launches": launches,
@@ -2680,9 +2725,10 @@ def runtime_reads(rt, kube, run, catalog, dev) -> tuple:
     return released, holds, runtime_outcome(kube, run["placed"], {it.name(): it.price() for it in catalog})
 
 
-def runtime_provision_once(dev, min_batch: int, plain: bool) -> dict:
+def runtime_provision_once(dev, min_batch: int, plain: bool, shape=RUNTIME_ROUND, tag: str = "rto") -> dict:
     """A fresh Runtime (leader election off, the dense solver at
-    `min_batch`) on a fresh store of the runtime cell's contents, driven by
+    `min_batch`) on a fresh store of a Runtime cell's contents (`shape`:
+    its name, pods and standing nodes; the batch named by `tag`), driven by
     one synchronous provision_once(); with plain=True both kernels' plain
     versions stand in at the solve's seams. Its launches, placements and
     $/hour."""
@@ -2693,8 +2739,8 @@ def runtime_provision_once(dev, min_batch: int, plain: bool) -> dict:
     from karpenter_tpu_torch.solver import warmfill as fill_module
     from karpenter_tpu_torch.utils.options import parse
 
-    _name, pods_n, standing = RUNTIME_ROUND
-    kube, pods = runtime_store(pods_n, standing, "rto")
+    _name, pods_n, standing = shape
+    kube, pods = runtime_store(pods_n, standing, tag)
     catalog = instance_types(HEADLINE_TYPES)
     options = parse(["--no-leader-elect", "--dense-min-batch", str(min_batch)])
     rt = Runtime(kube=kube, cloud_provider=FakeCloudProvider(catalog), options=options, device=dev)
@@ -3304,7 +3350,10 @@ def runtime_round_recorded(dev, card_name, plain_line) -> dict:
     pod's six transitions; the waterfall's and the SLO's pending-duration
     counts equal to the batch; the invariant monitor clean, and after
     stop() no leaked thread or watch; no coherence divergence; no capsule
-    in the clean round; the planted divergence's one capsule, read back
+    in the clean round, and the flight recorder's steady-recompile
+    cross-check against the port's committed contract (analysis/
+    solver_contracts.json) with no violation over the round's records; the
+    planted divergence's one capsule, read back
     clean; both device traces naming K1's and K2's symbols; /metrics
     rendering every registered family."""
     import gc
@@ -3315,6 +3364,8 @@ def runtime_round_recorded(dev, card_name, plain_line) -> dict:
     from types import SimpleNamespace
 
     from karpenter_tpu_torch import capsule, flight, invariants, journal, profiling, slo
+    from karpenter_tpu_torch.analysis.contracts import recompile_violations
+    from karpenter_tpu_torch.capsule import TRIGGER_STEADY_RECOMPILE
     from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
     from karpenter_tpu_torch.cmd.controller import debug_routes
     from karpenter_tpu_torch.kube import coherence
@@ -3403,6 +3454,14 @@ def runtime_round_recorded(dev, card_name, plain_line) -> dict:
         report = MONITOR.report()
         CAPSULE.poll()
         capsules_clean = CAPSULE.captures_total()
+        # the flight recorder's steady-recompile cross-check read the port's
+        # committed contract at every record; read it again over the round's
+        contract = flight._committed_contracts()
+        steady = {
+            "contract_libraries": sorted(contract["libraries"]) if contract else None,
+            "violations": recompile_violations(FLIGHT.records(), contract),
+            "capsules": sum(1 for c in CAPSULE.index() if c["trigger"] == TRIGGER_STEADY_RECOMPILE),
+        }
         owner = rt._census_owner
         builds_round = flight._TALLY.snapshot()[0] - builds_before
         records_round = [r.to_dict() for r in FLIGHT.records()]
@@ -3532,6 +3591,7 @@ def runtime_round_recorded(dev, card_name, plain_line) -> dict:
         "invariants": {"samples": up["report"]["samples"], "violations": up["report"]["violations"], "leaked_after_stop": leaked, "leaked_before": leaked_before, "owners_after_stop": sorted(owners), "watchers_after_stop": watchers, "watchers_baseline": report["watchers"]["baseline"]},
         "coherence": {"divergences": coherence.divergences_total() - divergences_before, "clean_checks": coherence.CHECKS.value(result=coherence.RESULT_CLEAN) - clean_before},
         "capsules_clean_round": capsules_clean,
+        "steady_recompile": steady,
         "metrics": {"status": up["metrics_status"], "ms": up["metrics_ms"], "bytes": up["metrics_bytes"], "families": len(up["families"]), "missing": missing_families},
         "debug_status": up["debug"],
         "profiling": profiled,
@@ -3572,6 +3632,7 @@ def runtime_round_recorded(dev, card_name, plain_line) -> dict:
     check(watchers <= report["watchers"]["baseline"], f"{name}: {watchers} watches after stop() against a baseline of {report['watchers']['baseline']}")
     check(line["coherence"]["divergences"] == 0 and line["coherence"]["clean_checks"] >= 1, f"{name}: coherence {line['coherence']}")
     check(capsules_clean == 0 and not planted["clean"]["capsules"], f"{name}: {capsules_clean} capsules captured in the clean round, {planted['clean']['capsules']} in the clean passes")
+    check(steady["contract_libraries"] == ["bucket_cost", "warm_fill"] and not steady["violations"] and steady["capsules"] == 0, f"{name}: the steady-recompile cross-check: {steady}")
     check(planted["divergences"] == {planted["expected_kind"]: 1} and planted["captured"] == 1, f"{name}: the planted divergence gave {planted['divergences']} and {planted['captured']} capsules")
     check([c["trigger"] for c in planted["capsules"]] == ["residency-divergence"] and len(planted["capsule_files"]) == 1, f"{name}: capsules {planted['capsules']}, files {planted['capsule_files']}")
     check(planted["capsule_errors"] == [] and planted["inspect_rc"] == 0, f"{name}: the capsule reads back with errors {planted['capsule_errors']}, inspect exit {planted['inspect_rc']}")
@@ -4617,10 +4678,12 @@ class APIServerChild:
             self.proc.wait()
 
 
-def runtime_round_http(dev, card_name, memory_line) -> dict:
-    """runtime_round's cell over the wire: an APIServer (kube/apiserver.py)
-    on 127.0.0.1 in a process of its own (APIServerChild) holds the 300
-    standing nodes and the provisioner, written as other clients' writes;
+def runtime_round_http(dev, card_name) -> dict:
+    """runtime_round's cell over the wire, at RUNTIME_ROUND_HTTP's depth
+    (2,000 pods on 60 standing nodes: the headline's pods per node): an
+    APIServer (kube/apiserver.py) on 127.0.0.1 in a process of its own
+    (APIServerChild) holds the standing nodes and the provisioner, written
+    as other clients' writes;
     the Runtime runs from parse(["--apiserver-url", url]) with the
     reference's defaults (leader election, 1 s idle / 10 s max windows, the
     crossover measured, the client's 200 QPS / 300 burst) on the
@@ -4632,8 +4695,9 @@ def runtime_round_http(dev, card_name, memory_line) -> dict:
     its schedule and phases and the node POSTs; every request the Runtime
     made, by verb and resource and by thread. Every K1 and K2 call in the
     window is held bit for bit; the outcome (launches by type, pods onto
-    standing nodes, $/hour) must equal the in-memory runtime_round's; no
-    node over capacity; after stop() the Runtime's threads end, the Lease
+    standing nodes, $/hour) must equal that of a synchronous
+    provision_once() on an in-memory store built the same way, at the
+    Runtime's measured min_batch; no node over capacity; after stop() the Runtime's threads end, the Lease
     is released in the server, and the client's watch threads end with the
     server."""
     from collections import Counter
@@ -4730,7 +4794,15 @@ def runtime_round_http(dev, card_name, memory_line) -> dict:
     wire["get_pods_requests"] = None
     launched_types = dict(sorted(Counter(t for t, *_rest in got["launched"]).items()))
     onto_standing = sum(len(n[1]) for n in got["standing"])
-    memory = {k: memory_line[k] for k in ("launched_types", "pods_nominated_onto_standing", "price_per_hour")}
+    # the same store in memory, one provision_once() at the same min_batch
+    in_memory = runtime_provision_once(dev, min_batch, plain=False, shape=RUNTIME_ROUND_HTTP, tag="rth")
+    memory = {
+        "launched_types": dict(sorted(Counter(t for t, *_rest in in_memory["launched"]).items())),
+        "pods_nominated_onto_standing": sum(len(n[1]) for n in in_memory["standing"]),
+        "price_per_hour": in_memory["price_per_hour"],
+        "wall_ms": in_memory["wall_ms"],
+        "launches": in_memory["launches"],
+    }
     same_outcome = {
         "launched_types": launched_types == memory["launched_types"],
         "pods_nominated_onto_standing": onto_standing == memory["pods_nominated_onto_standing"],
@@ -4804,7 +4876,7 @@ def runtime_round_http(dev, card_name, memory_line) -> dict:
     check(passes.get("node", 0) >= 1 and passes.get("disruption", 0) >= 1, f"{name}: the lifecycle and disruption loops did not both pass ({passes})")
     check(launches["bucket_type_cost"] >= 1 and launches["warm_fill_counts"] >= 1, f"{name}: the window launched {launches}")
     check(holds and all(h["identical"] for h in holds), f"{name}: a kernel call differs from its plain version: {[h for h in holds if not h['identical']]}")
-    check(all(same_outcome.values()), f"{name}: the outcome differs from the in-memory runtime_round's: {same_outcome}")
+    check(all(same_outcome.values()), f"{name}: the outcome differs from the in-memory provision_once()'s: {same_outcome}")
     check(len(wire["node_posts_ms"]) == len(got["launched"]) == len(node_times), f"{name}: {len(wire['node_posts_ms'])} node POSTs, {len(node_times)} nodes created, {len(got['launched'])} launches")
     check(not any(broken.values()), f"{name}: the round broke placements: {broken}")
     check(not alive, f"{name}: threads alive {THREAD_JOIN_DEADLINE_S} s after stop(): {alive}")
@@ -4840,14 +4912,15 @@ def expected_node_types(results) -> dict:
     return {"types": dict(sorted(types.items())), "over_capacity": over}
 
 
-def controller_process_http(dev, card_name, command=None) -> dict:
+def controller_process_http(dev, card_name, command=None, pods_n=None) -> dict:
     """A fresh controller process against an apiserver: an APIServer on
     127.0.0.1 in a process of its own (APIServerChild), and `python -m
     karpenter_tpu_torch.cmd.controller --apiserver-url <url>
     --health-probe-port <free>` (or `command`) as a child on the card. Boot:
     spawn to both probes answering 200. Then the server writes the default
-    provisioner and the headline batch onto the empty cluster, so every
-    pod lands on a new node (K1 in the child, no K2). Measured: the
+    provisioner and build_workload(pods_n) (default: CONTROLLER_PROCESS_HTTP's
+    2,000 pods) onto the empty cluster, so every pod lands on a new node (K1
+    in the child, no K2). Measured: the
     first pod created to the last Node the child POSTs (its first round,
     the crossover measured at boot), the Node count, and SIGTERM to exit 0.
     Held: the multiset of node types equals an in-process
@@ -4870,7 +4943,8 @@ def controller_process_http(dev, card_name, command=None) -> dict:
     from karpenter_tpu_torch.solver import dense as dense_module
     from karpenter_tpu_torch.solver import warmfill as fill_module
 
-    name, pods_n = CONTROLLER_PROCESS_HTTP
+    name = CONTROLLER_PROCESS_HTTP[0]
+    pods_n = pods_n or CONTROLLER_PROCESS_HTTP[1]
 
     def in_process(plain: bool) -> dict:
         pods = testing.rename(testing.build_workload(pods_n), "cph")
@@ -5660,6 +5734,247 @@ def solver_mesh_phase(dev, card_name, headline_inputs, pods, provider, provision
     return line
 
 
+# the contract audit (analysis/contracts.py): the child gate's time limit, and
+# the entries with a kernel library, each output held bit for bit against its
+# plain version on the same inputs at both grid points; but the toy sharded
+# step's f32 segment sums (index_add_, atomic on the card, so their order of
+# addition is not the CPU's), of which only the largest difference is reported
+ANALYZE_TIMEOUT_S = 300.0
+KERNEL_ENTRIES = ("bucket_cost_packed", "bucket_cost_keyed", "warm_fill_counts_device", "counts_resident", "sharded_bucket_cost", "sharded_solve_step")
+ATOMIC_OUTPUTS = {("sharded_solve_step", 4)}  # bin_usage [num_bins, R] f32
+# launches the audit makes at its two grid points: K1 by bucket_cost_packed;
+# keyed K1 by bucket_cost_keyed and the two sharded entries (one block); K2
+# by warm_fill_counts_device and counts_resident
+AUDIT_LAUNCHES = {"bucket_type_cost": 2, "bucket_type_cost_keyed": 6, "warm_fill_counts": 4}
+# tests/test_cost_regret.py's gates. Its MILP time limit is 60 s; on the
+# host of an NVIDIA H100 80GB HBM3 (700.00 W) machine this phase's HiGHS
+# took 268.4 s on mixed_sizes and 19.0 s on homogeneous, so here each MILP
+# gets 600 s, and the five start in MILP_WORKERS worker processes (HiGHS
+# runs one thread each) as soon as the kernels are built, to be read by the
+# cost_regret phase; a MILP that does not reach optimality still fails
+REGRET_GATE = 0.03
+HOST_FFD_SANITY = 0.25
+MILP_TIME_LIMIT_S = 600.0
+MILP_WORKERS = 2
+
+
+def analysis_contracts(dev, card_name) -> dict:
+    """The program-contract tier on the card. `python -m
+    karpenter_tpu_torch.cmd.analyze --contracts --check --device cuda` as a
+    child must exit 0. Then, in this process, every registered device entry
+    is traced on the card at both grid points (contracts.audit): the
+    contract it gives must equal the committed one (staleness_errors: the
+    dtypes, shapes, in-place writes, promotions, host constants and kernel
+    libraries are device-independent facts), no finding outside the
+    baseline, no kernel build in the audit (the kernels were built at the
+    start, so any build would come after the library's first), and every
+    entry with a kernel library bit-equal to its plain version on copies of
+    the same inputs. Per entry: its dtypes, in-place set, host->device
+    bytes per call (the aten copies' sources; the host arguments an entry
+    stages itself, as AdmissionSurface does, beside them) and builds."""
+    from karpenter_tpu_torch.analysis import contracts
+    from karpenter_tpu_torch.analysis.core import Baseline, default_baseline_path
+    from karpenter_tpu_torch.analysis.rules.programcheck import CONTRACT_RULE_NAMES, findings_from_contracts
+    from karpenter_tpu_torch.ops import bucket_cost
+
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", "karpenter_tpu_torch.cmd.analyze", "--contracts", "--check", "--device", "cuda"],
+        capture_output=True, text=True, timeout=ANALYZE_TIMEOUT_S, cwd=ROOT,
+    )
+    child_s = time.perf_counter() - t0
+    read_launches()
+    keyed_before = bucket_cost.KEYED_LAUNCHES
+    t1 = time.perf_counter()
+    doc, facts = contracts.audit(device=dev)
+    audit_s = time.perf_counter() - t1
+    launches = read_launches()
+    launches["bucket_type_cost_keyed"] = bucket_cost.KEYED_LAUNCHES - keyed_before
+    stale = contracts.staleness_errors(contracts.load_committed(ROOT), doc)
+    active, _suppressed, stale_baseline = Baseline.load(default_baseline_path()).split(findings_from_contracts(doc), rules=CONTRACT_RULE_NAMES)
+    entries = {
+        name: {
+            "in": [a["dtype"] for a in entry["args"]],
+            "out": [o["dtype"] for o in entry["outputs"]],
+            "in_place": entry["inplace"]["written"],
+            "promotions": entry["promotions"],
+            "library": entry["library"],
+            "h2d_bytes_per_call": facts[name]["h2d_bytes"],
+            "host_arg_bytes_per_call": facts[name]["host_arg_bytes"],
+            "builds": facts[name]["builds"],
+            "aten_ops_per_call": facts[name]["ops"],
+            "bit_equal_to_plain": facts[name]["bit_equal"],
+            "max_abs_err": facts[name]["max_abs_err"],
+        }
+        for name, entry in doc["entries"].items()
+    }
+    builds = sum(len(b) for f in facts.values() for b in f["builds"])
+    line = {
+        "phase": "analysis_contracts",
+        "card": card_name,
+        "check_child": {"exit_code": child.returncode, "seconds": child_s, "stderr_tail": child.stderr.strip().splitlines()[-8:]},
+        "audit_s": audit_s,
+        "grid": {"base": contracts.GRID_BASE, "alt": contracts.GRID_ALT},
+        "entries": entries,
+        "equal_to_committed": not stale,
+        "stale": stale,
+        "findings_outside_baseline": [f.render() for f in active],
+        "builds": builds,
+        "kernel_launches": launches,
+    }
+    emit(line)
+    check(child.returncode == 0, f"analysis_contracts: analyze --contracts --check --device cuda exited {child.returncode}: {child.stderr[-2000:]}")
+    check(not stale, f"analysis_contracts: the card's contract differs from the committed one: {stale}")
+    check(not active and not stale_baseline, f"analysis_contracts: findings outside the baseline {[f.render() for f in active]}, stale entries {stale_baseline}")
+    check(builds == 0, f"analysis_contracts: {builds} kernel builds during the audit")
+    differs = [
+        [n, k] for n in KERNEL_ENTRIES for k, same in enumerate(facts[n]["bit_equal"] or [False]) if not same and (n, k) not in ATOMIC_OUTPUTS
+    ]
+    check(not differs, f"analysis_contracts: kernel entries' outputs [entry, output] differ from their plain versions: {differs}")
+    check(launches == AUDIT_LAUNCHES, f"analysis_contracts: the audit launched {launches}, expected {AUDIT_LAUNCHES}")
+    return line
+
+
+def timed_optimum(matrices, time_limit: float):
+    """solver/optimal.py's optimal_node_cost on one instance's matrices and
+    its seconds, in a worker process of cost_regret's pool."""
+    from karpenter_tpu_torch.solver.optimal import optimal_node_cost
+
+    t0 = time.perf_counter()
+    opt = optimal_node_cost(*matrices, time_limit=time_limit)
+    return opt, time.perf_counter() - t0
+
+
+def start_milps():
+    """testing.cost_regret_cases() and, for those the MILP measures, its
+    optimum (timed_optimum) submitted to MILP_WORKERS spawned worker
+    processes: (the pool, futures by case name, the cases, the instant the
+    pool started). cost_regret reads the futures and shuts the pool down."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.scheduling.nodetemplate import NodeTemplate
+    from karpenter_tpu_torch.solver.optimal import problem_matrices
+
+    cases = testing.cost_regret_cases()
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(max_workers=MILP_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    futures = {
+        c["name"]: pool.submit(
+            timed_optimum,
+            problem_matrices(c["pods"], c["provider"].get_instance_types(c["provisioner"]), NodeTemplate.from_provisioner(c["provisioner"])),
+            MILP_TIME_LIMIT_S,
+        )
+        for c in cases
+        if c["milp"]
+    }
+    return pool, futures, cases, t0
+
+
+def cost_regret(dev, card_name, milps=None) -> dict:
+    """The cost-regret harness on the card: tests/test_cost_regret.py's six
+    instances (testing.cost_regret_cases), each solved three ways. The
+    exhaustive MILP (solver/optimal.py, HiGHS through scipy on the host; a
+    MILP that does not reach optimality fails the phase), timed in a worker
+    process (`milps`, from start_milps, or started here); the dense
+    path on the card (DenseSolver(min_batch=1), K1 in every solve, each
+    call captured and held bit for bit against its plain version), its wall
+    and launches; and the exact host loop. The new nodes are priced at
+    their cheapest option, as the reference's test prices them. Gates, the
+    reference's: every pod placed on both paths, the dense path committing
+    pods, dense within REGRET_GATE of the optimum, the host loop within
+    HOST_FFD_SANITY, neither below the optimum; mixed_constraints_limits
+    (topology constraints, outside the MILP's model) dense within
+    REGRET_GATE of the host loop."""
+    from karpenter_tpu_torch.scheduler import build_scheduler
+    from karpenter_tpu_torch.solver import DenseSolver
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+
+    def solve(case, solver):
+        pods = case["pods"]
+        t0 = time.perf_counter()
+        results = build_scheduler([case["provisioner"]], case["provider"], pods, dense_solver=solver).solve(pods)
+        sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        placed = sum(len(n.pods) for n in results.new_nodes) + sum(len(n.pods) for n in results.existing_nodes)
+        return sum(min(it.price() for it in n.instance_type_options) for n in results.new_nodes), placed, wall
+
+    pool, futures, cases, t_pool = milps or start_milps()
+    t_wait = time.perf_counter()
+    try:
+        optima = {name: f.result() for name, f in futures.items()}
+    finally:
+        pool.shutdown()
+    milp_waited_s = time.perf_counter() - t_wait
+    rows, failures, total = [], [], {"bucket_type_cost": 0, "warm_fill_counts": 0}
+    for case in cases:
+        name, pods, provisioner = case["name"], case["pods"], case["provisioner"]
+        opt, milp_s = optima.get(name, (None, None))
+        solver = DenseSolver(min_batch=1, device=dev)
+        captures = []
+        seams = dense_module.bucket_cost_packed, fill_module.admission_counts
+        capture_kernel_calls(captures)
+        try:
+            read_launches()
+            dense_cost, dense_placed, dense_ms = solve(case, solver)
+            launches = read_launches()
+        finally:
+            dense_module.bucket_cost_packed, fill_module.admission_counts = seams
+        holds = hold_kernel_calls(captures, dev)
+        host_cost, host_placed, host_ms = solve(case, None)
+        for k in total:
+            total[k] += launches[k]
+        row = {
+            "case": name, "pods": len(pods), "types": len(case["provider"].get_instance_types(provisioner)),
+            "optimum": opt.cost if opt else None, "milp_status": opt.status if opt else "not run: topology constraints are outside the MILP's model",
+            "milp_nodes": opt.nodes if opt else None, "milp_s": milp_s,
+            "dense_cost": dense_cost, "host_cost": host_cost,
+            "dense_regret": (dense_cost - opt.cost) / opt.cost if opt and opt.ok else None,
+            "host_regret": (host_cost - opt.cost) / opt.cost if opt and opt.ok else None,
+            "dense_over_host": dense_cost / host_cost - 1.0 if host_cost else None,
+            "dense_wall_ms": dense_ms, "host_wall_ms": host_ms,
+            "pods_committed": solver.stats.pods_committed, "k1_launches": launches["bucket_type_cost"],
+            "k2_launches": launches["warm_fill_counts"], "kernel_holds": holds,
+        }
+        rows.append(row)
+        problems = []
+        if dense_placed != len(pods) or host_placed != len(pods):
+            problems.append(f"placed {dense_placed} dense / {host_placed} host of {len(pods)}")
+        if solver.stats.pods_committed <= 0 or launches["bucket_type_cost"] < 1:
+            problems.append(f"the dense path committed {solver.stats.pods_committed} pods with {launches['bucket_type_cost']} K1 launches")
+        if not holds or not all(h["identical"] for h in holds):
+            problems.append(f"a K1 call differs from its plain version: {holds}")
+        if opt is not None:
+            if not opt.ok:
+                problems.append(f"the MILP ended {opt.status}")
+            else:
+                if min(dense_cost, host_cost) < opt.cost - 1e-6:
+                    problems.append(f"a cost below the optimum {opt.cost}")
+                if row["dense_regret"] > REGRET_GATE or row["host_regret"] > HOST_FFD_SANITY:
+                    problems.append(f"regret dense {row['dense_regret']:.4f} / host {row['host_regret']:.4f}")
+        elif dense_cost > host_cost * (1 + REGRET_GATE) + 1e-9:
+            problems.append(f"dense {dense_cost} over the host loop's {host_cost} by more than {REGRET_GATE:.0%}")
+        if problems:
+            failures.append({"case": name, "problems": problems})
+    line = {
+        "phase": "cost_regret",
+        "card": card_name,
+        "gates": {"dense_regret": REGRET_GATE, "host_regret": HOST_FFD_SANITY, "milp_time_limit_s": MILP_TIME_LIMIT_S},
+        "cases": rows,
+        "milp_s_total": sum(r["milp_s"] or 0.0 for r in rows),
+        "milp_workers": MILP_WORKERS,
+        "milp_started_s_before_phase": t_wait - t_pool,
+        "milp_waited_s": milp_waited_s,
+        "kernel_launches": total,
+        "failures": failures,
+    }
+    emit(line)
+    check(not failures, f"cost_regret: {failures}")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5685,8 +6000,10 @@ def main() -> int:
     k2 = warmfill.warm_fill_counts_device
     solve_lines = {}
 
-    # 1. build both kernels from the checkout's sources
+    # 1. build both kernels from the checkout's sources; then start the
+    # cost-regret phase's MILPs in worker processes, read in 12g
     build_kernels([bucket_cost.LIBRARY, warmfill.LIBRARY])
+    milps = start_milps()
 
     def k1_problem(seed, B, T, R, kind="random"):
         arrays = testing.bucket_cost_problem(np.random.default_rng(seed), B, T, R, kind)
@@ -5996,11 +6313,17 @@ def main() -> int:
 
     # 12d. the wire: the Runtime's cell over HTTP against an apiserver
     # process, then a fresh controller process against one
-    runtime_http_line = runtime_round_http(dev, card_name, runtime_line)
+    runtime_http_line = runtime_round_http(dev, card_name)
     controller_process_http(dev, card_name)
     # 12e. the scenario campaign: live Runtimes under the workload stand-in
     # and seeded chaos, every batch through K1 and K2
     campaign_line = scenario_campaign(dev, card_name)
+    # 12f. the program-contract tier on the card: every device entry traced
+    # there against the contract committed from the CPU
+    analysis_line = analysis_contracts(dev, card_name)
+    # 12g. the cost-regret harness: the MILP optimum against the dense path
+    # (K1) and the exact host loop
+    regret_line = cost_regret(dev, card_name, milps)
     logsetup.set_level("warning")
 
     def runtime_launches(kernel_name):
@@ -6124,6 +6447,8 @@ def main() -> int:
                 "sidecar_launches": sidecar_line["kernel_launches"]["bucket_type_cost"],
                 "sidecar_grpc_launches": sidecar_line["grpc"]["kernel_launches"]["bucket_type_cost"],
                 "http_launches": http_launches("bucket_type_cost"),
+                "analysis_launches": analysis_line["kernel_launches"]["bucket_type_cost"],
+                "regret_launches": regret_line["kernel_launches"]["bucket_type_cost"],
                 "max_abs_err": max_err,
                 "ms": kernel_ms,
                 "kernel_ms": kernel_ms,
@@ -6149,6 +6474,7 @@ def main() -> int:
                 "replaces": "karpenter_tpu/ops/pallas_kernels.py:35",
                 "launches": mesh_line["headline"]["keyed_launches"],
                 "fleet_launches": mesh_line["fleet"]["k1_launches"],
+                "analysis_launches": analysis_line["kernel_launches"]["bucket_type_cost_keyed"],
                 "max_abs_err": max(mesh_line["keyed_parity"]["max_abs_err"], mesh_line["keyed_parity"]["key_max_abs_err"]),
                 "ms": mesh_line["keyed_ms"],
                 "kernel_ms": mesh_line["keyed_ms"],
@@ -6190,6 +6516,8 @@ def main() -> int:
                 "sidecar_launches": sidecar_line["kernel_launches"]["warm_fill_counts"],
                 "sidecar_grpc_launches": sidecar_line["grpc"]["kernel_launches"]["warm_fill_counts"],
                 "http_launches": http_launches("warm_fill_counts"),
+                "analysis_launches": analysis_line["kernel_launches"]["warm_fill_counts"],
+                "regret_launches": regret_line["kernel_launches"]["warm_fill_counts"],
                 "max_abs_err": k2_err,
                 "ms": k2_ms,
                 "kernel_ms": k2_ms,
@@ -6213,7 +6541,8 @@ def main() -> int:
         ]
     })
 
-    # 16. the card
+    # 16. the script's wall, kernel builds included, and the card
+    emit({"script_wall_s": time.perf_counter() - SCRIPT_T0})
     print(card_name, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}})
     return 0

@@ -39,10 +39,11 @@ Three instruments, one bounded ring:
   0). Exported as `karpenter_solver_hbm_peak_bytes` /
   `karpenter_solver_hbm_live_bytes` and stamped on each record.
 
-The port's copy of karpenter_tpu/flight.py. Left out until its ROADMAP
-item: the steady-recompile capsule cross-check against a committed solver
-contract (A13): `_committed_contracts()` is None, the reference's own
-"check disabled" path. The JAX package's SOLVER_CONTRACTS.json
+The port's copy of karpenter_tpu/flight.py. The steady-recompile capsule
+cross-check reads the port's own committed contract,
+karpenter_tpu_torch/analysis/solver_contracts.json (analysis/contracts.py):
+a build of a kernel library after its first, attributed to a shape change,
+fires a `steady-recompile` capsule. The JAX package's SOLVER_CONTRACTS.json
 describes its XLA programs and is never read.
 
 Design constraints match tracing.py exactly:
@@ -68,7 +69,7 @@ from typing import Dict, List, Optional
 
 from .analysis.guards import guarded_by
 from .analysis.witness import WITNESS
-from .capsule import CAPSULE
+from .capsule import CAPSULE, TRIGGER_STEADY_RECOMPILE
 from .logsetup import get_logger
 from .metrics import REGISTRY
 
@@ -77,12 +78,24 @@ log = get_logger("flight")
 DEFAULT_RING = 128
 
 
+# the committed solver contract (analysis/solver_contracts.json in the
+# package), loaded once per process for the capsule engine's
+# steady-recompile cross-check; None (missing file) disables the check
+# rather than firing
+_CONTRACT_DOC: Optional[dict] = None
+_CONTRACT_DOC_LOADED = False
+
 
 def _committed_contracts() -> Optional[dict]:
-    """The committed solver contract the capsule engine's steady-recompile
-    cross-check reads: None, which disables the check, until the port has
-    a contract tier of its own (ROADMAP A13)."""
-    return None
+    global _CONTRACT_DOC, _CONTRACT_DOC_LOADED
+    if not _CONTRACT_DOC_LOADED:
+        import os
+
+        from .analysis import contracts as _contracts
+
+        _CONTRACT_DOC = _contracts.load_committed(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        _CONTRACT_DOC_LOADED = True
+    return _CONTRACT_DOC
 
 
 # registered at import so gen_docs sees the families without a live recorder
@@ -434,10 +447,19 @@ class FlightRecorder:
                 RECORDS_DROPPED.inc()
             RECORDS_STORED.set(float(len(self._ring)))
         if CAPSULE.enabled and record.recompile and attribution and attribution != ["cold-start"]:
-            # the steady-state recompile cross-check reads the committed
-            # solver contract, which the port does not have (ROADMAP A13)
-            if _committed_contracts() is not None:
-                raise NotImplementedError("the steady-recompile cross-check needs the contract tier (ROADMAP A13)")
+            # the steady-state recompile cross-check: a kernel library built
+            # again after its first, on a shape change, contradicts the
+            # committed contract (a library declares no varying axis) — that
+            # IS the incident. A library's first build in this process is a
+            # path engaging for the first time (record.first_compiles); the
+            # kernels are built once per process, so a campaign's second
+            # transport sees no build at all and needs no per-run exemption
+            doc = _committed_contracts()
+            if doc is not None:
+                from .analysis.contracts import recompile_violations
+
+                if recompile_violations([record], doc):
+                    CAPSULE.trigger(TRIGGER_STEADY_RECOMPILE, attribution=sorted(attribution))
         return record
 
     def observe_solve_latency(self, seconds: float) -> None:

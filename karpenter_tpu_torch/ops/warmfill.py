@@ -120,7 +120,7 @@ def _launch(device, S: int, V: int, R: int, sizes: int, head: int, out: int, sta
     lib = LIBRARY.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.warm_fill_launch(staged, int(staged_head), sizes, head, out, landed, S, V, R, stream)
+        err = lib.warm_fill_launch(staged, 1 if staged_head else 0, sizes, head, out, landed, S, V, R, stream)
     if err != 0:
         raise launch_error(err)
     LAUNCHES += 1

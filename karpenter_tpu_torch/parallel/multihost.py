@@ -7,7 +7,9 @@ The port's copy of karpenter_tpu/parallel/multihost.py, on
   coordinator address; process 0 hosts the rendezvous (a TCP store);
 - :func:`initialize` joins the process group from explicit arguments or the
   standard env (``KARPENTER_TPU_COORDINATOR``, ``..._NUM_PROCESSES``,
-  ``..._PROCESS_ID``). Nothing detects the topology: the process count and
+  ``..._PROCESS_ID``), with the backend's default collective timeout or the
+  caller's (`timeout`); :func:`group_timeout` reads the one in force, which
+  the peer fabric's keep-alive paces itself by (parallel/peers.py). Nothing detects the topology: the process count and
   this process's id must be given. The backend is an explicit choice:
   ``"nccl"`` when the process's device is CUDA, ``"gloo"`` for the CPU, or
   the caller's (``"gloo"`` for processes that share one card, which NCCL
@@ -34,6 +36,7 @@ the global mesh.
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional, Tuple
 
@@ -51,6 +54,20 @@ ENV_NUM_PROCESSES = "KARPENTER_TPU_NUM_PROCESSES"
 ENV_PROCESS_ID = "KARPENTER_TPU_PROCESS_ID"
 
 
+_timeout_s: Optional[float] = None  # the collective timeout initialize() set
+
+
+def group_timeout() -> float:
+    """Seconds a collective of the process group may wait before it fails:
+    the timeout initialize() was given, else the backend's default."""
+    if _timeout_s is not None:
+        return _timeout_s
+    from torch.distributed import constants
+
+    nccl = dist.is_initialized() and dist.get_backend() == "nccl"
+    return (constants.default_pg_nccl_timeout if nccl else constants.default_pg_timeout).total_seconds()
+
+
 def default_backend(device) -> str:
     """"nccl" for a process on a card, "gloo" for one on the CPU."""
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
@@ -62,14 +79,17 @@ def initialize(
     process_id: Optional[int] = None,
     backend: Optional[str] = None,
     device="cuda",
+    timeout: Optional[float] = None,
 ) -> bool:
     """Join the multi-process solver fabric; returns True when distributed
     mode is active.
 
     Arguments default to the KARPENTER_TPU_* env; with no coordinator
     configured anywhere this is a no-op (False). A coordinator without a
-    process count or id raises before any connection is tried. Safe to
-    call more than once."""
+    process count or id raises before any connection is tried. `timeout`
+    (seconds) bounds each collective's wait; by default the backend's.
+    Safe to call more than once."""
+    global _timeout_s
     if dist.is_initialized():
         return True
     coordinator_address = coordinator_address or os.environ.get(ENV_COORDINATOR) or None
@@ -92,7 +112,9 @@ def initialize(
         dev = torch.device("cuda", process_id % torch.cuda.device_count())
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}", world_size=num_processes, rank=process_id)
+    extra = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}", world_size=num_processes, rank=process_id, **extra)
+    _timeout_s = timeout
     log.info("joined solver fabric: coordinator=%s process %d/%d, backend %s", coordinator_address, process_id, num_processes, backend)
     return True
 

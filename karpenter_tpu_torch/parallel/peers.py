@@ -16,7 +16,9 @@ gives them a broadcast protocol to follow it:
      (parallel/sharded.py), one `dist.all_gather` brings every block's
      packed result to every process, and each combines them over the types
      axis: the result is replicated;
-  5. the coordinator returns it to the solver, peers loop back to 1.
+  5. the coordinator returns it to the solver, peers loop back to 1
+     (where a keep-alive header, [OP_KEEPALIVE, 0, ...], is counted and
+     skipped).
 
 The gathered tensor leads with a status word per process: a process whose
 blocks failed (a launch error, a fault at the "cuda" seam, a failed wait)
@@ -31,10 +33,21 @@ later one, and sends no more broadcasts.
 The collectives ride the backend's device: host tensors for gloo, the
 process's card for nccl. OP_SHUTDOWN releases the peers. With one process
 the fabric is inert and dispatch is the local sharded call.
+
+An idle fleet stays alive: a peer waits in the header broadcast between
+solves, and that wait fails once the process group's collective timeout
+has passed (parallel/multihost.py group_timeout). So the coordinator sends
+a keep-alive header (OP_KEEPALIVE), which peers count and otherwise
+ignore, whenever no broadcast has gone out for a quarter of that timeout,
+from a thread of its own, never while a solve is between its broadcasts
+and its gather. A keep-alive rather than a longer timeout: a deployment
+cannot name an idle period long enough, and a dead peer must still fail
+the collective it is waited on in.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Optional
 
@@ -45,13 +58,17 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..logsetup import get_logger
 from ..solver.faults import SolverDeviceLostError
-from .multihost import distributed_solver_mesh
+from ..utils.clock import Clock
+from .multihost import distributed_solver_mesh, group_timeout
 from .sharded import PendingCost, ShardedBucketCost
 
 log = get_logger("parallel")
 
 OP_SOLVE = 1
 OP_SHUTDOWN = 2
+OP_KEEPALIVE = 3
+
+KEEPALIVE_FRACTION = 0.25  # of the collective timeout, idle before a keep-alive
 
 _HEADER = 8  # [opcode, Bp, R, Tp, seq, has_catalog, reserved x2]
 
@@ -93,6 +110,17 @@ class PeerFabric:
         # set once a peer has failed a solve: its loop has ended, so the
         # coordinator sends no more collectives
         self._lost: Optional[str] = None
+        # keep-alive headers sent (coordinator) or seen (peer)
+        self.keepalives = 0
+        # the coordinator's broadcasts, one at a time: a solve holds
+        # `_inflight` from its header to the end of its gather
+        self._wire = threading.Lock()
+        self._inflight = False
+        self._clock = Clock()
+        self._last_sent = self._clock.now()
+        self._stop = threading.Event()
+        if self.multiprocess and self.is_coordinator():
+            threading.Thread(target=self._keepalive_loop, name="fabric-keepalive", daemon=True).start()
 
     @property
     def multiprocess(self) -> bool:
@@ -116,6 +144,29 @@ class PeerFabric:
         self._catalog_placed = self.cost.place_catalog(caps.astype(np.float32), prices.astype(np.float32))
         self._Tp = caps.shape[0]
 
+    def _keepalive_loop(self) -> None:
+        """The coordinator's keep-alive: a header whenever the wire has been
+        idle for KEEPALIVE_FRACTION of the collective timeout."""
+        interval = group_timeout() * KEEPALIVE_FRACTION
+        while not self._stop.wait(interval / 4):
+            with self._wire:
+                if self._stop.is_set() or self._inflight or self._lost is not None:
+                    continue
+                if self._clock.now() - self._last_sent < interval:
+                    continue
+                try:
+                    self._broadcast(np.asarray([OP_KEEPALIVE, 0, 0, 0, 0, 0, 0, 0], dtype=np.int32))
+                except Exception as exc:  # noqa: BLE001 - the next solve's broadcast raises it
+                    log.warning("peer fabric: keep-alive broadcast failed, keep-alives stop: %s", exc)
+                    return
+                self._last_sent = self._clock.now()
+                self.keepalives += 1
+
+    def _end_solve(self) -> None:
+        with self._wire:
+            self._inflight = False
+            self._last_sent = self._clock.now()
+
     def _gather(self, local: torch.Tensor, fault: Optional[BaseException]) -> torch.Tensor:
         """Every process's [blocks, 4, Bb] results, rank by rank, behind one
         status word each. Raises on every process when any failed: its own
@@ -127,7 +178,11 @@ class PeerFabric:
         else:
             flat[0] = 1
         parts = [torch.empty_like(flat) for _ in range(self.process_count)]
-        dist.all_gather(parts, flat, group=self.mesh.group)
+        try:
+            dist.all_gather(parts, flat, group=self.mesh.group)
+        finally:
+            if self.is_coordinator():
+                self._end_solve()
         if fault is not None:
             raise fault
         failed = [r for r, status in enumerate(torch.stack([p[0] for p in parts]).tolist()) if status]
@@ -180,11 +235,14 @@ class PeerFabric:
         parts = [bucket_stats, allowed] + ([caps, prices] if has_catalog else [])
         payload = self._pack(parts)
         try:
-            self._seq += 1
-            self.catalog_broadcasts += has_catalog
-            self._broadcast(np.asarray([OP_SOLVE, Bp, R, Tp, self._seq, has_catalog, 0, 0], dtype=np.int32))
-            self._broadcast(payload)
+            with self._wire:
+                self._inflight = True
+                self._seq += 1
+                self.catalog_broadcasts += has_catalog
+                self._broadcast(np.asarray([OP_SOLVE, Bp, R, Tp, self._seq, has_catalog, 0, 0], dtype=np.int32))
+                self._broadcast(payload)
         except Exception:
+            self._end_solve()
             self.shutdown(best_effort=True)
             raise
         pending = self._enter_solve(bucket_stats, allowed, new_catalog)
@@ -197,8 +255,10 @@ class PeerFabric:
         peer is left in the barrier and nothing is sent."""
         if not (self.multiprocess and self.is_coordinator()) or self._lost is not None:
             return
+        self._stop.set()
         try:
-            self._broadcast(np.asarray([OP_SHUTDOWN, 0, 0, 0, 0, 0, 0, 0], dtype=np.int32))
+            with self._wire:
+                self._broadcast(np.asarray([OP_SHUTDOWN, 0, 0, 0, 0, 0, 0, 0], dtype=np.int32))
         except Exception:
             if not best_effort:
                 raise
@@ -223,6 +283,9 @@ class PeerFabric:
             if op == OP_SHUTDOWN:
                 log.info("peer %d released after %d solves", self.process_index, served)
                 return served
+            if op == OP_KEEPALIVE:
+                self.keepalives += 1
+                continue
             if op != OP_SOLVE:
                 raise RuntimeError(f"peer {self.process_index}: unknown opcode {op}")
             Bp, R, Tp = int(header[1]), int(header[2]), int(header[3])

@@ -224,14 +224,19 @@ class ResidencyAuditor:
         t0 = time.perf_counter()
         report = self._audit(engine, res, views, names, cube_host, cube_dev)
         if report is not None:
+            with self._lock:
+                audit_no = self.audits - 1
             log.warning(
                 "residency divergence: kinds=%s rows=%s (audit #%d, %.1fms) — healing via full re-encode",
-                report["kinds"], report["rows"], self.audits - 1, (time.perf_counter() - t0) * 1000.0,
+                report["kinds"], report["rows"], audit_no, (time.perf_counter() - t0) * 1000.0,
             )
         return report
 
     def _audit(self, engine, res, views: Sequence, names: List[str], cube_host, cube_dev) -> Optional[dict]:
-        audit_index = self.audits
+        with self._lock:
+            audit_index = self.audits
+            last_epoch = self._last_epoch
+            prior_digests = dict(self._truth_digest)
         idx = self.sample(len(views), audit_index)
 
         # truth: re-encode the sampled views with the exact fresh-path
@@ -239,7 +244,7 @@ class ResidencyAuditor:
         # is byte-identical to full-encode row idx[j])
         fresh = encode_warm_views([views[i] for i in idx])
         mirror = res.enc
-        window = engine.journal.dirty_since(self._last_epoch)
+        window = engine.journal.dirty_since(last_epoch)
         findings: List[dict] = []
         fresh_digests: Dict[str, str] = {}
         for j, i in enumerate(idx):
@@ -248,7 +253,7 @@ class ResidencyAuditor:
             fresh_digests[name] = truth_digest
             if truth_digest == _row_digest(mirror, i):
                 continue
-            prior = self._truth_digest.get(name)
+            prior = prior_digests.get(name)
             # the journal window since the previous audit is the engine's
             # only knowledge of motion: truth that moved OUTSIDE it is a
             # record the journal lost

@@ -12,7 +12,8 @@ run_incremental_churn) and of its controller test environments
 owned_pod, tests/test_disruption.py's DisruptionEnv, and the Runtime over
 the simulated cloud of tests/test_simulated_provider.py,
 tests/test_interruption_catalog.py's InterruptionEnv and tests/test_gc.py's
-GCEnv). They draw from numpy
+GCEnv), and of tests/test_cost_regret.py's six cost-regret instances
+(cost_regret_cases). They draw from numpy
 with the same seeds in the same order, so both packages build the same
 pods, catalogs and clusters: the tests and chip_smoke.py build the port's
 side from here.
@@ -67,7 +68,7 @@ from .api.objects import (
     PersistentVolumeClaimVolumeSource,
 )
 from .api.provisioner import Budget, Consolidation, Disruption, Limits, Provisioner, ProvisionerSpec
-from .cloudprovider.fake import FakeCloudProvider, Offering, instance_type
+from .cloudprovider.fake import FakeCloudProvider, Offering, instance_type, instance_types
 from .cloudprovider.simulated.backend import CloudBackend, FleetInstanceSpec, FleetRequest
 from .cloudprovider.simulated.provider import SimulatedCloudProvider
 from .config import Config
@@ -203,6 +204,68 @@ def make_provisioner(
         disruption=Disruption(budgets=list(budgets)) if budgets is not None else None,
     )
     return Provisioner(metadata=ObjectMeta(name=name, namespace=""), spec=spec)
+
+
+def cost_regret_cases() -> List[dict]:
+    """tests/test_cost_regret.py's six instances, each a dict of its name,
+    pods, provider, provisioner and whether the exhaustive MILP
+    (solver/optimal.py) measures it: homogeneous pods (the FFD parity
+    config), mixed sizes, nodeSelector-constrained, spot/on-demand pricing,
+    one large pod, and mixed constraints under limits with zonal spread and
+    hostname anti-affinity (out of the MILP's model: held against the host
+    loop, as the JAX package's test holds it). Pods are named
+    <case>-<index>, drawn in the JAX package's order."""
+    cases = []
+
+    def case(name, pods, provider, provisioner, milp=True):
+        for i, pod in enumerate(pods):
+            pod.metadata.name = f"{name}-{i:03d}"
+        cases.append({"name": name, "pods": pods, "provider": provider, "provisioner": provisioner, "milp": milp})
+
+    case("homogeneous", [make_pod(requests={"cpu": 1, "memory": "1Gi"}) for _ in range(20)], FakeCloudProvider(instance_types(10)), make_provisioner())
+    rng = np.random.default_rng(7)
+    cpus, mems = [0.25, 0.5, 1.0, 1.5], ["256Mi", "512Mi", "1Gi", "2Gi"]
+    case(
+        "mixed_sizes",
+        [make_pod(requests={"cpu": cpus[rng.integers(4)], "memory": mems[rng.integers(4)]}) for _ in range(18)],
+        FakeCloudProvider(instance_types(8)),
+        make_provisioner(),
+    )
+    pods = [make_pod(requests={"cpu": 0.5, "memory": "512Mi"}) for _ in range(10)]
+    pods += [make_pod(requests={"cpu": 0.5, "memory": "512Mi"}, node_selector={"integer": "4"}) for _ in range(6)]
+    case("node_selector", pods, FakeCloudProvider(instance_types(8)), make_provisioner())
+    types = []
+    for i in range(4):
+        cpu = 2 * (i + 1)
+        for capacity_type, price in (("on-demand", 0.5), ("spot", 0.15)):
+            types.append(
+                instance_type(
+                    f"{'od' if capacity_type == 'on-demand' else 'spot'}-{i}",
+                    cpu=cpu,
+                    memory=f"{cpu * 2}Gi",
+                    pods=cpu * 8,
+                    offerings=[Offering(capacity_type=capacity_type, zone="test-zone-1")],
+                    price=price * cpu,
+                )
+            )
+    case("spot_on_demand", [make_pod(requests={"cpu": 1, "memory": "1Gi"}) for _ in range(16)], FakeCloudProvider(types), make_provisioner())
+    case("single_large_pod", [make_pod(requests={"cpu": 6, "memory": "2Gi"})], FakeCloudProvider(instance_types(10)), make_provisioner())
+    rng = np.random.default_rng(99)
+    pods = []
+    for i in range(60):
+        req = {"cpu": [0.25, 0.5][rng.integers(2)], "memory": "256Mi"}
+        if i % 5 == 0:
+            lab = {"s": "ab"[rng.integers(2)]}
+            spread = TopologySpreadConstraint(max_skew=1, topology_key=LABEL_TOPOLOGY_ZONE, label_selector=LabelSelector(match_labels=lab))
+            pods.append(make_pod(labels=lab, requests=req, topology_spread_constraints=[spread]))
+        elif i % 7 == 0:
+            lab = {"a": "xy"[rng.integers(2)]}
+            anti = PodAffinityTerm(topology_key=LABEL_HOSTNAME, label_selector=LabelSelector(match_labels=lab))
+            pods.append(make_pod(labels=lab, requests=req, pod_anti_requirements=[anti]))
+        else:
+            pods.append(make_pod(requests=req))
+    case("mixed_constraints_limits", pods, FakeCloudProvider(instance_types(12)), make_provisioner(limits={"cpu": 4000}), milp=False)
+    return cases
 
 
 def build_workload(count: int, seed: int = 42):

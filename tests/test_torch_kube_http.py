@@ -325,7 +325,12 @@ def _crud_and_watch(client_kit, srv, w) -> dict:
     obj = k.obj
     client = w.client(k, srv.url)
     events = []
+    # watch() returns before its informer has listed: a sentinel written
+    # first and replayed by that LIST marks the point from which the stream
+    # misses no write, so the sequence below never races the informer
+    client.create(obj.Node(metadata=obj.ObjectMeta(name="wire-sentinel", namespace="")))
     client.watch("Node", lambda e: events.append((e.type, e.obj.name, dict(e.obj.metadata.labels))))
+    eventually(lambda: ("ADDED", "wire-sentinel", {}) in events, message="the watch's initial list")
     client.create(k.make_provisioner())
     pod = k.make_pod(name="wire-pod", requests={"cpu": "1", "memory": "1Gi"}, labels={"app": "web"})
     client.create(pod)
