@@ -20,7 +20,10 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     type blocks and rows with no feasible type; the headline solve through
     DenseSolver(mesh=...), with the unsharded solve's placements, node
     count and $/hour and every block's K1 call held, timed in turns with
-    the unsharded solver; the two-process fleet
+    the unsharded solver; the same solve over that mesh with
+    --solver-hbm-budget 1 (mesh_budget_case: two unkeyed K1 launches on the
+    card's halves of the bucket axis, no keyed launch, the unsharded
+    outcome, the mesh kept); the two-process fleet
     (parallel/peers.py) over gloo with both processes on the card; over
     NCCL, one card per process, where there are several cards;
   - selectors_taints_5k_x_500 (K1);
@@ -5462,6 +5465,89 @@ def service_fleet_headline(pods, provider, provisioners, dense_out) -> dict:
     return line
 
 
+def mesh_budget_case(dev, mesh, pods, provider, provisioners, dense_out) -> dict:
+    """The budget split under a solver mesh: the batch through
+    DenseSolver(mesh=mesh, hbm_budget_bytes=1) with the flight recorder on,
+    so the pre-solve memory peak is over the budget and the solve launches
+    the unkeyed K1 on each half of the bucket axis on the solver's card,
+    dispatching nothing over the mesh, which stays for the next solve. The
+    counts are zeroed just before the solve and read just after; each K1
+    call is captured and held bit for bit against its plain version on the
+    same card tensors, and the halves against one unsplit launch."""
+    from karpenter_tpu_torch.flight import FLIGHT
+    from karpenter_tpu_torch.ops import bucket_cost
+    from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
+    from karpenter_tpu_torch.scheduler import build_scheduler
+    from karpenter_tpu_torch.solver import DenseSolver
+    from karpenter_tpu_torch.solver import dense as dense_module
+
+    kernel, calls = dense_module.bucket_cost_packed, []
+
+    def recording(*operands):
+        packed = kernel(*operands)
+        calls.append((operands, packed))
+        return packed
+
+    was_enabled = FLIGHT.enabled
+    FLIGHT.enable()
+    solver = DenseSolver(min_batch=1, device=dev, mesh=mesh, hbm_budget_bytes=1)
+    dense_module.bucket_cost_packed = recording
+    try:
+        scheduler = build_scheduler(provisioners, provider, pods, dense_solver=solver)
+        read_launches()
+        keyed_before = bucket_cost.KEYED_LAUNCHES
+        t0 = time.perf_counter()
+        results = scheduler.solve(pods)
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        keyed = bucket_cost.KEYED_LAUNCHES - keyed_before
+        record = FLIGHT.records()[-1] if FLIGHT.records() else None
+    finally:
+        dense_module.bucket_cost_packed = kernel
+        if not was_enabled:
+            FLIGHT.disable()
+            FLIGHT.reset()
+    got = outcome(results, pods)
+    held = [bool(torch.equal(packed, bucket_type_cost_packed(*operands))) for operands, packed in calls]
+    halves = [int(operands[0].shape[1]) for operands, _ in calls]
+    case = {
+        "hbm_budget_bytes": 1,
+        "wall_ms": wall_ms,
+        "launches": launches,
+        "keyed_launches": keyed,
+        "halves": halves,
+        "buckets": sum(halves),
+        "kernel_holds": {"calls": len(calls), "identical": held.count(True)},
+        "flight": {"dispatch": record.dispatch, "rungs": record.rungs, "hbm_peak_bytes": record.hbm_peak_bytes} if record is not None else None,
+        "sharded_batches": solver.stats.sharded_batches,
+        "mesh_kept": solver._active_mesh() is mesh,
+        "nodes": len(got["nodes"]),
+        "cost": got["cost"],
+        "placements_identical": got["nodes"] == dense_out["nodes"],
+        "scheduled": got["scheduled"],
+    }
+    if len(calls) == 2:
+        (stats_a, caps, prices, allowed_a), out_a = calls[0]
+        (stats_b, _caps, _prices, allowed_b), out_b = calls[1]
+        whole = (torch.cat([stats_a, stats_b], dim=1).contiguous(), caps, prices, torch.cat([allowed_a, allowed_b], dim=0).contiguous())
+        case["packed_equal_to_one_launch"] = bool(torch.equal(torch.cat([out_a, out_b], dim=1), kernel(*whole)))
+        case["half_device_ms"], case["device_ms_missing"] = profiled_series(
+            [functools.partial(kernel, *operands) for operands, _ in calls], KERNEL_ITERS, "bucket_cost_kernel"
+        )
+        case["half_ms"] = [cuda_ms(functools.partial(kernel, *operands), KERNEL_ITERS) for operands, _ in calls]
+    B = -(-case["buckets"] // 2)
+    check(launches["bucket_type_cost"] == 2 and halves == [B, case["buckets"] - B], f"the budget split under the mesh launched K1 {launches} at {halves}")
+    check(keyed == 0 and case["sharded_batches"] == 0, f"the budget split under the mesh dispatched over the mesh: {keyed} keyed launches")
+    check(len(held) == 2 and all(held), f"a K1 call of the budget split under the mesh differs from its plain version: {held}")
+    check(case.get("packed_equal_to_one_launch") is True, "the budget split's halves differ from one unsplit launch")
+    check(case["flight"] is not None and case["flight"]["rungs"] == ["chunked"] and case["flight"]["dispatch"] == ("cuda" if dev.type == "cuda" else "plain"), f"the budget split's flight record: {case['flight']}")
+    check(case["mesh_kept"], "the budget split retired the mesh")
+    check(case["placements_identical"] and got["cost"] == dense_out["cost"], "the budget split under the mesh placed pods differently from the unsharded solve")
+    check(got["scheduled"] == len(pods) and got["unschedulable"] == 0, "the budget split under the mesh left pods unscheduled")
+    return case
+
+
 def solver_mesh_phase(dev, card_name, headline_inputs, pods, provider, provisioners, dense_out) -> dict:
     """The solver mesh on the card (parallel/): K1's keyed launch held
     against its plain version; make_sharded_bucket_cost on 8 logical blocks
@@ -5653,6 +5739,10 @@ def solver_mesh_phase(dev, card_name, headline_inputs, pods, provider, provision
     check(got["cost"] == dense_out["cost"] and len(got["nodes"]) == len(dense_out["nodes"]), "the mesh solve's $/hour or node count differs")
     check(got["scheduled"] == len(pods) and got["unschedulable"] == 0, "the mesh solve left pods unscheduled")
 
+    # 3b. the same solve over the mesh under --solver-hbm-budget 1
+    budget = mesh_budget_case(dev, mesh, pods, provider, provisioners, dense_out)
+    check(budget["buckets"] == headline_inputs[0].shape[1], f"the budget split's halves cover {budget['buckets']} buckets, the headline has {headline_inputs[0].shape[1]}")
+
     # 4. the two-process fleet over gloo, both processes on this card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"], capture_output=True, text=True, timeout=30)
     compute_mode = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "unknown"
@@ -5726,6 +5816,7 @@ def solver_mesh_phase(dev, card_name, headline_inputs, pods, provider, provision
         "keyed_device_ms": keyed_device_ms,
         "device_ms_missing": keyed_why or block_why or None,
         "headline": headline,
+        "budget": budget,
         "fleet": fleet,
         "service_fleet": service,
         "multi_card": multi_card,

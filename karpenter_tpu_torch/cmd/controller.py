@@ -23,7 +23,9 @@ the SLO snapshot's (--enable-slo: /debug/slo), the flight recorder's
 (--coherence-interval: /debug/coherence) and the invariant monitor's
 (--invariants-interval: /debug/invariants). The solver fault domain's flags
 (--solver-breaker-threshold, --solver-breaker-backoff, --solver-hbm-budget)
-configure the Runtime's breaker and budget split. A runtime whose loop dies ends the
+configure the Runtime's breaker and budget split; under a solver mesh a solve
+over the budget splits on the solver's card and skips the mesh for that solve
+only. A runtime whose loop dies ends the
 process: `main` leaves its wait, and `Runtime.stop()` re-raises.
 """
 

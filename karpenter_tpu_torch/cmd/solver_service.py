@@ -86,7 +86,11 @@ def run(address: str, fabric=None) -> None:
 
             dense_solver = DenseSolver(min_batch=1, peer_fabric=fabric)
         server, port, _ = serve(address, dense_solver=dense_solver)
-        stop.wait()
+        # a timed wait: a signal the kernel hands to one of grpc's or gloo's
+        # threads wakes no untimed wait of the main thread, and the handler
+        # runs only once the main thread runs Python again
+        while not stop.wait(0.5):
+            pass
     finally:
         if server is not None:
             server.stop(grace=2.0).wait()

@@ -32,8 +32,9 @@ Three instruments, one bounded ring:
   on `cuda`, `torch.cuda.memory_stats(device)`'s
   `allocated_bytes.all.peak` and `allocated_bytes.all.current` (the
   caching allocator's bytes handed to tensors). The recorder resets the
-  high-water mark after each record's snapshot, so a record's peak is its
-  own solve's (from the previous record on), and the dense solver's
+  high-water mark after each record's snapshot, on the solver's card and on
+  the cards of its mesh's blocks, so a record's peak is its own solve's
+  (from the previous record on), and the dense solver's
   `--solver-hbm-budget` check reads the peak of the solve in flight. The
   JAX package's peak is the process's. A solver on the CPU reports (0,
   0). Exported as `karpenter_solver_hbm_peak_bytes` /
@@ -373,10 +374,14 @@ class FlightRecorder:
         rungs: Optional[List[str]] = None,
         breaker: str = "closed",
         device=None,
+        peak_devices=(),
     ) -> Optional[SolveRecord]:
         """Close the window begin_solve() opened: compute per-library build
         deltas, attribute them to the changed shape dimensions, snapshot
-        `device`'s memory, and append the record to the ring."""
+        `device`'s memory, and append the record to the ring. The memory
+        peak restarts on `device` and on each of `peak_devices` (the cards of
+        a solver mesh's blocks), so the next solve's budget check reads that
+        solve's peak on all of them."""
         if not self.enabled or token is None:
             return None
         sizes = _TALLY.builds_by_fn()
@@ -394,7 +399,8 @@ class FlightRecorder:
         for name, count in compiled.items():
             COMPILATIONS.inc(count, fn=name)
         peak, live = self.hbm_snapshot(device)
-        self.reset_hbm_peak(device)
+        for dev in dict.fromkeys([device, *peak_devices]):
+            self.reset_hbm_peak(dev)
         HBM_PEAK.set(float(peak))
         HBM_LIVE.set(float(live))
         waste = 0.0

@@ -119,8 +119,10 @@ class PeerFabric:
         self._clock = Clock()
         self._last_sent = self._clock.now()
         self._stop = threading.Event()
+        self._keepalive: Optional[threading.Thread] = None
         if self.multiprocess and self.is_coordinator():
-            threading.Thread(target=self._keepalive_loop, name="fabric-keepalive", daemon=True).start()
+            self._keepalive = threading.Thread(target=self._keepalive_loop, name="fabric-keepalive", daemon=True)
+            self._keepalive.start()
 
     @property
     def multiprocess(self) -> bool:
@@ -252,17 +254,27 @@ class PeerFabric:
 
     def shutdown(self, best_effort: bool = False) -> None:
         """Release the peer loops (coordinator). Once a peer has failed, no
-        peer is left in the barrier and nothing is sent."""
-        if not (self.multiprocess and self.is_coordinator()) or self._lost is not None:
+        peer is left in the barrier and nothing is sent.
+
+        The keep-alive thread is joined on the way out. It holds this fabric,
+        and with it the mesh's process group: left running, it may drop the
+        last reference while the interpreter exits, and a process group
+        destroyed on a daemon thread then aborts the process."""
+        if not (self.multiprocess and self.is_coordinator()):
             return
         self._stop.set()
         try:
-            with self._wire:
-                self._broadcast(np.asarray([OP_SHUTDOWN, 0, 0, 0, 0, 0, 0, 0], dtype=np.int32))
+            if self._lost is None:
+                with self._wire:
+                    self._broadcast(np.asarray([OP_SHUTDOWN, 0, 0, 0, 0, 0, 0, 0], dtype=np.int32))
         except Exception:
             if not best_effort:
                 raise
             log.warning("peer fabric: best-effort shutdown broadcast failed")
+        finally:
+            # a keep-alive broadcast in flight ends within the group's timeout
+            if self._keepalive is not None:
+                self._keepalive.join(timeout=group_timeout())
 
     # -- peer side -------------------------------------------------------------
 

@@ -273,7 +273,7 @@ class _Bucket:
     preset_pack: Optional[tuple] = None
     compat_row: Optional[np.ndarray] = None
 
-def resolve_mesh(device: torch.device, mesh=None, use_mesh: bool = True, hbm_budget_bytes: int = 0):
+def resolve_mesh(device: torch.device, mesh=None, use_mesh: bool = True):
     """The (pods x types) mesh a solver on `device` dispatches its bucket
     choice over, or None.
 
@@ -282,9 +282,7 @@ def resolve_mesh(device: torch.device, mesh=None, use_mesh: bool = True, hbm_bud
     them (host_mesh_axes keeps the types axis small); KARPENTER_TPU_MESH=0
     disables that, and an integer value asks for that many cards, which
     raises when fewer are visible. A CPU solver takes a mesh only when given
-    one; use_mesh=False pins the single-device flavor. A mesh with an HBM
-    budget raises: the budget split has no per-block form yet (ROADMAP
-    A12b)."""
+    one; use_mesh=False pins the single-device flavor."""
     if mesh is not None:
         local = {dev.type for _, _, dev in mesh.blocks(0)}
         if local != {device.type}:
@@ -300,8 +298,6 @@ def resolve_mesh(device: torch.device, mesh=None, use_mesh: bool = True, hbm_bud
                 _, types_parallel = host_mesh_axes(n, n)
                 cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
                 mesh = default_mesh(n, types_parallel=types_parallel, devices=cards)
-    if mesh is not None and hbm_budget_bytes > 0:
-        raise NotImplementedError("--solver-hbm-budget under a solver mesh: the budget split has no per-block form yet (ROADMAP A12b)")
     return mesh
 
 
@@ -322,9 +318,11 @@ class DenseSolver:
     `hbm_budget_bytes` is the pre-solve device-memory budget
     (--solver-hbm-budget; 0 = none): while the flight recorder is on and its
     `torch.cuda.memory_stats` peak exceeds it, the bucket choice launches K1
-    once per half of the bucket axis (the 'chunked' rung). The split has no
-    per-block form: a budget under a mesh raises NotImplementedError when
-    the solver is built.
+    once per half of the bucket axis (the 'chunked' rung). Under a mesh the
+    peak is the largest over the solver's card and the cards of this
+    process's blocks, and a solve over the budget splits on the solver's
+    card instead of dispatching over the mesh; the mesh stays for the next
+    solve.
 
     `mesh` is a parallel.mesh.SolverMesh whose blocks run the bucket choice
     (the 'sharded' flavor); `peer_fabric` a parallel.peers.PeerFabric whose
@@ -362,7 +360,12 @@ class DenseSolver:
         # becomes the mesh. The mesh is resolved here, so that a setting it
         # cannot serve is refused when the solver is built, not at a solve
         self.peer_fabric = peer_fabric
-        self._mesh = resolve_mesh(self.device, mesh if mesh is not None or peer_fabric is None else peer_fabric.mesh, use_mesh, self.hbm_budget_bytes)
+        self._mesh = resolve_mesh(self.device, mesh if mesh is not None or peer_fabric is None else peer_fabric.mesh, use_mesh)
+        # the cards whose memory peak the budget reads and each record resets:
+        # the solver's and those of this process's blocks of the mesh
+        rank = peer_fabric.process_index if peer_fabric is not None else 0
+        blocks = self._mesh.blocks(rank) if self._mesh is not None else []
+        self._memory_devices = tuple(dict.fromkeys([self.device, *(dev for _, _, dev in blocks)]))
         self._solve_faults: Dict[str, int] = {}
         self._solve_rungs: List[str] = []
         # the catalog's availability cube resident on the device, as (host
@@ -621,6 +624,7 @@ class DenseSolver:
                 rungs=list(self._solve_rungs),
                 breaker=BREAKER.state,
                 device=self.device,
+                peak_devices=self._memory_devices,
             )
         if TRACER.enabled:
             # the measured phase boundaries as completed child spans under the
@@ -1668,6 +1672,7 @@ class DenseSolver:
                 rungs=list(self._solve_rungs),
                 breaker=BREAKER.state,
                 device=self.device,
+                peak_devices=self._memory_devices,
             )
         if fault is exc:
             raise exc
@@ -1675,13 +1680,15 @@ class DenseSolver:
 
     def _hbm_over_budget(self) -> bool:
         """Pre-solve memory check: the flight recorder's torch.cuda.memory_stats
-        peak of the solver's device against --solver-hbm-budget (0 or the
-        recorder off = no budget; a CPU solver reads 0). The recorder resets
-        the peak at each solve's record, so this is the peak of this solve so
-        far (its encode's and warm fill's uploads, K2's surface)."""
+        peak against --solver-hbm-budget (0 or the recorder off = no budget;
+        a CPU device reads 0), the largest over the solver's card and, under
+        a mesh, the cards of this process's blocks. The recorder resets the
+        peak on each of them at each solve's record, so this is the peak of
+        this solve so far (its encode's and warm fill's uploads, K2's
+        surface)."""
         if self.hbm_budget_bytes <= 0 or not FLIGHT.enabled:
             return False
-        return FLIGHT.hbm_snapshot(self.device)[0] > self.hbm_budget_bytes
+        return max(FLIGHT.hbm_snapshot(dev)[0] for dev in self._memory_devices) > self.hbm_budget_bytes
 
     def _split_dispatch(self, stats: np.ndarray, caps: torch.Tensor, prices: torch.Tensor, allowed: np.ndarray) -> torch.Tensor:
         """The budget split: K1 launched on each half of the bucket axis,
@@ -1860,15 +1867,18 @@ class DenseSolver:
         # memory queues behind it on the same stream.
         mesh = self._active_mesh()
         sharded = packed_host = landed = None
-        if mesh is not None:
+        over_budget = self._hbm_over_budget()
+        if mesh is not None and not over_budget:
             # K1 on every block of the mesh, each block's result queued into
             # one pinned host buffer behind its launch; combined after the
             # speculation
             sharded = self._sharded_dispatch(mesh, caps_eff, problem.prices, bucket_stats, allowed)
         else:
             caps_dev, prices_dev = self._catalog(caps_eff, problem.prices)
-            if self._hbm_over_budget():
-                # decided before any launch or upload, never from an `except`
+            if over_budget:
+                # decided before any launch or upload, never from an `except`;
+                # under a mesh this solve splits on the solver's card and the
+                # mesh stays for the next one (a peer fabric broadcasts nothing)
                 self._note_rung(RUNG_CHUNKED, reason="hbm-budget")
                 packed_dev = self._split_dispatch(bucket_stats, caps_dev, prices_dev, allowed)
             else:

@@ -50,7 +50,10 @@ work off the card, so:
   launch and launches K1 on each half of the bucket axis; each bucket's
   argmin is its own, so the concatenated [3, B] is bit-equal to one
   unsplit launch. It counts `degraded_solves{rung="chunked"}` and
-  invalidates the incremental engine's state ('fault-chunked').
+  invalidates the incremental engine's state ('fault-chunked'). Under a
+  solver mesh the peak is read on every card of this process's blocks, and
+  a solve over the budget splits on the solver's card and skips the mesh
+  for that solve only, as the reference does (`mesh = None` for the solve).
 - *A fault in the device attempt -> host rung*: `presolve` records the
   fault into `BREAKER` and re-raises the typed `SolverFault`. There is no
   host rung: `RUNG_HOST` and the host-rung capsule are never emitted.

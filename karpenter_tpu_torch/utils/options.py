@@ -270,7 +270,15 @@ def parse(argv: Optional[List[str]] = None) -> Options:
     parser.add_argument("--interruption-queue", dest="interruption_queue", default=_env("INTERRUPTION_QUEUE", defaults.interruption_queue))
     parser.add_argument("--interruption-poll-interval", type=float, default=_env("INTERRUPTION_POLL_INTERVAL", defaults.interruption_poll_interval))
     parser.add_argument("--ice-backoff-seconds", type=float, default=_env("ICE_BACKOFF_SECONDS", defaults.ice_backoff_seconds))
-    parser.add_argument("--solver-hbm-budget", dest="solver_hbm_budget_bytes", type=int, default=_env("SOLVER_HBM_BUDGET", defaults.solver_hbm_budget_bytes))
+    parser.add_argument(
+        "--solver-hbm-budget",
+        dest="solver_hbm_budget_bytes",
+        type=int,
+        default=_env("SOLVER_HBM_BUDGET", defaults.solver_hbm_budget_bytes),
+        help="device-memory budget in bytes (0 = none): with --enable-solver-telemetry, a solve whose peak so far is over it launches "
+        "the bucket choice once per half of the bucket axis on the solver's card; under a solver mesh that solve skips the mesh, "
+        "which stays for the next",
+    )
     parser.add_argument("--solver-breaker-threshold", type=int, default=_env("SOLVER_BREAKER_THRESHOLD", defaults.solver_breaker_threshold))
     parser.add_argument("--solver-breaker-backoff", type=float, default=_env("SOLVER_BREAKER_BACKOFF", defaults.solver_breaker_backoff))
     parser.add_argument("--solver-incremental", dest="solver_incremental", action="store_true", default=_env("SOLVER_INCREMENTAL", defaults.solver_incremental))

@@ -19,6 +19,11 @@ seeds go to both.
   is built from the visible cards only) and its refusals;
 - the production DenseSolver with the mesh against the port without it and
   against the reference with its mesh, on _mixed_workload()'s layout;
+- the budget split under a mesh (the reference's `mesh = None` for a solve
+  over --solver-hbm-budget): K1 on each half of the bucket axis on the
+  solver's device, no sharded dispatch, the mesh kept for the next solve,
+  the peak read and reset on every card of the mesh (stood in), and under
+  a two-process gloo fabric no broadcast for the split solve;
 - the counterpart of test_graft_dryrun_multichip: the toy step and a
   production solve on the 8-block mesh;
 - segment_usage and audit_layout against the reference's.
@@ -221,14 +226,15 @@ def _layout(results):
     return sorted((n.instance_type_options[0].name(), tuple(sorted(p.metadata.name for p in n.pods))) for n in results.new_nodes)
 
 
-def _port_layout(mesh_arg, pods=None, types=20):
+def _port_layout(mesh_arg, pods=None, types=20, hbm_budget_bytes=0, solver=None):
     from karpenter_tpu_torch.api import labels, objects
     from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
     from karpenter_tpu_torch.scheduler import build_scheduler
     from karpenter_tpu_torch.solver import DenseSolver
 
     pods = pods if pods is not None else _mixed_workload(testing.make_pod, objects, labels)
-    solver = DenseSolver(min_batch=1, device="cpu", mesh=mesh_arg, use_mesh=mesh_arg is not None)
+    if solver is None:
+        solver = DenseSolver(min_batch=1, device="cpu", mesh=mesh_arg, use_mesh=mesh_arg is not None, hbm_budget_bytes=hbm_budget_bytes)
     results = build_scheduler([testing.make_provisioner()], FakeCloudProvider(instance_types(types)), pods, dense_solver=solver).solve(pods)
     return _layout(results), solver.stats, results
 
@@ -315,27 +321,237 @@ def test_mesh_setting_beyond_the_visible_cards_raises(monkeypatch):
         resolve_mesh(_CARD)
 
 
-def test_mesh_with_an_hbm_budget_raises(mesh):
-    """A budget under a given mesh is refused when the solver is built."""
+# -- the budget split under a mesh --------------------------------------------------------
+
+
+@pytest.fixture
+def stand_in_peak(monkeypatch):
+    """The flight recorder on, with the memory peak it reads on each device
+    stood in (`peaks[device]`, or `peaks[None]` for any other) and the
+    devices whose peak it resets recorded in `resets`."""
+    from karpenter_tpu_torch import flight
+
+    peaks, resets = {None: 0}, []
+    monkeypatch.setattr(flight.FlightRecorder, "hbm_snapshot", staticmethod(lambda device=None: (peaks.get(device, peaks[None]), 0)))
+    monkeypatch.setattr(flight.FlightRecorder, "reset_hbm_peak", staticmethod(lambda device=None: resets.append(device)))
+    was_enabled = flight.FLIGHT.enabled
+    flight.FLIGHT.enable()
+    yield peaks, resets
+    if not was_enabled:
+        flight.FLIGHT.disable()
+    flight.FLIGHT.reset()
+
+
+def _counted_launches(monkeypatch) -> tuple:
+    """K1's unkeyed calls from the solver (their bucket counts) and the
+    sharded dispatches."""
+    from karpenter_tpu_torch.parallel.sharded import ShardedBucketCost
+    from karpenter_tpu_torch.solver import dense as dense_module
+
+    launches, dispatches = [], []
+    plain, dispatch = dense_module.bucket_cost_packed, ShardedBucketCost.dispatch
+
+    def counted(stats, caps, prices, allowed):
+        launches.append(int(stats.shape[1]))
+        return plain(stats, caps, prices, allowed)
+
+    def counted_dispatch(self, *args, **kwargs):
+        dispatches.append(1)
+        return dispatch(self, *args, **kwargs)
+
+    monkeypatch.setattr(dense_module, "bucket_cost_packed", counted)
+    monkeypatch.setattr(ShardedBucketCost, "dispatch", counted_dispatch)
+    return launches, dispatches
+
+
+def test_over_budget_solve_under_a_mesh_splits_on_the_solver_device(mesh, ref_mesh, stand_in_peak, monkeypatch):
+    """A solve whose peak is over --solver-hbm-budget under the 8-block mesh
+    launches K1 on each half of the bucket axis on the solver's device and
+    dispatches nothing over the mesh, as the reference sets `mesh = None`
+    for that solve (karpenter_tpu/solver/dense.py:1941-1946). It places as
+    the unsplit solve, as the sharded one and as the reference's solve of
+    the same batch, counts one chunked rung, and keeps the mesh."""
+    from karpenter_tpu_torch.solver import DenseSolver
+    from karpenter_tpu_torch.solver.faults import DEGRADED_SOLVES, FAULTS, RUNG_CHUNKED, FaultPlan, FaultSpec
+
+    peaks, _ = stand_in_peak
+    peaks[None] = 1 << 20
+    launches, dispatches = _counted_launches(monkeypatch)
+    single, stats_single, _ = _port_layout(None)
+    B = launches[0]
+    launches.clear()
+    base = DEGRADED_SOLVES.value(rung=RUNG_CHUNKED)
+    solver = DenseSolver(min_batch=1, device="cpu", mesh=mesh, hbm_budget_bytes=1 << 19)
+    # no sharded dispatch, so the "sharded" seam is never consulted
+    FAULTS.install(FaultPlan([FaultSpec(kind="kernel", entry="sharded", nth=1)]))
+    try:
+        split, stats_split, _ = _port_layout(mesh, solver=solver)
+        assert FAULTS.fired() == 0
+    finally:
+        FAULTS.clear()
+    assert launches == [-(-B // 2), B - -(-B // 2)], "two launches, one per half of the bucket axis"
+    assert dispatches == [] and stats_split.sharded_batches == 0
+    assert solver._solve_rungs == [RUNG_CHUNKED] and DEGRADED_SOLVES.value(rung=RUNG_CHUNKED) == base + 1
+    assert solver._active_mesh() is mesh
+    sharded, stats_sharded, _ = _port_layout(mesh)
+    ref, _ = _ref_layout(ref_mesh, monkeypatch)
+    assert split == single == sharded == ref
+    assert stats_split.pods_committed == stats_single.pods_committed == stats_sharded.pods_committed > 0
+
+
+def test_the_next_solve_under_the_peak_takes_the_mesh_again(mesh, stand_in_peak, monkeypatch):
+    """The split is for that solve only: with the peak back under the
+    budget, the same solver's next solve dispatches over the mesh. Its
+    flight records name the flavor the unsplit route names ('plain' on the
+    CPU, the split) and then 'sharded'."""
+    from karpenter_tpu_torch import flight
     from karpenter_tpu_torch.solver import DenseSolver
 
-    with pytest.raises(NotImplementedError, match="budget split"):
-        DenseSolver(min_batch=1, device="cpu", mesh=mesh, hbm_budget_bytes=1)
+    peaks, _ = stand_in_peak
+    launches, dispatches = _counted_launches(monkeypatch)
+    solver = DenseSolver(min_batch=1, device="cpu", mesh=mesh, hbm_budget_bytes=1 << 19)
+    layouts = []
+    for peak in (1 << 20, 0):
+        peaks[None] = peak
+        layouts.append(_port_layout(mesh, solver=solver)[0])
+    records = flight.FLIGHT.records()[-2:]
+    assert len(launches) == 2 and len(dispatches) == 1 and solver.stats.sharded_batches == 1
+    assert [r.dispatch for r in records] == ["plain", "sharded"]
+    assert [r.rungs for r in records] == [["chunked"], []]
+    assert solver._active_mesh() is mesh
+    assert layouts[0] == layouts[1]
 
 
 @pytest.mark.parametrize("setting", ["", "2"])
-def test_auto_mesh_with_an_hbm_budget_is_refused_at_construction(monkeypatch, setting):
+def test_auto_mesh_with_an_hbm_budget_builds_and_keeps_the_budget(monkeypatch, setting):
     """Two stand-in cards and --solver-hbm-budget: the auto-detected mesh
-    turns on, and building the solver raises, before any solve (and before
-    anything touches a card: there is none here)."""
+    turns on and the solver builds, keeping its budget; the cards its
+    budget reads are the solver's and its blocks' (nothing touches a card:
+    there is none here)."""
     from karpenter_tpu_torch.solver import DenseSolver
     from karpenter_tpu_torch.solver import dense as dense_module
 
     monkeypatch.setenv("KARPENTER_TPU_MESH", setting)
     _stand_in_cards(monkeypatch, 2)
     monkeypatch.setattr(dense_module, "resolve_device", lambda device: _CARD)
-    with pytest.raises(NotImplementedError, match="budget split"):
-        DenseSolver(min_batch=1, device="cuda", hbm_budget_bytes=1024)
+    monkeypatch.setattr(dense_module, "AdmissionSurface", lambda device: None)
+    solver = DenseSolver(min_batch=1, device="cuda", hbm_budget_bytes=1024)
+    assert solver.hbm_budget_bytes == 1024
+    assert [d for _, _, d in solver._active_mesh().blocks()] == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert solver._memory_devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+
+
+def test_the_budget_reads_and_resets_every_card_of_the_mesh(monkeypatch, stand_in_peak):
+    """Under a mesh over two stand-in cards the pre-solve check reads the
+    largest peak over the solver's card and its blocks' cards, and a solve's
+    record restarts the peak on each of them."""
+    from karpenter_tpu_torch import flight
+    from karpenter_tpu_torch.solver import DenseSolver
+    from karpenter_tpu_torch.solver import dense as dense_module
+
+    peaks, resets = stand_in_peak
+    monkeypatch.delenv("KARPENTER_TPU_MESH", raising=False)
+    _stand_in_cards(monkeypatch, 2)
+    monkeypatch.setattr(dense_module, "resolve_device", lambda device: _CARD)
+    monkeypatch.setattr(dense_module, "AdmissionSurface", lambda device: None)
+    solver = DenseSolver(min_batch=1, device="cuda", hbm_budget_bytes=1024)
+    assert not solver._hbm_over_budget()
+    peaks[torch.device("cuda", 1)] = 2048  # the second card's block only
+    assert solver._hbm_over_budget()
+    peaks[torch.device("cuda", 1)] = 1024
+    assert not solver._hbm_over_budget(), "at the budget is not over it"
+    token = flight.FLIGHT.begin_solve()
+    flight.FLIGHT.complete_solve(
+        token=token, signature={}, dispatch={}, phases={}, fill_routing={}, pods_committed=0, pods_to_host=0,
+        duration=0.0, device=solver.device, peak_devices=solver._memory_devices,
+    )
+    assert resets == [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+_BUDGET_FABRIC = """
+import json, sys
+import torch.distributed as dist
+from karpenter_tpu_torch import flight
+from karpenter_tpu_torch.api.provisioner import Provisioner
+from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+from karpenter_tpu_torch.parallel import multihost, peers
+from karpenter_tpu_torch.scheduler import build_scheduler
+from karpenter_tpu_torch.solver import DenseSolver
+
+rank, coordinator = int(sys.argv[1]), sys.argv[2]
+multihost.initialize(coordinator, 2, rank, backend="gloo", device="cpu")
+fabric = peers.PeerFabric(device="cpu", blocks=4)
+out = {"rank": rank}
+try:
+    if rank:
+        out["served"] = fabric.serve()
+    else:
+        peak = [0]
+        flight.FlightRecorder.hbm_snapshot = staticmethod(lambda device=None: (peak[0], 0))
+        flight.FLIGHT.enable()
+        provider = FakeCloudProvider(instance_types(64))
+        dense = DenseSolver(min_batch=1, device="cpu", peer_fabric=fabric, hbm_budget_bytes=1 << 19)
+        out["solves"] = []
+        try:
+            for stand_in in (1 << 20, 0):
+                peak[0] = stand_in
+                pods = peers._demo_pods(48)
+                results = build_scheduler([Provisioner()], provider, pods, dense_solver=dense).solve(pods)
+                out["solves"].append({
+                    "layout": peers.demo_layout(results),
+                    "rungs": list(dense._solve_rungs),
+                    "sharded_batches": dense.stats.sharded_batches,
+                    "catalog_broadcasts": fabric.catalog_broadcasts,
+                    "mesh_kept": dense._active_mesh() is fabric.mesh,
+                })
+        finally:
+            fabric.shutdown(best_effort=True)
+finally:
+    dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def test_over_budget_solve_under_a_peer_fabric_broadcasts_nothing():
+    """A two-process gloo PeerFabric (4 CPU blocks each): the coordinator's
+    first solve is over the budget and splits on its own device, so nothing
+    is broadcast and the peer stays at its barrier; the second is under it
+    and dispatches over the fabric. The peer serves that one solve, and both
+    solves place as the in-process solve with no mesh."""
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    from tests.test_torch_multihost_peers import REPO, _in_process_layout
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", _BUDGET_FABRIC, str(rank), coordinator],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for rank in range(2)
+    ]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert [p.returncode for p in procs] == [0, 0], [err[-2000:] for _, err in outs]
+    coord, peer = (json.loads(out.strip().splitlines()[-1]) for out, _ in outs)
+    first, second = coord["solves"]
+    assert first["rungs"] == ["chunked"] and first["sharded_batches"] == 0 and first["catalog_broadcasts"] == 0
+    assert second["rungs"] == [] and second["sharded_batches"] == 1 and second["catalog_broadcasts"] == 1
+    assert first["mesh_kept"] and second["mesh_kept"]
+    assert peer["served"] == 1, "the peer served the one solve dispatched over the fabric"
+    want = _in_process_layout(48)
+    assert first["layout"] == second["layout"] == want
 
 
 def test_graft_dryrun_multichip(mesh):

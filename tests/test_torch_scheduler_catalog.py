@@ -103,25 +103,31 @@ def _param_sets(fn, cls) -> list:
     return out
 
 
-def catalog_cases(name: str, fixture_path: bool) -> list:
+def catalog_cases(name: str, fixture_path: bool, path: str = "dense", reference=None) -> list:
     """(module name, class, method, kwargs) for every test method of the
-    reference module; with `fixture_path`, only those taking the `path`
-    fixture, at path="dense"."""
+    reference module (`reference`, by default REFERENCE[name]), then
+    (module name, None, function, kwargs) for its module-level test
+    functions; with `fixture_path`, only those taking the `path` fixture.
+    A test that takes the fixture runs at `path`."""
+    module = reference if reference is not None else REFERENCE[name]
+    tests = [
+        (cls_name, cls, method, fn)
+        for cls_name, cls in vars(module).items()
+        if cls_name.startswith("Test") and isinstance(cls, type)
+        for method, fn in vars(cls).items()
+        if method.startswith("test_")
+    ]
+    tests += [(None, None, fn_name, fn) for fn_name, fn in vars(module).items() if fn_name.startswith("test_") and inspect.isfunction(fn)]
     cases = []
-    for cls_name, cls in vars(REFERENCE[name]).items():
-        if not (cls_name.startswith("Test") and isinstance(cls, type)):
+    for cls_name, cls, method, fn in tests:
+        takes_path = "path" in inspect.signature(fn).parameters
+        if fixture_path and not takes_path:
             continue
-        for method, fn in vars(cls).items():
-            if not method.startswith("test_"):
-                continue
-            takes_path = "path" in inspect.signature(fn).parameters
-            if fixture_path and not takes_path:
-                continue
-            for pid, kwargs in _param_sets(fn, cls):
-                if takes_path:
-                    kwargs = {"path": "dense", **kwargs}
-                case_id = f"{cls_name}::{method}" + (f"[{pid}]" if pid else "")
-                cases.append(pytest.param(name, cls_name, method, kwargs, id=case_id))
+        for pid, kwargs in _param_sets(fn, cls):
+            if takes_path:
+                kwargs = {"path": path, **kwargs}
+            case_id = (f"{cls_name}::{method}" if cls_name else method) + (f"[{pid}]" if pid else "")
+            cases.append(pytest.param(name, cls_name, method, kwargs, id=case_id))
     return cases
 
 
