@@ -157,6 +157,19 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     to the last Node the child POSTs, holds the node types against an
     in-process solve (kernels and plain versions), and requires the Lease
     released and exit code 0 on SIGTERM;
+  - controller_restart_device_lost (ROADMAP C7): two controller processes
+    in turn against an apiserver process. A real device-side assert on the
+    card in the first one's K1 call ends its batch loop; it must exit
+    non-zero without hanging, having POSTed no Node and released its
+    Lease, and the successor, started as it exits, must win the Lease,
+    build no kernel and place every pod as the in-process solve does (each
+    K1/K2 call of that solve held). Case `empty`: the entry point itself,
+    2,000 pods on an empty cluster. Case `standing`: Runtimes on the
+    simulated cloud, served here over its cloud API, 2,000 pods placed and
+    bound, then 1,000 that overflow them (K2, then K1 faults); the
+    successor's recovery sweep must find no ghost and no orphan. Measured:
+    fault to exit, exit to ready, the Lease wait, fault to the last
+    nomination and to the last Node;
   - analysis_contracts: `python -m karpenter_tpu_torch.cmd.analyze
     --contracts --check --device cuda` as a child (exit 0), then every
     registered device entry of analysis/contracts.py traced on the card at
@@ -4591,7 +4604,8 @@ APISERVER_CHILD = r"""
 import json, sys, time
 from karpenter_tpu_torch import testing
 from karpenter_tpu_torch.kube.apiserver import APIServer
-from karpenter_tpu_torch.kube.codec import API_REGISTRY, to_wire
+from karpenter_tpu_torch.api.objects import NodeCondition
+from karpenter_tpu_torch.kube.codec import API_REGISTRY, from_wire, to_wire
 
 srv = APIServer().start()
 create = srv.state.create
@@ -4621,16 +4635,45 @@ for line in sys.stdin:
         testing.standing_cluster(writer, int(args[0]))
         print(json.dumps({"ok": True}), flush=True)
     elif cmd == "provisioner":
-        writer.create(testing.make_provisioner())
+        provisioner = testing.make_provisioner()
+        if args == ["simulated"]:
+            # as the admission webhook leaves it on the simulated cloud
+            # (its defaulting hook: on-demand, amd64), so the spec the
+            # controllers hash nodes against never changes under them
+            from karpenter_tpu_torch.cloudprovider.simulated import SimulatedCloudProvider
+            from karpenter_tpu_torch.webhooks import default_provisioner
+
+            default_provisioner(provisioner, SimulatedCloudProvider())
+        writer.create(provisioner)
         print(json.dumps({"ok": True}), flush=True)
     elif cmd == "build":
-        batch = testing.rename(testing.build_workload(int(args[0])), args[1])
+        # build_workload(n), or reclaim_wave_workload(n, seed)
+        if args[2:3] == ["reclaim"]:
+            pods = testing.reclaim_wave_workload(int(args[0]), seed=int(args[3]))
+        else:
+            pods = testing.build_workload(int(args[0]))
+        batch = testing.rename(pods, args[1])
         print(json.dumps({"ok": True}), flush=True)
     elif cmd == "write":
         t0 = time.time()
         for pod in batch:
             writer.create(pod)
         print(json.dumps({"t0": t0, "t1": time.time()}), flush=True)
+    elif cmd in ("bind", "ready"):
+        # the kubelet's part for a list of [node, [[namespace, pod], ...]]:
+        # each node Ready (again where a controller's write of an older
+        # read put it back, as the kubelet's next status post would), and
+        # with "bind" each pod bound to it
+        placed, marked = json.load(open(args[0])), 0
+        for node_name, pods in placed:
+            node = from_wire(srv.state.get("Node", "", node_name), "Node")
+            if not node.ready():
+                node.status.conditions = [NodeCondition(type="Ready", status="True")]
+                srv.state.update("Node", "", node_name, to_wire(node))
+                marked += 1
+            for namespace, pod_name in pods if cmd == "bind" else ():
+                srv.state.bind(namespace, pod_name, node_name)
+        print(json.dumps({"nodes": len(placed), "marked_ready": marked, "pods": sum(len(p) for _n, p in placed)}), flush=True)
     elif cmd == "report":
         print(json.dumps({"node_times": node_times}), flush=True)
     elif cmd == "stop":
@@ -4888,11 +4931,12 @@ def runtime_round_http(dev, card_name) -> dict:
     return line
 
 
-def expected_node_types(results) -> dict:
-    """The instance types the controller process's provider (the default
-    FakeCloudProvider) launches for a solve's new nodes (its create picks
-    the first option with a matching offering), by count; and the new nodes
-    whose pods request more than that type allocates."""
+def expected_node_types(results, provider=None, created=None) -> dict:
+    """The instance types a controller process's provider (by default the
+    entry point's FakeCloudProvider) launches for a solve's new nodes (each
+    new node's create replayed on `provider`), by count; and the new nodes
+    whose pods request more than that type allocates. Each replayed node
+    lands in `created` where given."""
     from collections import Counter
 
     from karpenter_tpu_torch.api import labels as lbl
@@ -4900,19 +4944,73 @@ def expected_node_types(results) -> dict:
     from karpenter_tpu_torch.cloudprovider.types import NodeRequest
     from karpenter_tpu_torch.utils import resources as res
 
-    provider = FakeCloudProvider()
+    provider = provider or FakeCloudProvider()
     by_name = {it.name(): it for n in results.new_nodes for it in n.instance_type_options}
     types, over = Counter(), 0
     for n in results.new_nodes:
         if not n.pods:
             continue
         node = provider.create(NodeRequest(template=n.template, instance_type_options=n.instance_type_options))
+        if created is not None:
+            created.append(node)
         type_name = node.metadata.labels[lbl.LABEL_INSTANCE_TYPE]
         types[type_name] += 1
         it = by_name[type_name]
         free = res.subtract(res.subtract(it.resources(), it.overhead()), res.requests_for_pods(*n.pods))
         over += any(v < -1e-6 for v in free.values())
     return {"types": dict(sorted(types.items())), "over_capacity": over}
+
+
+def in_process_solve(dev, pods, plain: bool, provisioners=None, provider=None, kube=None, cluster=None, min_batch: int = 1, replay=None, created=None) -> tuple:
+    """The in-process twin of a controller process's round: one
+    build_scheduler(...).solve of `pods` on `provider`'s catalog (by default
+    the entry point's FakeCloudProvider and the default provisioner), on
+    `cluster`'s nodes where given, with a DenseSolver at `min_batch` on
+    `dev`. With plain=True both kernels' plain versions stand in at the
+    solve's seams; otherwise every K1 and K2 call is captured and held bit
+    for bit against its plain version. The new nodes' types come from their
+    creates replayed on `replay` (by default a fresh FakeCloudProvider),
+    each replayed node put in `created` where given.
+    Returns the record (node types, nodes over capacity, launches,
+    unschedulable pods, wall, the node-count guard's fail-opens, the holds)
+    and the solve's results."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
+    from karpenter_tpu_torch.scheduler import build_scheduler
+    from karpenter_tpu_torch.solver import DenseSolver
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+
+    provisioners = provisioners or [testing.make_provisioner()]
+    state_nodes = cluster.nodes_snapshot() if cluster is not None else ()
+    solver = DenseSolver(min_batch=min_batch, device=dev)
+    saved = dense_module.bucket_cost_packed, fill_module.admission_counts
+    captures = []
+    if plain:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = bucket_type_cost_packed, plain_admission_counts
+    else:
+        capture_kernel_calls(captures)
+    try:
+        read_launches()
+        t0 = time.perf_counter()
+        scheduler = build_scheduler(provisioners, provider or FakeCloudProvider(), pods, kube=kube, cluster=cluster, state_nodes=state_nodes, dense_solver=solver)
+        results = scheduler.solve(pods)
+        sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+    finally:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = saved
+    record = {
+        **expected_node_types(results, replay, created),
+        "launches": launches,
+        "unschedulable": len(results.unschedulable),
+        "solve_ms": wall,
+        # the dense plan dropped for the exact host loop (the node-count guard)
+        "node_guard_failopens": solver.stats.node_guard_failopens,
+        "kernel_holds": hold_kernel_calls(captures, dev),
+    }
+    return record, results
 
 
 def controller_process_http(dev, card_name, command=None, pods_n=None) -> dict:
@@ -4938,45 +5036,14 @@ def controller_process_http(dev, card_name, command=None, pods_n=None) -> dict:
     import signal
 
     from karpenter_tpu_torch import testing
-    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, default_instance_types
+    from karpenter_tpu_torch.cloudprovider.fake import default_instance_types
     from karpenter_tpu_torch.kube.client import HttpKubeClient
-    from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
-    from karpenter_tpu_torch.scheduler import build_scheduler
-    from karpenter_tpu_torch.solver import DenseSolver
-    from karpenter_tpu_torch.solver import dense as dense_module
-    from karpenter_tpu_torch.solver import warmfill as fill_module
 
     name = CONTROLLER_PROCESS_HTTP[0]
     pods_n = pods_n or CONTROLLER_PROCESS_HTTP[1]
 
     def in_process(plain: bool) -> dict:
-        pods = testing.rename(testing.build_workload(pods_n), "cph")
-        provisioner = testing.make_provisioner()
-        solver = DenseSolver(min_batch=1, device=dev)
-        saved = dense_module.bucket_cost_packed, fill_module.admission_counts
-        captures = []
-        if plain:
-            dense_module.bucket_cost_packed, fill_module.admission_counts = bucket_type_cost_packed, plain_admission_counts
-        else:
-            capture_kernel_calls(captures)
-        try:
-            read_launches()
-            t0 = time.perf_counter()
-            results = build_scheduler([provisioner], FakeCloudProvider(), pods, dense_solver=solver).solve(pods)
-            sync(dev)
-            wall = (time.perf_counter() - t0) * 1e3
-            launches = read_launches()
-        finally:
-            dense_module.bucket_cost_packed, fill_module.admission_counts = saved
-        return {
-            **expected_node_types(results),
-            "launches": launches,
-            "unschedulable": len(results.unschedulable),
-            "solve_ms": wall,
-            # the dense plan dropped for the exact host loop (the node-count guard)
-            "node_guard_failopens": solver.stats.node_guard_failopens,
-            "kernel_holds": hold_kernel_calls(captures, dev),
-        }
+        return in_process_solve(dev, testing.rename(testing.build_workload(pods_n), "cph"), plain)[0]
 
     kernels_solve = in_process(plain=False)
     plain_solve_rec = in_process(plain=True)
@@ -5088,6 +5155,671 @@ def controller_process_http(dev, card_name, command=None, pods_n=None) -> dict:
     check(child_types == kernels_solve["types"], f"{name}: the child launched {child_types}, the in-process solve {kernels_solve['types']}")
     check(released, f"{name}: the Lease was not released in the server")
     check(shutdown_ms is not None and proc.returncode == 0, f"{name}: exit code {proc.returncode} after SIGTERM")
+    return line
+
+
+# the restart after a real device-lost (ROADMAP C7): controller processes in
+# turn against one apiserver, the first ended by a device-side assert in its
+# bucket choice (K1's seam), the second started as the first exits. A
+# python -c wrapper arms the first: on the card, an out-of-range index inside
+# the wrapped K1 call, in the batch loop's thread only, once the boot's
+# crossover probe (which launches K1 too) has returned. It prints the
+# machine's monotonic clock just before the assert fires.
+RESTART_ARMED_CHILD = r"""
+import json, sys, threading, time
+import torch
+from karpenter_tpu_torch.cmd import controller
+from karpenter_tpu_torch.kube import leaderelection
+from karpenter_tpu_torch.solver import dense
+
+booted = threading.Event()
+measure, launch = dense.measure_dense_crossover, dense.bucket_cost_packed
+stop_elector = leaderelection.LeaseElector.stop
+
+
+def measured(*args, **kwargs):
+    out = measure(*args, **kwargs)
+    booted.set()
+    return out
+
+
+def asserting(stats, caps, prices, allowed):
+    if booted.is_set() and threading.current_thread().name == "provisioner":
+        print(json.dumps({"t_fault": time.monotonic(), "shape": [stats.shape[1], caps.shape[0], stats.shape[2]]}), flush=True)
+        probe = torch.zeros(8, device=stats.device)
+        probe[torch.tensor([1 << 20], device=stats.device)].sum().item()
+    return launch(stats, caps, prices, allowed)
+
+
+def timed_stop(self, release=True):
+    t0 = time.monotonic()
+    try:
+        return stop_elector(self, release=release)
+    finally:
+        print(json.dumps({"t_elector_stop": [t0, time.monotonic()], "release": release}), flush=True)
+
+
+dense.measure_dense_crossover, dense.bucket_cost_packed = measured, asserting
+leaderelection.LeaseElector.stop = timed_stop
+sys.exit(controller.main(sys.argv[1:]))
+"""
+# a controller process on the simulated cloud that outlives it: the Runtime
+# on HttpKubeClient(--apiserver-url) and SimulatedCloudProvider over the
+# cloud API's sockets (argv[1]), run by cmd/controller.serve. It prints each
+# launch_nodes call's placements and each gc sweep's outcome. With an arm
+# file named (argv[2]), the batch loop's K1 call asserts on the card once the
+# file exists, and the line before the assert counts the warm fill's (K2)
+# calls in the armed round.
+RESTART_SIM_CHILD = r"""
+import json, os, sys, threading, time
+import torch
+from karpenter_tpu_torch.cloudprovider.simulated import CloudAPIClient, SimulatedCloudProvider
+from karpenter_tpu_torch.cmd import controller
+from karpenter_tpu_torch.kube import leaderelection
+from karpenter_tpu_torch.ops import bucket_cost
+from karpenter_tpu_torch.ops import warmfill as ops_warmfill
+from karpenter_tpu_torch.runtime import Runtime
+from karpenter_tpu_torch.solver import dense, warmfill
+from karpenter_tpu_torch.utils.clock import Clock
+from karpenter_tpu_torch.utils.options import parse
+
+cloud_url, arm_path, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+fills = []
+launch, admission = dense.bucket_cost_packed, warmfill.admission_counts
+stop_elector = leaderelection.LeaseElector.stop
+
+
+def say(**fields):
+    print(json.dumps(fields), flush=True)
+
+
+def timed_stop(self, release=True):
+    t0 = time.monotonic()
+    try:
+        return stop_elector(self, release=release)
+    finally:
+        say(t_elector_stop=[t0, time.monotonic()], release=release)
+
+
+def armed():
+    return bool(arm_path) and os.path.exists(arm_path) and threading.current_thread().name == "provisioner"
+
+
+def counted_fill(*args, **kwargs):
+    if armed():
+        fills.append(time.monotonic())
+    return admission(*args, **kwargs)
+
+
+def asserting(stats, caps, prices, allowed):
+    if armed():
+        say(t_fault=time.monotonic(), fills=len(fills), shape=[stats.shape[1], caps.shape[0], stats.shape[2]])
+        probe = torch.zeros(8, device=stats.device)
+        probe[torch.tensor([1 << 20], device=stats.device)].sum().item()
+    return launch(stats, caps, prices, allowed)
+
+
+dense.bucket_cost_packed, warmfill.admission_counts = asserting, counted_fill
+leaderelection.LeaseElector.stop = timed_stop
+options = parse(argv)
+kube, url = controller.build_kube_backend(options)
+provider = SimulatedCloudProvider(backend=CloudAPIClient(cloud_url), kube=kube, clock=Clock())
+rt = Runtime(kube=kube, cloud_provider=provider, options=options, device="cuda")
+launch_nodes, sweep = rt.provisioner.launch_nodes, rt.gc.reconcile
+
+
+def reported_launch(results, ice_failures=None, placed=None):
+    mine = [] if placed is None else placed
+    n0 = len(mine)
+    launched = launch_nodes(results, ice_failures=ice_failures, placed=mine)
+    say(
+        t=time.monotonic(), placed=[[node, [[p.namespace, p.name] for p in pods]] for node, pods in mine[n0:]],
+        launches={"bucket_type_cost": bucket_cost.LAUNCHES, "warm_fill_counts": ops_warmfill.LAUNCHES},
+    )
+    return launched
+
+
+def reported_sweep():
+    out = sweep()
+    say(t=time.monotonic(), gc={k: list(v) for k, v in out.items()}, nodes=len(kube.list_nodes()), instances=len(provider.list_instances()))
+    return out
+
+
+rt.provisioner.launch_nodes, rt.gc.reconcile = reported_launch, reported_sweep
+sys.exit(controller.serve(rt, options, url))
+"""
+# (phase, pods of the empty case's batch and of the standing case's first
+# batch, pods of the standing case's second batch). The standing case's
+# batches are reclaim_wave_workload's (build_workload's mix without its
+# affinity and anti-affinity cohorts: a placed anti-affinity pod sends every
+# later batch to the host loop, solver/dense.py presolve)
+CONTROLLER_RESTART = ("controller_restart_device_lost", 2000, 1000)
+RESTART_EXIT_DEADLINE_S = 120.0
+RESTART_SETTLE_S = 60.0  # the standing case's first batch: bound to every node initialized
+PROVISIONED_BATCH = re.compile(r"provisioned batch: (\d+) pods -> (\d+) new nodes \((\d+) launched\), (\d+) on existing, (\d+) unschedulable in (\d+) ms")
+
+
+class ControllerChild:
+    """A controller process the phase starts and watches: its log (stderr)
+    and the JSON lines its wrapper prints (stdout), each read on a thread of
+    its own and stamped with time.monotonic() as it arrives (stderr is line
+    buffered). The machine's monotonic clock is the one every process here
+    shares: the wrappers' fault stamps and the Lease's times are on it."""
+
+    def __init__(self, argv):
+        self.argv = list(argv)
+        self.t_spawn = time.monotonic()
+        self.proc = subprocess.Popen(self.argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.log, self.out = [], []
+        self.t_exit = None
+        self.readers = [
+            threading.Thread(target=self._read, args=(stream, sink), daemon=True)
+            for stream, sink in ((self.proc.stderr, self.log), (self.proc.stdout, self.out))
+        ]
+        for reader in self.readers:
+            reader.start()
+
+    @staticmethod
+    def _read(stream, sink) -> None:
+        for line in stream:
+            sink.append((time.monotonic(), line))
+
+    def records(self) -> list:
+        """The wrapper's JSON lines, each with its arrival as `t_seen`."""
+        out = []
+        for t, line in list(self.out):
+            try:
+                out.append({**json.loads(line), "t_seen": t})
+            except ValueError:
+                pass
+        return out
+
+    def log_text(self) -> str:
+        return "".join(line for _t, line in list(self.log))
+
+    def first_line(self, needle: str):
+        """The arrival of the first log line holding `needle`, or None."""
+        return next((t for t, line in list(self.log) if needle in line), None)
+
+    def batches(self) -> list:
+        """Each 'provisioned batch' log line, with its arrival."""
+        out = []
+        for t, line in list(self.log):
+            m = PROVISIONED_BATCH.search(line)
+            if m:
+                pods, new, launched, existing, unschedulable, ms = (int(g) for g in m.groups())
+                out.append({"t": t, "pods": pods, "new_nodes": new, "launched": launched, "on_existing": existing, "unschedulable": unschedulable, "ms": ms})
+        return out
+
+    def wait_ready(self, port: int, deadline_s: float):
+        """The instant both probes first answer 200, or None."""
+        deadline = time.monotonic() + deadline_s
+        while time.monotonic() < deadline and self.proc.poll() is None:
+            if probe_status(port, "/healthz") == 200 and probe_status(port, "/readyz") == 200:
+                return time.monotonic()
+            time.sleep(0.02)
+        return None
+
+    def wait_exit(self, deadline_s: float):
+        """The exit code within the deadline (its instant in t_exit), else
+        None: a process that hangs."""
+        deadline = time.monotonic() + deadline_s
+        while time.monotonic() < deadline:
+            if self.proc.poll() is not None:
+                self.t_exit = time.monotonic()
+                return self.proc.returncode
+            time.sleep(0.01)
+        return None
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        for reader in self.readers:
+            reader.join(timeout=10)
+
+    def problems(self) -> list:
+        """The log's lines above info level: warnings, errors, tracebacks."""
+        return [s for s in self.log_text().splitlines() if s.strip() and not INFO_LINE.match(s)][:LOG_PROBLEMS_KEPT]
+
+
+def server_node_times(server) -> list:
+    """The instants, on this machine's monotonic clock, at which the
+    apiserver process created each Node (it stamps them with the wall
+    clock)."""
+    mono0, wall0 = time.monotonic(), time.time()
+    return [mono0 + (w - wall0) for w in server.command("report")["node_times"]]
+
+
+def debug_solver(port: int) -> dict:
+    """The successor's flight recorder (/debug/solver): its kernel builds
+    and its dense solves' dispatch."""
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/debug/solver", timeout=10) as resp:
+            body = json.loads(resp.read())
+    except (OSError, ValueError) as err:
+        return {"error": str(err)}
+    return {
+        "compile_events": body.get("compile_events"),
+        "compilations_by_fn": body.get("compilations_by_fn"),
+        "solves": len(body.get("records", [])),
+        "dispatch": sorted({r.get("dispatch") for r in body.get("records", []) if r.get("dispatch")}),
+    }
+
+
+def library_mtimes() -> dict:
+    """Each built kernel library's modification time: a rebuild renames a
+    new file into place."""
+    from karpenter_tpu_torch.ops import bucket_cost, warmfill
+
+    return {lib.path.name: lib.path.stat().st_mtime if lib.path.exists() else None for lib in (bucket_cost.LIBRARY, warmfill.LIBRARY)}
+
+
+def fault_and_handover(first, successor_argv, server, reader, health_port: int, metrics_port: int, batch: int, want_nodes: int, nodes_before: int, while_booting=None) -> dict:
+    """Steps 3 and 4 of a restart case, from the batch written: wait for the
+    first process to end (a hang is a failure), read what it left (exit
+    code, its fault line, the Lease, the Nodes it created), start the
+    successor with `successor_argv` as a supervisor would, and follow it:
+    both probes, the Lease won, every pod of the batch in its
+    'provisioned batch' log lines (logged once the round's launch_nodes has
+    nominated every pod), the Nodes it creates (want_nodes of them, then
+    NODES_SETTLE_S with no new one), its flight recorder's builds and
+    solves, then SIGTERM to exit 0 and the Lease released.
+    `while_booting()`, where given, runs as soon as the successor is
+    spawned; what it returns is the result's "while_booting". The successor
+    is stopped whatever happens; the caller stops `first`."""
+    import signal
+
+    from karpenter_tpu_torch.kube.leaderelection import LEASE_NAME, LEASE_NAMESPACE
+
+    mtimes = library_mtimes()
+    rc = first.wait_exit(RESTART_EXIT_DEADLINE_S)
+    if rc is None:
+        first.stop()
+    fault = next((r for r in first.records() if "t_fault" in r), None)
+    elector_stop = next((r["t_elector_stop"] for r in first.records() if "t_elector_stop" in r), None)
+    lease = reader.get("Lease", LEASE_NAME, LEASE_NAMESPACE)
+    first_lease = {
+        "holder": lease.spec.holder_identity if lease else None,
+        "renew_time": lease.spec.renew_time if lease else None,
+        "released": bool(lease and lease.spec.renew_time == 0.0),
+    }
+    nodes_after_exit = len(server_node_times(server))
+    out = {
+        "first": {
+            "exit_code": rc,
+            "hung": rc is None,
+            "fault": fault,
+            "fault_to_exit_ms": (first.t_exit - fault["t_fault"]) * 1e3 if fault and first.t_exit else None,
+            # the teardown joins every loop before the elector's stop, which
+            # releases the Lease
+            "fault_to_elector_stop_ms": (elector_stop[0] - fault["t_fault"]) * 1e3 if fault and elector_stop else None,
+            "elector_stop_ms": (elector_stop[1] - elector_stop[0]) * 1e3 if elector_stop else None,
+            "elector_stop_to_exit_ms": (first.t_exit - elector_stop[1]) * 1e3 if elector_stop and first.t_exit else None,
+            "stderr_names_device_lost": "SolverDeviceLostError" in first.log_text(),
+            "stderr_names_device_side_assert": "device-side assert" in first.log_text(),
+            "traceback": "Traceback (most recent call last)" in first.log_text(),
+            "aborted": rc is not None and rc < 0,
+            "terminate_called": "terminate called" in first.log_text(),
+            "nodes_posted": nodes_after_exit - nodes_before,
+            "lease": first_lease,
+            "batches": first.batches(),
+            "log_problems": first.problems(),
+        },
+    }
+    if rc is None:
+        return out
+    successor = ControllerChild(successor_argv)
+    try:
+        out["while_booting"] = while_booting() if while_booting is not None else None
+        ready = successor.wait_ready(health_port, BOOT_DEADLINE_S)
+        t_fault, t_exit = (fault or {}).get("t_fault"), first.t_exit
+        done_t, placed_pods, node_times = None, 0, []
+        deadline = time.monotonic() + HTTP_ROUND_DEADLINE_S
+        while ready is not None and time.monotonic() < deadline and successor.proc.poll() is None:
+            if done_t is None:
+                total = 0
+                for b in successor.batches():
+                    total += b["pods"]
+                    if total >= batch:
+                        done_t = b["t"]
+                        break
+                placed_pods = total
+            node_times = server_node_times(server)[nodes_before:]
+            last = node_times[-1] if node_times else None
+            if done_t is not None and len(node_times) >= want_nodes and (last is None or time.monotonic() - last >= NODES_SETTLE_S):
+                break
+            time.sleep(0.25)
+        recorder = debug_solver(metrics_port)
+        t_term = time.monotonic()
+        successor.proc.send_signal(signal.SIGTERM)
+        successor_rc = successor.wait_exit(SHUTDOWN_DEADLINE_S)
+        lease = reader.get("Lease", LEASE_NAME, LEASE_NAMESPACE)
+    finally:
+        successor.stop()
+    campaign, won = successor.first_line("campaigning"), successor.first_line("leader election won")
+    log = successor.log_text()
+    device = re.search(r"dense_solver=(\S+)", log)
+    crossover_line = re.search(r"dispatch rt ([0-9.]+) ms -> min_batch (\d+)", log)
+    out["successor"] = {
+        "command": successor_argv,
+        "exit_to_ready_ms": (ready - t_exit) * 1e3 if ready else None,
+        "lease_wait_ms": (won - campaign) * 1e3 if won and campaign else None,
+        "exit_to_leader_ms": (won - t_exit) * 1e3 if won else None,
+        "fault_to_last_nomination_ms": (done_t - t_fault) * 1e3 if done_t and t_fault else None,
+        "fault_to_last_node_ms": (node_times[-1] - t_fault) * 1e3 if node_times and t_fault else None,
+        "fault_to_first_node_ms": (node_times[0] - t_fault) * 1e3 if node_times and t_fault else None,
+        "pods_in_batches": placed_pods,
+        "batches": successor.batches(),
+        "nodes_created": len(node_times),
+        "solver_device": device.group(1) if device else None,
+        "probe_round_trip_ms": float(crossover_line.group(1)) if crossover_line else None,
+        "min_batch": int(crossover_line.group(2)) if crossover_line else None,
+        "flight_recorder": recorder,
+        "kernel_libraries_rebuilt": library_mtimes() != mtimes,
+        "shutdown_ms": (successor.t_exit - t_term) * 1e3 if successor.t_exit else None,
+        "exit_code": successor_rc,
+        "lease_released": bool(lease and lease.spec.renew_time == 0.0 and lease.spec.holder_identity != first_lease["holder"]),
+        "lease_transitions": lease.spec.lease_transitions if lease else None,
+        "log_problems": successor.problems(),
+    }
+    out["successor_records"] = successor.records()
+    return out
+
+
+def restart_case_empty(dev) -> dict:
+    """Case `empty`, ROADMAP C7 as written: the first process is the entry
+    point itself (cmd.controller.main) under RESTART_ARMED_CHILD, on an
+    empty cluster; once both probes answer, the apiserver process writes the
+    default provisioner and build_workload(pods); the first round's K1 call
+    asserts on the card. The successor is `python -m
+    karpenter_tpu_torch.cmd.controller` with the same arguments. Held
+    against: the in-process solve of the same batch on the entry point's
+    catalog with the kernels (each K1 call held bit for bit)."""
+    from collections import Counter
+
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.api import labels as lbl
+    from karpenter_tpu_torch.kube.client import HttpKubeClient
+
+    _name, pods_n, _second_batch = CONTROLLER_RESTART
+    held, _results = in_process_solve(dev, testing.rename(testing.build_workload(pods_n), "rsa"), plain=False)
+    want_nodes = sum(held["types"].values())
+    server = APIServerChild()
+    reader = HttpKubeClient(server.url, qps=1e9, burst=10**9)  # the checks' reads
+    health, metrics = free_port(), free_port()
+    args = [
+        "--apiserver-url", server.url, "--health-probe-port", str(health), "--metrics-port", str(metrics),
+        "--log-level", "info", "--enable-solver-telemetry",
+    ]
+    first, out, nodes, write = None, {}, [], None
+    try:
+        server.command("build", pods_n, "rsa")
+        first = ControllerChild([sys.executable, "-c", RESTART_ARMED_CHILD, *args])
+        ready = first.wait_ready(health, BOOT_DEADLINE_S)
+        out["first_boot_to_ready_ms"] = (ready - first.t_spawn) * 1e3 if ready else None
+        if ready is not None:
+            server.command("provisioner")
+            mono0, wall0 = time.monotonic(), time.time()
+            written = server.command("write")
+            write = mono0 + (written["t0"] - wall0)
+            out.update(fault_and_handover(first, CONTROLLER_COMMAND + args, server, reader, health, metrics, pods_n, want_nodes, 0))
+            nodes = reader.list_nodes()
+    finally:
+        if first is not None:
+            first.stop()
+            if "first" not in out:
+                out["first"] = {"exit_code": first.proc.returncode, "log_problems": first.problems()}
+        reader.stop()
+        server.stop()
+    fault = out.get("first", {}).get("fault")
+    out["first"]["write_to_fault_ms"] = (fault["t_fault"] - write) * 1e3 if fault and write else None
+    out.pop("successor_records", None)
+    out.pop("while_booting", None)
+    node_types = dict(sorted(Counter(n.metadata.labels.get(lbl.LABEL_INSTANCE_TYPE) for n in nodes).items()))
+    return {
+        "case": "empty",
+        "pods": pods_n,
+        **out,
+        "nodes": len(nodes),
+        "node_types": node_types,
+        "in_process": held,
+        "outcome_equal": node_types == held["types"],
+    }
+
+
+def sim_price(backend, node) -> float:
+    """A simulated-cloud node's $/hour from the cloud's price books, by the
+    type, zone and capacity type on its labels."""
+    from karpenter_tpu_torch.api import labels as lbl
+
+    labels = node.metadata.labels
+    type_name = labels[lbl.LABEL_INSTANCE_TYPE]
+    if labels.get(lbl.LABEL_CAPACITY_TYPE) == "spot":
+        return backend.spot_prices[(type_name, labels[lbl.LABEL_TOPOLOGY_ZONE])]
+    return backend.od_prices[type_name]
+
+
+def restart_case_standing(dev) -> dict:
+    """Case `standing`: a cloud that outlives its controllers. The
+    simulated cloud's CloudBackend is served here by CloudAPIService, and
+    each controller is RESTART_SIM_CHILD: a Runtime on SimulatedCloudProvider
+    over the cloud API's sockets, run by cmd/controller.serve. The first
+    process places a first batch on the empty cluster
+    (reclaim_wave_workload's); this process binds
+    each placement and marks its node Ready (the kubelet's part) and waits
+    for the first process to initialize every node. Then the arm file is
+    made and a second batch (of another seed) written, which overflows the
+    standing room: its
+    round runs K2 (the warm fill), then K1, which asserts. While the
+    successor boots, the apiserver's state is read; after the run it is
+    loaded into an in-memory store and solved in process with the kernels at
+    the successor's min_batch (each K1 and K2 call held bit for bit): the
+    pods onto standing nodes, the new nodes' types, count and $/hour must be
+    the successor's. The successor's recovery sweep must find no ghost and
+    no orphan, and no standing node or instance may go."""
+    import tempfile
+    from collections import Counter
+    from pathlib import Path
+
+    from karpenter_tpu_torch.api import labels as lbl
+    from karpenter_tpu_torch.cloudprovider.simulated import CloudAPIService, SimulatedCloudProvider
+    from karpenter_tpu_torch.cloudprovider.simulated.backend import CloudBackend
+    from karpenter_tpu_torch.controllers.state.cluster import Cluster
+    from karpenter_tpu_torch.kube.client import HttpKubeClient
+    from karpenter_tpu_torch.kube.cluster import KubeCluster
+    from karpenter_tpu_torch.utils.clock import Clock
+
+    _name, first_n, pods_n = CONTROLLER_RESTART
+    backend = CloudBackend(clock=Clock())
+    service = CloudAPIService(backend=backend).start()
+    server = APIServerChild()
+    reader = HttpKubeClient(server.url, qps=1e9, burst=10**9)
+    health, metrics = free_port(), free_port()
+    args = [
+        "--apiserver-url", server.url, "--health-probe-port", str(health), "--metrics-port", str(metrics),
+        "--log-level", "info", "--enable-solver-telemetry",
+    ]
+    scratch = tempfile.TemporaryDirectory()
+    arm = Path(scratch.name) / "arm"
+
+    def command(arm_path: str) -> list:
+        return [sys.executable, "-c", RESTART_SIM_CHILD, service.url, arm_path, *args]
+
+    def snapshot() -> dict:
+        return {"provisioners": reader.list_provisioners(), "nodes": reader.list_nodes(), "pods": reader.list_pods()}
+
+    first, out, standing, instances_before, nodes = None, {}, set(), set(), []
+    try:
+        server.command("provisioner", "simulated")
+        server.command("build", first_n, "rsb1", "reclaim", 42)
+        first = ControllerChild(command(str(arm)))
+        ready = first.wait_ready(health, BOOT_DEADLINE_S)
+        out["first_boot_to_ready_ms"] = (ready - first.t_spawn) * 1e3 if ready else None
+        placed = []
+        if ready is not None:
+            server.command("write")
+            deadline = time.monotonic() + HTTP_ROUND_DEADLINE_S
+            while time.monotonic() < deadline and first.proc.poll() is None:
+                placed = [pair for r in first.records() if "placed" in r for pair in r["placed"]]
+                if sum(len(p) for _n, p in placed) >= first_n:
+                    break
+                time.sleep(0.25)
+        out["first_batch"] = {"pods": first_n, "placed": sum(len(p) for _n, p in placed), "nodes": len(placed), "batches": first.batches()}
+        if placed and sum(len(p) for _n, p in placed) >= first_n:
+            path = Path(scratch.name) / "placed.json"
+            path.write_text(json.dumps(placed))
+            t0 = time.perf_counter()
+            out["first_batch"]["bound"] = server.command("bind", path)
+            out["first_batch"]["bind_ms"] = (time.perf_counter() - t0) * 1e3
+            # the first process's node controller initializes each Ready node
+            deadline, marked = time.monotonic() + RESTART_SETTLE_S, 0
+            while time.monotonic() < deadline:
+                standing_nodes = reader.list_nodes()
+                if all(n.metadata.labels.get(lbl.LABEL_NODE_INITIALIZED) == "true" for n in standing_nodes):
+                    break
+                time.sleep(0.5)
+                marked += server.command("ready", path)["marked_ready"]
+            out["first_batch"]["initialized"] = sum(n.metadata.labels.get(lbl.LABEL_NODE_INITIALIZED) == "true" for n in standing_nodes)
+            out["first_batch"]["marked_ready_again"] = marked
+            out["first_batch"]["settle_ms"] = (time.perf_counter() - t0) * 1e3
+            standing = {n.name for n in standing_nodes}
+            instances_before = set(backend.instances)
+            arm.touch()
+            server.command("build", pods_n, "rsb2", "reclaim", 43)
+            mono0, wall0 = time.monotonic(), time.time()
+            written = server.command("write")
+            write = mono0 + (written["t0"] - wall0)
+            out.update(fault_and_handover(first, command(""), server, reader, health, metrics, pods_n, 0, len(standing), while_booting=snapshot))
+            fault = out["first"]["fault"]
+            out["first"]["write_to_fault_ms"] = (fault["t_fault"] - write) * 1e3 if fault else None
+            nodes = reader.list_nodes()
+    finally:
+        if first is not None:
+            first.stop()
+            if "first" not in out:
+                out["first"] = {"exit_code": first.proc.returncode, "log_problems": first.problems()}
+        reader.stop()
+        server.stop()
+        service.stop()
+        scratch.cleanup()
+    records = out.pop("successor_records", [])
+    state = out.pop("while_booting", None)
+    sweeps = [r for r in records if "gc" in r]
+    placed2 = [pair for r in records if "placed" in r for pair in r["placed"]]
+    launches = next((r["launches"] for r in reversed(records) if "launches" in r), None)
+    new_nodes = [n for n in nodes if n.name not in standing]
+    got = {
+        "pods_onto_standing": sum(len(p) for node, p in placed2 if node in standing),
+        "node_types": dict(sorted(Counter(n.metadata.labels.get(lbl.LABEL_INSTANCE_TYPE) for n in new_nodes).items())),
+        "nodes": len(new_nodes),
+        "price_per_hour": sum(sim_price(backend, n) for n in new_nodes),
+    }
+    held = None
+    if state is not None and out.get("successor", {}).get("min_batch"):
+        kube = KubeCluster(clock=Clock())
+        for obj in state["provisioners"] + state["nodes"] + state["pods"]:
+            kube.create(obj)
+        provider = SimulatedCloudProvider(backend=CloudBackend(clock=Clock()), kube=kube, clock=Clock())
+        cluster = Cluster(kube, provider, clock=Clock())
+        pending = [p for p in state["pods"] if not p.spec.node_name]
+        created = []  # the new nodes' creates, replayed on a cloud of their own
+        replay = SimulatedCloudProvider(backend=CloudBackend(clock=Clock()), clock=Clock())
+        record, results = in_process_solve(
+            dev, pending, plain=False, provisioners=state["provisioners"], provider=provider, kube=kube,
+            cluster=cluster, min_batch=out["successor"]["min_batch"], replay=replay, created=created,
+        )
+        cluster.detach()
+        held = {
+            **record,
+            "pending": len(pending),
+            "pods_onto_standing": sum(len(v.pods) for v in results.existing_nodes),
+            "nodes": len(created),
+            "price_per_hour": sum(sim_price(backend, n) for n in created),
+        }
+    outcome_equal = held is not None and {
+        "pods_onto_standing": got["pods_onto_standing"] == held["pods_onto_standing"],
+        "node_types": got["node_types"] == held["types"],
+        "nodes": got["nodes"] == sum(held["types"].values()),
+        "price_per_hour": abs(got["price_per_hour"] - held["price_per_hour"]) <= 1e-9 * max(1.0, held["price_per_hour"]),
+    }
+    survivors = {n.name for n in nodes if n.metadata.deletion_timestamp is None}
+    registered = {n.spec.provider_id.rsplit("/", 1)[-1] for n in nodes if n.spec.provider_id}
+    return {
+        "case": "standing",
+        "pods": pods_n,
+        **out,
+        "recovery_sweep": sweeps[0] if sweeps else None,
+        "sweeps": len(sweeps),
+        "standing_nodes": len(standing),
+        "standing_nodes_lost": sorted(standing - survivors),
+        "instances_lost": sorted(instances_before - set(backend.instances)),
+        "instances_without_node": sorted(set(backend.instances) - registered),
+        "successor_launches": launches,
+        "outcome": got,
+        "in_process": held,
+        "outcome_equal": outcome_equal,
+    }
+
+
+def controller_restart_device_lost(dev, card_name) -> dict:
+    """The restart after a real device-lost (ROADMAP C7), in two cases
+    (restart_case_empty, restart_case_standing): in each, a device-side
+    assert on the card in the first controller process's bucket choice
+    ends its batch loop (a device-lost the card raised ends the loop:
+    solver/faults.py ends_the_loop); the process must exit non-zero within
+    RESTART_EXIT_DEADLINE_S, having POSTed no Node of the batch, and this
+    process starts the successor as it exits. Measured: the fault to the
+    exit, the exit to both probes, the Lease wait, the fault to the last
+    nomination and to the last Node. Held: the successor places every pod
+    with none unschedulable, with the outcome of the in-process solve with
+    the kernels (each kernel call held bit for bit), its solver on the card,
+    no kernel build (its flight recorder, and the libraries' mtimes), exit 0
+    on SIGTERM with the Lease released; in the standing case the first
+    process's armed round ran K2 before K1, the recovery sweep found no
+    ghost and no orphan, and no standing node or instance went."""
+    name = CONTROLLER_RESTART[0]
+    cases = {"empty": restart_case_empty(dev), "standing": restart_case_standing(dev)}
+    line = {"phase": name, "card": card_name, "cases": cases}
+    emit(line)
+    for case, c in cases.items():
+        first, successor = c.get("first", {}), c.get("successor")
+        tag = f"{name}/{case}"
+        if first.get("hung") or first.get("exit_code") == 0:
+            print(f"chip_smoke: {tag}: the first process exited {first.get('exit_code')}; its log above info level:", file=sys.stderr)
+            print("\n".join(first.get("log_problems", [])), file=sys.stderr, flush=True)
+        check(c.get("first_boot_to_ready_ms") is not None, f"{tag}: the first process's probes did not both answer 200")
+        check(not first.get("hung"), f"{tag}: the first process did not exit within {RESTART_EXIT_DEADLINE_S} s of its fault")
+        check(first.get("fault") is not None, f"{tag}: the armed K1 call never ran")
+        check(first.get("exit_code") not in (None, 0), f"{tag}: the first process exited {first.get('exit_code')} after its device-lost")
+        check(first.get("stderr_names_device_lost") and first.get("stderr_names_device_side_assert"), f"{tag}: the first process's log names no SolverDeviceLostError from a device-side assert")
+        check(first.get("nodes_posted") == 0, f"{tag}: the first process POSTed {first.get('nodes_posted')} Nodes of the faulted batch")
+        check(successor is not None, f"{tag}: no successor ran")
+        check(successor["exit_to_ready_ms"] is not None, f"{tag}: the successor's probes did not both answer 200")
+        check(successor["lease_wait_ms"] is not None, f"{tag}: the successor never won the Lease")
+        check(successor["pods_in_batches"] >= c["pods"] and all(b["unschedulable"] == 0 for b in successor["batches"]), f"{tag}: the successor's batches {successor['batches']}")
+        check(successor["solver_device"] is not None and successor["solver_device"].startswith("cuda"), f"{tag}: the successor's solver ran on {successor['solver_device']}")
+        recorder = successor["flight_recorder"]
+        check(recorder.get("compile_events") == 0 and not successor["kernel_libraries_rebuilt"], f"{tag}: the successor built kernels: {recorder}")
+        check(recorder.get("solves", 0) >= 1 and recorder.get("dispatch") == ["cuda"], f"{tag}: the successor's flight recorder: {recorder}")
+        check(successor["exit_code"] == 0 and successor["lease_released"], f"{tag}: the successor exited {successor['exit_code']} on SIGTERM, Lease released {successor['lease_released']}")
+        holds = (c.get("in_process") or {}).get("kernel_holds") or []
+        check(holds and all(h["identical"] for h in holds), f"{tag}: a kernel call of the in-process solve differs from its plain version: {[h for h in holds if not h['identical']]}")
+        check(c["in_process"]["unschedulable"] == 0 and c["in_process"]["over_capacity"] == 0, f"{tag}: the in-process solve: {c['in_process']}")
+    empty, standing = cases["empty"], cases["standing"]
+    check(empty["outcome_equal"], f"{name}/empty: the successor launched {empty['node_types']}, the in-process solve {empty['in_process']['types']}")
+    check(empty["in_process"]["launches"]["bucket_type_cost"] >= 1, f"{name}/empty: the in-process solve launched {empty['in_process']['launches']}")
+    first_batch = standing["first_batch"]
+    check(first_batch.get("initialized") == first_batch["nodes"] == standing["standing_nodes"], f"{name}/standing: the first batch's nodes were not all initialized before the second batch: {first_batch}")
+    check(standing["first"]["fault"].get("fills", 0) >= 1, f"{name}/standing: the armed round ran no warm fill before K1")
+    check(standing["outcome_equal"] and all(standing["outcome_equal"].values()), f"{name}/standing: the successor's outcome {standing['outcome']} differs from the in-process solve's: {standing['outcome_equal']}")
+    launches = standing["in_process"]["launches"]
+    check(launches["bucket_type_cost"] >= 1 and launches["warm_fill_counts"] >= 1, f"{name}/standing: the in-process solve launched {launches}")
+    sweep = standing["recovery_sweep"]
+    check(sweep is not None and not sweep["gc"]["orphans"] and not sweep["gc"]["ghosts"], f"{name}/standing: the successor's recovery sweep: {sweep}")
+    check(not standing["standing_nodes_lost"] and not standing["instances_lost"] and not standing["instances_without_node"], f"{name}/standing: lost nodes {standing['standing_nodes_lost']}, instances {standing['instances_lost']}, instances with no node {standing['instances_without_node']}")
     return line
 
 
@@ -6406,6 +7138,10 @@ def main() -> int:
     # process, then a fresh controller process against one
     runtime_http_line = runtime_round_http(dev, card_name)
     controller_process_http(dev, card_name)
+    # 12d'. the restart after a real device-lost: a device-side assert on
+    # the card ends a controller process's round, and a fresh process picks
+    # up the held batch, on an empty cluster and over standing nodes
+    restart_line = controller_restart_device_lost(dev, card_name)
     # 12e. the scenario campaign: live Runtimes under the workload stand-in
     # and seeded chaos, every batch through K1 and K2
     campaign_line = scenario_campaign(dev, card_name)
@@ -6431,6 +7167,19 @@ def main() -> int:
         HTTP (the fresh process's launches happen in the child, whose counts
         are not readable here)."""
         return {"runtime_round_http": runtime_http_line["kernel_launches"][kernel_name], "controller_process_http": "child"}
+
+    def restart_launches(kernel_name):
+        """The restart phase's launches of one kernel: in its in-process
+        solves, and in the standing case's successor since its boot (the
+        crossover probe's included), as it reported them; the empty case's
+        processes' launches are in them, whose counts are not readable
+        here."""
+        cases = restart_line["cases"]
+        return {
+            "empty_in_process": cases["empty"]["in_process"]["launches"][kernel_name],
+            "standing_in_process": cases["standing"]["in_process"]["launches"][kernel_name],
+            "standing_successor": (cases["standing"]["successor_launches"] or {}).get(kernel_name),
+        }
 
     def recorded_launches(kernel_name):
         """The recorded cell's launches of one kernel: in the threaded window,
@@ -6538,6 +7287,7 @@ def main() -> int:
                 "sidecar_launches": sidecar_line["kernel_launches"]["bucket_type_cost"],
                 "sidecar_grpc_launches": sidecar_line["grpc"]["kernel_launches"]["bucket_type_cost"],
                 "http_launches": http_launches("bucket_type_cost"),
+                "restart_launches": restart_launches("bucket_type_cost"),
                 "analysis_launches": analysis_line["kernel_launches"]["bucket_type_cost"],
                 "regret_launches": regret_line["kernel_launches"]["bucket_type_cost"],
                 "max_abs_err": max_err,
@@ -6607,6 +7357,7 @@ def main() -> int:
                 "sidecar_launches": sidecar_line["kernel_launches"]["warm_fill_counts"],
                 "sidecar_grpc_launches": sidecar_line["grpc"]["kernel_launches"]["warm_fill_counts"],
                 "http_launches": http_launches("warm_fill_counts"),
+                "restart_launches": restart_launches("warm_fill_counts"),
                 "analysis_launches": analysis_line["kernel_launches"]["warm_fill_counts"],
                 "regret_launches": regret_line["kernel_launches"]["warm_fill_counts"],
                 "max_abs_err": k2_err,

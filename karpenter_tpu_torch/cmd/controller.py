@@ -26,7 +26,10 @@ the SLO snapshot's (--enable-slo: /debug/slo), the flight recorder's
 configure the Runtime's breaker and budget split; under a solver mesh a solve
 over the budget splits on the solver's card and skips the mesh for that solve
 only. A runtime whose loop dies ends the
-process: `main` leaves its wait, and `Runtime.stop()` re-raises.
+process: `serve` leaves its wait, and `Runtime.stop()` releases the Lease
+and re-raises, so the process exits non-zero (a device-lost the card raised
+among them: a supervisor's restart gets a fresh CUDA context). `serve` runs
+any built Runtime that way, as this entry point runs its own.
 """
 
 from __future__ import annotations
@@ -173,9 +176,7 @@ def debug_routes(options, runtime=None) -> dict:
 
 def main(argv=None) -> int:
     from ..cloudprovider.fake import FakeCloudProvider
-    from ..observability import ObservabilityServer
     from ..runtime import Runtime
-    from ..utils.clock import Clock
     from ..utils.options import parse
 
     options = parse(argv)
@@ -188,6 +189,17 @@ def main(argv=None) -> int:
         WITNESS.enable()
     kube, url = build_kube_backend(options)
     runtime = Runtime(kube=kube, cloud_provider=FakeCloudProvider(), options=options)
+    return serve(runtime, options, url)
+
+
+def serve(runtime, options, url: str = "") -> int:
+    """Run a built Runtime as the controller process does: the probes and
+    /metrics up before the election, start(), then wait until SIGINT or
+    SIGTERM or until a loop of the runtime ends; stop() releases the Lease
+    and re-raises the exception that ended a loop, so the process exits
+    non-zero on it."""
+    from ..observability import ObservabilityServer
+    from ..utils.clock import Clock
 
     # the handlers go in before the probes answer: a SIGTERM sent once the
     # process reports ready must take the graceful path

@@ -431,6 +431,7 @@ class Runtime:
             # Lease-based election (controllers.go:104-106): block until this
             # runtime holds karpenter-leader-election and has recovered; a
             # recovery that raised (or a stop) returns early
+            log.info("leader election: %s campaigning", self.elector.identity)
             self.elector.start(
                 on_started_leading=self._on_leadership_gained,
                 on_stopped_leading=self._on_leadership_lost,
