@@ -4659,11 +4659,9 @@ for line in sys.stdin:
         for pod in batch:
             writer.create(pod)
         print(json.dumps({"t0": t0, "t1": time.time()}), flush=True)
-    elif cmd in ("bind", "ready"):
+    elif cmd == "bind":
         # the kubelet's part for a list of [node, [[namespace, pod], ...]]:
-        # each node Ready (again where a controller's write of an older
-        # read put it back, as the kubelet's next status post would), and
-        # with "bind" each pod bound to it
+        # each node's one Ready post, and each pod bound to it
         placed, marked = json.load(open(args[0])), 0
         for node_name, pods in placed:
             node = from_wire(srv.state.get("Node", "", node_name), "Node")
@@ -4671,7 +4669,7 @@ for line in sys.stdin:
                 node.status.conditions = [NodeCondition(type="Ready", status="True")]
                 srv.state.update("Node", "", node_name, to_wire(node))
                 marked += 1
-            for namespace, pod_name in pods if cmd == "bind" else ():
+            for namespace, pod_name in pods:
                 srv.state.bind(namespace, pod_name, node_name)
         print(json.dumps({"nodes": len(placed), "marked_ready": marked, "pods": sum(len(p) for _n, p in placed)}), flush=True)
     elif cmd == "report":
@@ -5674,16 +5672,22 @@ def restart_case_standing(dev) -> dict:
             t0 = time.perf_counter()
             out["first_batch"]["bound"] = server.command("bind", path)
             out["first_batch"]["bind_ms"] = (time.perf_counter() - t0) * 1e3
-            # the first process's node controller initializes each Ready node
-            deadline, marked = time.monotonic() + RESTART_SETTLE_S, 0
+            # the first process's node controller initializes each node on
+            # the stand-in's one Ready post: its writes re-apply their edits
+            # to a fresh read (retry_on_conflict), so none may take Ready
+            # back, and nothing posts Ready again
+            deadline, lost_ready = time.monotonic() + RESTART_SETTLE_S, set()
             while time.monotonic() < deadline:
                 standing_nodes = reader.list_nodes()
+                lost_ready.update(n.name for n in standing_nodes if not n.ready())
                 if all(n.metadata.labels.get(lbl.LABEL_NODE_INITIALIZED) == "true" for n in standing_nodes):
                     break
                 time.sleep(0.5)
-                marked += server.command("ready", path)["marked_ready"]
             out["first_batch"]["initialized"] = sum(n.metadata.labels.get(lbl.LABEL_NODE_INITIALIZED) == "true" for n in standing_nodes)
-            out["first_batch"]["marked_ready_again"] = marked
+            out["first_batch"]["lost_ready"] = sorted(lost_ready)
+            # the Ready posts a kubelet would have to make again: one for
+            # each node a controller's write took Ready from
+            out["first_batch"]["marked_ready_again"] = len(lost_ready)
             out["first_batch"]["settle_ms"] = (time.perf_counter() - t0) * 1e3
             standing = {n.name for n in standing_nodes}
             instances_before = set(backend.instances)
@@ -5813,6 +5817,7 @@ def controller_restart_device_lost(dev, card_name) -> dict:
     check(empty["in_process"]["launches"]["bucket_type_cost"] >= 1, f"{name}/empty: the in-process solve launched {empty['in_process']['launches']}")
     first_batch = standing["first_batch"]
     check(first_batch.get("initialized") == first_batch["nodes"] == standing["standing_nodes"], f"{name}/standing: the first batch's nodes were not all initialized before the second batch: {first_batch}")
+    check(first_batch.get("marked_ready_again") == 0 and first_batch.get("lost_ready") == [], f"{name}/standing: a node lost the stand-in's one Ready post: {first_batch}")
     check(standing["first"]["fault"].get("fills", 0) >= 1, f"{name}/standing: the armed round ran no warm fill before K1")
     check(standing["outcome_equal"] and all(standing["outcome_equal"].values()), f"{name}/standing: the successor's outcome {standing['outcome']} differs from the in-process solve's: {standing['outcome_equal']}")
     launches = standing["in_process"]["launches"]
@@ -5826,10 +5831,10 @@ def controller_restart_device_lost(dev, card_name) -> dict:
 def bind_with_retries(kube, placed) -> dict:
     """bind_placed as a kube-scheduler does it under conflicts: each pod is
     read back from the store (a stale read may answer) and bound; a bind
-    that loses to a 409 is read again and retried until it lands (the store
-    hands out its own objects, so the lost attempt's fields are already on
-    the pod read back: only a write that lands is seen by the watches).
-    Returns the bindings made and the conflicts caught."""
+    that loses to a 409 is read again and retried until it lands (a lost
+    attempt leaves the stored pod as it was: only a write that lands is
+    stored and seen by the watches). Returns the bindings made and the
+    conflicts caught."""
     from karpenter_tpu_torch.kube.cluster import Conflict
 
     bound = caught = 0

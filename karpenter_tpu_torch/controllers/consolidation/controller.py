@@ -23,7 +23,9 @@ One change of cost, not of outcome: a pass reads every candidate's pods from
 one scan of the store (`_pods_by_node`), where the reference scans the whole
 store per candidate, twice (kube.pods_on_node in _is_empty and
 _disruption_cost): on 2,000 nodes of 72 pods that is 4,000 scans of 144,000
-pods a pass.
+pods a pass. The cordons go through the backend's retry_on_conflict: a
+replace whose cordon loses to a conflict no retry absorbed is left to the
+next pass, its other nodes uncordoned.
 """
 
 from __future__ import annotations
@@ -36,16 +38,19 @@ from ...api import labels as lbl
 from ...api.objects import Node, Pod
 from ...cloudprovider.types import CloudProvider, NodeRequest
 from ...events import Recorder
-from ...kube.cluster import KubeCluster
+from ...kube.cluster import Conflict, KubeCluster
 from ...scheduler import SchedulerOptions
 from ...tracing import TRACER
 from ...utils import pod as podutils
 from ..state.cluster import Cluster, StateNode
 from ...logsetup import get_logger
 from ..disruption.eligibility import PDBLimits
+from ..edits import cordon, requeue, uncordon
 from .helpers import disruption_cost, lifetime_remaining
 
 log = get_logger("consolidation")
+
+_CORDON = cordon()
 
 
 class ActionType(enum.Enum):
@@ -449,7 +454,8 @@ class ConsolidationController:
         if action.type == ActionType.REPLACE:
             # cordon the outgoing node before launching so new pods cannot
             # land on it while the replacement converges (controller.go:310-312)
-            self._cordon(action.nodes)
+            if not self._cordon(action.nodes):
+                return
             replacement = action.replacement
             try:
                 node = self.cloud_provider.create(
@@ -478,11 +484,17 @@ class ConsolidationController:
                 return
         self._terminate(action)
 
-    def _cordon(self, nodes: Sequence[Node]) -> None:
+    def _cordon(self, nodes: Sequence[Node]) -> bool:
+        """Cordon every node; False, with the others uncordoned, when one
+        cordon lost to a conflict."""
         for node in nodes:
-            if not node.spec.unschedulable:
-                node.spec.unschedulable = True
-                self.kube.update(node)
+            try:
+                self.kube.retry_on_conflict("Node", node.name, node.metadata.namespace, _CORDON, held=node)
+            except Conflict as err:
+                requeue("ConsolidationController", node, err)
+                self._uncordon(nodes)
+                return False
+        return True
 
     def _uncordon(self, nodes: Sequence[Node]) -> None:
         for stale in nodes:
@@ -492,9 +504,10 @@ class ConsolidationController:
             if node is None:
                 continue
             # a node already being deleted stays cordoned (controller.go:584-586)
-            if node.spec.unschedulable and node.metadata.deletion_timestamp is None:
-                node.spec.unschedulable = False
-                self.kube.update(node)
+            try:
+                self.kube.retry_on_conflict("Node", node.name, node.metadata.namespace, uncordon, held=node)
+            except Conflict as err:
+                requeue("ConsolidationController", node, err)
 
     def _terminate(self, action: ConsolidationAction) -> None:
         for node in action.nodes:

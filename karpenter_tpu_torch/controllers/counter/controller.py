@@ -4,7 +4,9 @@ Mirrors pkg/controllers/counter/controller.go — sums cluster-state capacity
 (so in-flight nodes count immediately) into Provisioner.status.resources,
 which the limits check consumes.
 
-The port's copy of karpenter_tpu/controllers/counter/controller.py.
+The port's copy of karpenter_tpu/controllers/counter/controller.py. The
+status write goes through the backend's retry_on_conflict, and a conflict no
+retry absorbed leaves the provisioner to the next pass.
 """
 
 from __future__ import annotations
@@ -12,8 +14,10 @@ from __future__ import annotations
 from typing import Dict
 
 from ...api import labels as lbl
-from ...kube.cluster import KubeCluster
+from ...api.provisioner import Provisioner
+from ...kube.cluster import Conflict, KubeCluster
 from ...utils import resources as res
+from ..edits import requeue
 from ..state.cluster import Cluster
 
 
@@ -34,6 +38,14 @@ class CounterController:
         self.cluster.for_each_node(visit)
         for provisioner in self.kube.list_provisioners():
             new_totals = totals.get(provisioner.name, {})
-            if provisioner.status.resources != new_totals:  # avoid no-op update churn
-                provisioner.status.resources = new_totals
-                self.kube.update(provisioner)
+
+            def mutate(fresh: Provisioner, new_totals=new_totals) -> bool:
+                if fresh.status.resources == new_totals:  # avoid no-op update churn
+                    return False
+                fresh.status.resources = new_totals
+                return True
+
+            try:
+                self.kube.retry_on_conflict("Provisioner", provisioner.name, provisioner.metadata.namespace, mutate, held=provisioner)
+            except Conflict as err:
+                requeue("CounterController", provisioner, err)

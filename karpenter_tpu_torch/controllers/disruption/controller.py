@@ -33,7 +33,10 @@ by a method's or consolidation's propose(). Here a solver fault
 source's pass with no action, and the next tick retries it on the card; any
 other exception, a device-lost the card raised included
 (faults.ends_the_loop), leaves reconcile(), so it cannot hide behind a log
-line.
+line. Every Node write goes through the backend's retry_on_conflict; a
+conflict no retry absorbed leaves that node to the next pass (a candidate
+whose disrupting mark cannot be written voids its command, which its method
+proposes again).
 """
 
 from __future__ import annotations
@@ -44,10 +47,12 @@ from typing import Deque, Dict, List, Optional, Set
 from ...api import labels as lbl
 from ...cloudprovider.types import NodeRequest
 from ...events import Recorder
+from ...kube.cluster import Conflict
 from ...logsetup import get_logger
 from ...metrics import REGISTRY
 from ...solver.faults import SolverFault, ends_the_loop
 from ...tracing import TRACER
+from ..edits import cordon, requeue, set_annotation
 from .budgets import BudgetTracker, allowed_disruptions
 from .eligibility import PDBLimits, pod_ineligible_reason
 from .methods import (
@@ -173,12 +178,11 @@ class DisruptionController:
                     # crashed between charge and delete: the command died
                     # with the process. Release the node — clear the marker
                     # and the cordon — and let the method re-propose it.
-                    del node.metadata.annotations[lbl.DISRUPTING_ANNOTATION]
-                    if node.spec.unschedulable and not any(
-                        t.key in (lbl.TAINT_INTERRUPTION, lbl.TAINT_NODE_UNSCHEDULABLE) for t in node.spec.taints
-                    ):
-                        node.spec.unschedulable = False
-                    self.kube.update(node)
+                    try:
+                        self.kube.retry_on_conflict("Node", node.name, node.metadata.namespace, _release, held=node)
+                    except Conflict as err:
+                        requeue("DisruptionController", node, err)
+                        continue
                     self.recoveries.inc(action="released")
                     summary["released"].append(node.name)
                 continue
@@ -201,8 +205,11 @@ class DisruptionController:
             else:
                 # the drain finished (or the node is already real capacity):
                 # adopt it — clear the marker, keep it protected briefly
-                del node.metadata.annotations[lbl.REPLACEMENT_FOR_ANNOTATION]
-                self.kube.update(node)
+                try:
+                    self.kube.retry_on_conflict("Node", node.name, node.metadata.namespace, _ADOPT, held=node)
+                except Conflict as err:
+                    requeue("DisruptionController", node, err)
+                    continue
                 self.cluster.nominate_node_for_pod(node.name)
                 self.recoveries.inc(action="adopted")
                 summary["adopted"].append(node.name)
@@ -400,7 +407,9 @@ class DisruptionController:
             return
         # the charge is durable from here: stamp the candidates so a restart
         # can reconstruct the ledger (mid-drain) or release them (pre-drain)
-        self._stamp_disrupting(cmd)
+        if not self._stamp_disrupting(cmd):
+            self._fail_replacement(cmd, OUTCOME_INVALIDATED, "a candidate's disrupting mark lost to a write conflict")
+            return
         if cmd.replacements and not cmd.launched:
             if not self._launch_replacements(cmd):
                 return
@@ -409,12 +418,18 @@ class DisruptionController:
             return
         self._disrupt(cmd)
 
-    def _stamp_disrupting(self, cmd: DisruptionCommand) -> None:
+    def _stamp_disrupting(self, cmd: DisruptionCommand) -> bool:
+        """Mark every candidate; False when a mark lost to a conflict."""
+        stamp = set_annotation(lbl.DISRUPTING_ANNOTATION, cmd.method)
         for stale in cmd.nodes:
             node = self.kube.get_node(stale.name)
-            if node is not None and node.metadata.annotations.get(lbl.DISRUPTING_ANNOTATION) != cmd.method:
-                node.metadata.annotations[lbl.DISRUPTING_ANNOTATION] = cmd.method
-                self.kube.update(node)
+            if node is not None:
+                try:
+                    self.kube.retry_on_conflict("Node", node.name, node.metadata.namespace, stamp, held=node)
+                except Conflict as err:
+                    requeue("DisruptionController", node, err)
+                    return False
+        return True
 
     def _clear_disrupting(self, cmd: DisruptionCommand) -> None:
         """Unwind the durable marker when a command fails AFTER its charges
@@ -422,9 +437,11 @@ class DisruptionController:
         charge (a restart would misread it as a stranded disruption)."""
         for stale in cmd.nodes:
             node = self.kube.get_node(stale.name)
-            if node is not None and lbl.DISRUPTING_ANNOTATION in node.metadata.annotations:
-                del node.metadata.annotations[lbl.DISRUPTING_ANNOTATION]
-                self.kube.update(node)
+            if node is not None:
+                try:
+                    self.kube.retry_on_conflict("Node", node.name, node.metadata.namespace, _UNMARK, held=node)
+                except Conflict as err:
+                    requeue("DisruptionController", node, err)
 
     def _validate(self, cmd: DisruptionCommand, pdb: PDBLimits) -> Optional[str]:
         """The just-before-execution re-validation: candidates still exist
@@ -568,23 +585,29 @@ class DisruptionController:
         # a later restart adopts them as ordinary nodes
         for name in cmd.launched:
             replacement = self.kube.get_node(name)
-            if replacement is not None and lbl.REPLACEMENT_FOR_ANNOTATION in replacement.metadata.annotations:
-                del replacement.metadata.annotations[lbl.REPLACEMENT_FOR_ANNOTATION]
-                self.kube.update(replacement)
+            if replacement is not None:
+                try:
+                    self.kube.retry_on_conflict("Node", name, replacement.metadata.namespace, _ADOPT, held=replacement)
+                except Conflict as err:
+                    requeue("DisruptionController", replacement, err)  # a restart's recovery adopts it
         with TRACER.span("drain-handoff", parent=cmd.trace_ctx, nodes=",".join(cmd.node_names())):
             for stale in cmd.nodes:
                 node = self.kube.get_node(stale.name)
                 if node is None:
                     continue
-                if not node.spec.unschedulable:
-                    node.spec.unschedulable = True
-                    self.kube.update(node)
+                try:
+                    self.kube.retry_on_conflict("Node", node.name, node.metadata.namespace, _CORDON, held=node)
+                except Conflict as err:
+                    requeue("DisruptionController", node, err)  # the termination controller cordons it as it drains
                 self.recorder.terminating_node(node, f"disruption {cmd.method}: {cmd.reason}")
                 self.kube.delete(node)
                 if self.termination is not None:
                     refreshed = self.kube.get_node(node.name)
                     if refreshed is not None:
-                        self.termination.reconcile(refreshed)
+                        try:
+                            self.termination.reconcile(refreshed)
+                        except Conflict as err:
+                            requeue("TerminationController", refreshed, err)
         log.info("disruption %s: disrupting %s (%s)", cmd.method, ", ".join(cmd.node_names()), cmd.reason)
         self._finish(cmd, OUTCOME_DISRUPTED, cmd.reason)
 
@@ -593,3 +616,23 @@ class DisruptionController:
         self.commands.inc(method=cmd.method, outcome=outcome)
         TRACER.close_span(cmd.trace_span, outcome=outcome, detail=reason)
         cmd.trace_span = cmd.trace_ctx = None
+
+
+# -- the Node edits, each idempotent on a fresh object ---------------------------
+
+
+def _release(node) -> bool:
+    """Clear a stranded disrupting mark and the cordon it came with."""
+    if lbl.DISRUPTING_ANNOTATION not in node.metadata.annotations:
+        return False
+    del node.metadata.annotations[lbl.DISRUPTING_ANNOTATION]
+    if node.spec.unschedulable and not any(
+        t.key in (lbl.TAINT_INTERRUPTION, lbl.TAINT_NODE_UNSCHEDULABLE) for t in node.spec.taints
+    ):
+        node.spec.unschedulable = False
+    return True
+
+
+_UNMARK = set_annotation(lbl.DISRUPTING_ANNOTATION, None)
+_ADOPT = set_annotation(lbl.REPLACEMENT_FOR_ANNOTATION, None)
+_CORDON = cordon()

@@ -24,7 +24,9 @@ Consolidation participates as a fourth source through
 The port's copy of karpenter_tpu/controllers/disruption/methods.py. The
 re-simulation is the provisioner's schedule() in simulation mode, so on the
 card a batch of at least the solver's min_batch pods runs through K2 and,
-for new nodes, K1.
+for new nodes, K1. The drifted flag is written through the backend's
+retry_on_conflict, and a conflict no retry absorbed leaves the candidate to
+the next pass.
 """
 
 from __future__ import annotations
@@ -35,9 +37,11 @@ from typing import FrozenSet, List, Optional
 from ...api import labels as lbl
 from ...api.objects import Node
 from ...api.provisioner import Provisioner
+from ...kube.cluster import Conflict
 from ...logsetup import get_logger
 from ...scheduler import SchedulerOptions
 from ...utils import pod as podutils
+from ..edits import requeue, set_annotation
 from ..state.cluster import StateNode
 
 log = get_logger("disruption")
@@ -281,14 +285,13 @@ class DriftMethod(MethodBase):
                 continue
             if not drifted:
                 if flagged:  # healed (provisioner reverted): clear the flag
-                    del state.node.metadata.annotations[lbl.DRIFTED_ANNOTATION]
-                    self.kube.update(state.node)
+                    self._write_flag(state, None)
                 continue
             if state.name in exclude:
                 continue  # already queued/charged: no re-simulation
             if not flagged:
-                state.node.metadata.annotations[lbl.DRIFTED_ANNOTATION] = "true"
-                self.kube.update(state.node)
+                if not self._write_flag(state, "true"):
+                    continue
                 log.info("node %s drifted from its provisioner spec; flagged for replacement", state.name)
             replacements = self.resimulate(state.node)
             if replacements is None:
@@ -308,6 +311,18 @@ class DriftMethod(MethodBase):
                 )
             )
         return out
+
+    def _write_flag(self, state: StateNode, value: Optional[str]) -> bool:
+        """Set (or, with None, clear) the drifted flag on the cluster-state
+        cache's node; False when the write lost to a conflict, which leaves
+        the candidate to the next pass."""
+        mutate = set_annotation(lbl.DRIFTED_ANNOTATION, value)
+        try:
+            self.kube.retry_on_conflict("Node", state.name, state.node.metadata.namespace, mutate, held=state.node)
+        except Conflict as err:
+            requeue(type(self).__name__, state.node, err)
+            return False
+        return True
 
     def still_valid(self, command: DisruptionCommand) -> Optional[str]:
         for node in command.nodes:

@@ -40,7 +40,9 @@ breaker's included) is logged, as the reference does, and the redelivered
 notice solves again on the card, while any other exception, a device-lost
 the card raised included (faults.ends_the_loop), leaves poll_once(), so it
 never hides behind a log line. Every other failure of a
-message's handling is still logged and left for redelivery.
+message's handling is still logged and left for redelivery; the cordon
+writes through the backend's retry_on_conflict, so a conflict no retry
+absorbed is one such failure.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from typing import List, Optional
 
 from ...analysis import WITNESS, guarded_by
 from ...api import labels as lbl
-from ...api.objects import NO_SCHEDULE, Node, Taint
+from ...api.objects import Node
 from ...events import Recorder
 from ...kube.cluster import KubeCluster
 from ...logsetup import get_logger
@@ -58,6 +60,7 @@ from ...scheduler import SchedulerOptions
 from ...solver.faults import SolverFault, ends_the_loop
 from ...tracing import TRACER
 from ...utils import pod as podutils
+from ..edits import cordon
 from ..state.cluster import Cluster
 from .messages import (
     ACTION_CORDON,
@@ -70,6 +73,9 @@ from .messages import (
 )
 
 log = get_logger("interruption")
+
+# the cordon + taint, idempotent: a cordoned node that lacks the taint gets it
+_CORDON = cordon(lbl.TAINT_INTERRUPTION, retaint=True)
 
 # how long a handled message id is remembered for duplicate suppression;
 # comfortably above the queue's visibility timeout so every redelivery of a
@@ -304,14 +310,7 @@ class InterruptionController:
     def _cordon(self, node: Node) -> bool:
         """Cordon + taint, idempotently. Returns True when this call made a
         change (False = a duplicate notice; skip downstream work)."""
-        already = node.spec.unschedulable and any(t.key == lbl.TAINT_INTERRUPTION for t in node.spec.taints)
-        if already:
-            return False
-        node.spec.unschedulable = True
-        if not any(t.key == lbl.TAINT_INTERRUPTION for t in node.spec.taints):
-            node.spec.taints.append(Taint(key=lbl.TAINT_INTERRUPTION, effect=NO_SCHEDULE))
-        self.kube.update(node)
-        return True
+        return self.kube.retry_on_conflict("Node", node.name, node.metadata.namespace, _CORDON, held=node) is not None
 
     def _cordon_and_drain(self, node: Node, msg: InterruptionMessage) -> None:
         with TRACER.span("cordon", node=node.name):

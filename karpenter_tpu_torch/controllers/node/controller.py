@@ -14,20 +14,28 @@ nodes running four sub-reconcilers with a single update at the end
                    (expiration.go:38-55)
   finalizer      — ensure the termination finalizer + provisioner owner ref
                    on self-registered nodes (finalizer.go:25-49)
+
+The port's copy of karpenter_tpu/controllers/node/controller.py. Its one
+write goes through the backend's retry_on_conflict: the sub-reconcilers run
+again on the fresh object, so a field another writer set in between (a
+kubelet's Ready) survives, and a node made Ready in between is initialized
+on that write. A conflict no retry absorbed leaves the node to the next pass.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import List, Optional
 
 from ...api import labels as lbl
 from ...api.objects import Node, OwnerReference
 from ...api.provisioner import Provisioner
 from ...journal import JOURNAL
-from ...kube.cluster import KubeCluster
+from ...kube.cluster import Conflict, KubeCluster
 from ...logsetup import get_logger
 from ...utils import pod as podutils
 from ...utils import resources as res
+from ..edits import requeue
 from ..state.cluster import Cluster
 
 log = get_logger("node")
@@ -48,10 +56,15 @@ class NodeController:
         # method consumes — but no longer deletes nodes itself, so every
         # voluntary deletion flows through budgets and the command queue
         self.delegate_disruption = delegate_disruption
+        self.requeued = 0  # nodes a pass left to the next after a write conflict
 
     def reconcile_all(self) -> None:
         for node in list(self.kube.list_nodes()):
-            self.reconcile(node)
+            try:
+                self.reconcile(node)
+            except Conflict as err:
+                self.requeued += 1
+                requeue("NodeController", node, err)
 
     def reconcile(self, node: Node) -> None:
         provisioner = self._provisioner_of(node)
@@ -59,12 +72,23 @@ class NodeController:
             return  # not ours
         if node.metadata.deletion_timestamp is not None:
             return  # termination controller owns it now
-        changed = False
-        changed |= self._finalizer(node, provisioner)
-        changed |= self._initialization(node, provisioner)
-        changed |= self._emptiness(node, provisioner)
-        if changed:
-            self.kube.update(node)
+
+        def mutate(fresh: Node) -> bool:
+            if fresh.metadata.deletion_timestamp is not None:
+                return False
+            changed = self._finalizer(fresh, provisioner)
+            changed |= self._initialization(fresh, provisioner)
+            changed |= self._emptiness(fresh, provisioner)
+            return changed
+
+        # the sub-reconcilers edit only the metadata, so each attempt copies
+        # only that: a pass over settled nodes reads and copies nothing more
+        initialized = node.metadata.labels.get(lbl.LABEL_NODE_INITIALIZED) == "true"
+        written = self.kube.retry_on_conflict("Node", node.name, node.metadata.namespace, mutate, held=node, copy_of=_metadata_copy)
+        if written is not None and not initialized and node.metadata.labels.get(lbl.LABEL_NODE_INITIALIZED) == "true":
+            if JOURNAL.enabled:
+                JOURNAL.node_event(node.name, "initialized", provisioner=provisioner.name)
+            log.info("node %s initialized (ready, startup taints cleared, extended resources registered)", node.name)
         if not self.delegate_disruption:
             self._expiration(node, provisioner)
             self._empty_ttl_delete(node, provisioner)
@@ -103,9 +127,6 @@ class NodeController:
         if not self._extended_resources_registered(node):
             return False
         node.metadata.labels[lbl.LABEL_NODE_INITIALIZED] = "true"
-        if JOURNAL.enabled:
-            JOURNAL.node_event(node.name, "initialized", provisioner=provisioner.name)
-        log.info("node %s initialized (ready, startup taints cleared, extended resources registered)", node.name)
         return True
 
     def _extended_resources_registered(self, node: Node) -> bool:
@@ -162,3 +183,17 @@ class NodeController:
         if self.clock.now() - node.metadata.creation_timestamp >= ttl:
             log.info("deleting node %s: expired past ttlSecondsUntilExpired=%.0fs", node.name, ttl)
             self.kube.delete(node)
+
+
+def _metadata_copy(node: Node) -> Node:
+    """`node` with its own copy of the metadata the sub-reconcilers edit
+    (finalizers, owner references, labels, annotations); spec and status
+    are shared and only read."""
+    meta = copy.copy(node.metadata)
+    meta.labels = dict(meta.labels)
+    meta.annotations = dict(meta.annotations)
+    meta.finalizers = list(meta.finalizers)
+    meta.owner_references = list(meta.owner_references)
+    probe = copy.copy(node)
+    probe.metadata = meta
+    return probe

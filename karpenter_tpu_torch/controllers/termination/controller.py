@@ -7,7 +7,9 @@ terminal, stuck-terminating pods skipped, :122-168), then delete the cloud
 instance and strip the finalizer so the API object is garbage collected
 (:101-119).
 
-The port's copy of karpenter_tpu/controllers/termination/controller.py.
+The port's copy of karpenter_tpu/controllers/termination/controller.py. The
+cordon writes through the backend's retry_on_conflict, and a conflict no
+retry absorbed leaves the node to the next pass.
 """
 
 from __future__ import annotations
@@ -20,15 +22,17 @@ from ...cloudprovider.types import CloudProvider
 from ...events import Recorder
 from ...journal import JOURNAL
 from ...logsetup import get_logger
-from ...kube.cluster import KubeCluster
+from ...kube.cluster import Conflict, KubeCluster
 from ...scheduling.taints import Taints
 from ...tracing import TRACER
 from ...utils import pod as podutils
+from ..edits import cordon, requeue
 from .eviction import EvictionQueue
 
 log = get_logger("termination")
 
 _UNSCHEDULABLE = Taints([Taint(key=lbl.TAINT_NODE_UNSCHEDULABLE, effect=NO_SCHEDULE)])
+_CORDON = cordon(lbl.TAINT_NODE_UNSCHEDULABLE)
 
 
 class TerminationController:
@@ -51,7 +55,10 @@ class TerminationController:
     def reconcile_all(self) -> None:
         for node in list(self.kube.list_nodes()):
             if node.metadata.deletion_timestamp is not None:
-                self.reconcile(node)
+                try:
+                    self.reconcile(node)
+                except Conflict as err:
+                    requeue("TerminationController", node, err)
 
     def reconcile(self, node: Node) -> None:
         if lbl.TERMINATION_FINALIZER not in node.metadata.finalizers:
@@ -82,12 +89,7 @@ class TerminationController:
         self.recorder.terminating_node(node, "deleted node and cloud instance")
 
     def cordon(self, node: Node) -> None:
-        if node.spec.unschedulable:
-            return
-        node.spec.unschedulable = True
-        if not any(t.key == lbl.TAINT_NODE_UNSCHEDULABLE for t in node.spec.taints):
-            node.spec.taints.append(Taint(key=lbl.TAINT_NODE_UNSCHEDULABLE, effect=NO_SCHEDULE))
-        self.kube.update(node)
+        self.kube.retry_on_conflict("Node", node.name, node.metadata.namespace, _CORDON, held=node)
 
     def drain(self, node: Node) -> bool:
         """Queue evictable pods; True once nothing on the node blocks

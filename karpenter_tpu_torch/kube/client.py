@@ -19,11 +19,15 @@ Every verb serializes through kube/codec.py, so state observed by
 controllers is always a decoded wire copy — reference semantics, where
 mutating a local object never changes the cluster until written back.
 
-The port's copy of karpenter_tpu/kube/client.py, as the reference has it.
+The port's copy of karpenter_tpu/kube/client.py, with one addition:
+`retry_on_conflict`, client-go's RetryOnConflict, which re-reads the object
+and re-applies the caller's edit after a 409 instead of resending a stale
+object (update() keeps the reference's refresh-and-resend).
 """
 
 from __future__ import annotations
 
+import copy
 import http.client
 import json
 import random
@@ -35,7 +39,18 @@ from ..api.objects import CSINode, Namespace, Node, PersistentVolume, Persistent
 from ..api.provisioner import Provisioner
 from ..logsetup import get_logger
 from .chaos import KUBE_CONFLICTS
-from .cluster import ADDED, DELETED, MODIFIED, Conflict, ConflictExhausted, NotFound, WatchEvent
+from .cluster import (
+    ADDED,
+    DELETED,
+    MODIFIED,
+    RETRY_ON_CONFLICT_ATTEMPTS,
+    Conflict,
+    ConflictExhausted,
+    NotFound,
+    WatchEvent,
+    conflict_exhausted,
+    rebind,
+)
 from .codec import API_REGISTRY, from_wire, rest_path, to_wire
 
 log = get_logger("kubeclient")
@@ -189,7 +204,7 @@ class HttpKubeClient:
         obj.metadata.creation_timestamp = stored.metadata.creation_timestamp
         return obj
 
-    RETRY_ON_CONFLICT_ATTEMPTS = 4
+    RETRY_ON_CONFLICT_ATTEMPTS = RETRY_ON_CONFLICT_ATTEMPTS
 
     def update(self, obj) -> object:
         wire = to_wire(obj)
@@ -226,17 +241,64 @@ class HttpKubeClient:
         """Conditional update: a stale resourceVersion surfaces as Conflict
         instead of being refreshed — the primitive compare-and-swap leader
         election is built on."""
+        out = self._conditional_put(obj, "update_no_retry")
+        obj.metadata.resource_version = int(out.get("metadata", {}).get("resourceVersion") or 0)
+        return obj
+
+    def _conditional_put(self, obj, verb: str) -> dict:
+        """PUT `obj` at the resourceVersion it carries and return the
+        apiserver's answer; a 409 raises Conflict, counted under `verb`."""
         try:
-            out = self._request("PUT", rest_path(obj.kind, obj.metadata.namespace, obj.metadata.name), to_wire(obj))
+            return self._request("PUT", rest_path(obj.kind, obj.metadata.namespace, obj.metadata.name), to_wire(obj))
         except ApiStatusError as err:
             if err.code == 404:
                 raise NotFound(str(err)) from err
             if err.code == 409:
-                KUBE_CONFLICTS.inc(kind=obj.kind, verb="update_no_retry")
+                KUBE_CONFLICTS.inc(kind=obj.kind, verb=verb)
                 raise Conflict(str(err)) from err
             raise
-        obj.metadata.resource_version = int(out.get("metadata", {}).get("resourceVersion") or 0)
-        return obj
+
+    def retry_on_conflict(
+        self,
+        kind: str,
+        name: str,
+        namespace: str,
+        mutate: Callable[[object], bool],
+        held=None,
+        copy_of: Callable[[object], object] = copy.deepcopy,
+    ):
+        """client-go's RetryOnConflict over the wire: apply `mutate` to a
+        copy of the object and PUT it with the resourceVersion the copy
+        carries. The first attempt copies `held`, the caller's object, when
+        there is one (`copy_of`, a deep copy unless the caller knows its
+        edit touches less), so a write that meets no 409 costs one PUT;
+        every other attempt GETs the object anew. On a 409 it tries again,
+        up to RETRY_ON_CONFLICT_ATTEMPTS attempts, then raises
+        ConflictExhausted. `mutate` returns False when the object needs no
+        write. Unlike update(), a field another writer set in between
+        survives. `held` gets the state the apiserver returned. Returns the
+        written object, or None when `mutate` declined."""
+        err: Optional[Conflict] = None
+        current = held
+        for _ in range(RETRY_ON_CONFLICT_ATTEMPTS):
+            if current is None:
+                current = candidate = self.get(kind, name, namespace)
+                if current is None:
+                    raise NotFound(f"{kind} {(namespace, name)} not found")
+            else:
+                candidate = copy_of(current)
+            if not mutate(candidate):
+                rebind(held, current)
+                return None
+            try:
+                out = self._conditional_put(candidate, "update")
+            except Conflict as conflict:
+                err, current = conflict, None
+                continue
+            written = from_wire(out, kind)
+            rebind(held, written)
+            return written
+        raise conflict_exhausted(kind, name, err)
 
     def apply(self, obj) -> object:
         try:

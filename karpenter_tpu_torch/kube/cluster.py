@@ -11,11 +11,16 @@ Watches dispatch synchronously on the mutating thread, which makes controller
 tests deterministic (the reference needs TriggerAndWait plumbing for the same
 reason).
 
-The port's copy of karpenter_tpu/kube/cluster.py, as the reference has it.
+The port's copy of karpenter_tpu/kube/cluster.py, with two edits:
+`retry_on_conflict`, client-go's RetryOnConflict, mutates a copy and lands
+it with a compare-and-swap, so an injected or organic 409 leaves the store
+and the event stream as they were; and `bind_pod` consults the fault plan
+before it edits the stored pod.
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -47,6 +52,30 @@ class ConflictExhausted(Conflict):
 
 class NotFound(RuntimeError):
     pass
+
+
+# attempts of one retry_on_conflict call: the budget the HTTP client's
+# update() has had since the reference
+RETRY_ON_CONFLICT_ATTEMPTS = 4
+
+
+def conflict_exhausted(kind: str, name: str, err: Exception) -> ConflictExhausted:
+    """The typed error both backends raise when every attempt lost."""
+    exhausted = ConflictExhausted(f"{kind} {name!r}: conflict retries exhausted after {RETRY_ON_CONFLICT_ATTEMPTS} attempts")
+    exhausted.__cause__ = err
+    return exhausted
+
+
+def rebind(held, current) -> None:
+    """Give the caller's object the state of `current`, so a caller that
+    goes on with the object it passed sees what the store holds."""
+    if held is not None and held is not current:
+        vars(held).update(vars(current))
+
+
+def _unversioned(obj) -> tuple:
+    """What the store changes in place without a new resourceVersion."""
+    return obj.metadata.deletion_timestamp, tuple(obj.metadata.finalizers)
 
 
 def _key(obj) -> tuple:
@@ -108,6 +137,10 @@ class KubeCluster:
 
     def update(self, obj) -> object:
         self._chaos("update", obj.kind)
+        return self._write(obj)
+
+    def _write(self, obj) -> object:
+        """The unconditional store write behind update()."""
         with self._lock:
             store = self._objects.setdefault(obj.kind, {})
             key = _key(obj)
@@ -123,22 +156,93 @@ class KubeCluster:
         """Conditional update: the write only lands if obj carries the
         resourceVersion currently stored — the compare-and-swap primitive
         leader election requires. (Plain update() keeps last-write-wins.)"""
-        self._chaos("update_no_retry", obj.kind)
+        return self._compare_and_swap(obj, "update_no_retry")
+
+    def retry_on_conflict(
+        self,
+        kind: str,
+        name: str,
+        namespace: str,
+        mutate: Callable[[object], bool],
+        held=None,
+        copy_of: Callable[[object], object] = copy.deepcopy,
+    ):
+        """client-go's RetryOnConflict: apply `mutate` to a copy of the
+        object (`copy_of`, a deep copy unless the caller knows its edit
+        touches less) and write the copy only if the store still holds the
+        version it was taken from. The first attempt copies `held`, the
+        caller's object, when there is one, so a write that meets no
+        conflict reads nothing; every other attempt reads the object
+        anew. On a conflict it tries again, up to RETRY_ON_CONFLICT_ATTEMPTS
+        attempts, then raises ConflictExhausted. `mutate` returns False
+        when the object needs no write.
+
+        So a field another writer set in between survives, and a conflict
+        (an injected one included) leaves the stored object and the event
+        stream as they were. The write is a PUT on the wire, and the fault
+        plan sees it at the verb "update", as the apiserver does. The stored
+        object is updated in place, so whoever holds it sees the write;
+        `held` gets the state the store ends with. Returns the stored
+        object when a write landed, None when `mutate` declined."""
+        err: Optional[Conflict] = None
+        current = held
+        for _ in range(RETRY_ON_CONFLICT_ATTEMPTS):
+            if current is None:
+                current = self.get(kind, name, namespace)
+                if current is None:
+                    raise NotFound(f"{kind} {(namespace, name)} not found")
+            candidate = copy_of(current)
+            seen = _unversioned(candidate)
+            if not mutate(candidate):
+                rebind(held, current)
+                return None
+            try:
+                stored = self._compare_and_swap(candidate, "update", seen)
+            except Conflict as conflict:
+                err, current = conflict, None
+                continue
+            rebind(held, stored)
+            return stored
+        raise conflict_exhausted(kind, name, err)
+
+    def _compare_and_swap(self, obj, verb: str, seen: Optional[tuple] = None) -> object:
+        """The conditional write behind update_no_retry and
+        retry_on_conflict: `obj` lands only if the store still holds the
+        resourceVersion it carries; else a counted Conflict. A stale read's
+        copy (one version behind) loses here.
+
+        update_no_retry's `obj` replaces the stored object, and a
+        resourceVersion of 0 writes unconditionally. retry_on_conflict's
+        lands onto the stored object in place, and passes `seen`, the
+        deletion timestamp and finalizers of the copy it edited: delete()
+        and finalize() change those in place without a new resourceVersion,
+        so the write also loses when they moved, as it would against an
+        apiserver, and cannot undo a deletion."""
+        self._chaos(verb, obj.kind)
         with self._lock:
             store = self._objects.setdefault(obj.kind, {})
             key = _key(obj)
             current = store.get(key)
             if current is None:
                 raise NotFound(f"{obj.kind} {key} not found")
-            if obj.metadata.resource_version not in (0, current.metadata.resource_version):
-                KUBE_CONFLICTS.inc(kind=obj.kind, verb="update_no_retry")
+            version = obj.metadata.resource_version
+            if seen is None:
+                moved = version not in (0, current.metadata.resource_version)
+            else:
+                moved = version != current.metadata.resource_version or _unversioned(current) != seen
+            if moved:
+                KUBE_CONFLICTS.inc(kind=obj.kind, verb=verb)
                 raise Conflict(
-                    f"{obj.kind} {key}: stale resourceVersion {obj.metadata.resource_version} "
+                    f"{obj.kind} {key}: stale resourceVersion {version} "
                     f"(current {current.metadata.resource_version})"
                 )
             self._version += 1
             obj.metadata.resource_version = self._version
-            store[key] = obj
+            if seen is None:
+                store[key] = obj
+            else:
+                vars(current).update(vars(obj))
+                obj = current
         self._dispatch(obj.kind, WatchEvent(MODIFIED, obj))
         return obj
 
@@ -365,14 +469,17 @@ class KubeCluster:
 
     def bind_pod(self, pod: Pod, node_name: str) -> None:
         """Bind (schedule) a pod onto a node — the kube-scheduler's verb; the
-        test environment uses it the way expectations.ExpectScheduled does."""
+        test environment uses it the way expectations.ExpectScheduled does.
+        The fault plan is consulted before the pod is edited, so an injected
+        conflict leaves the stored pod and the event stream as they were."""
+        self._chaos("update", pod.kind)
         pod.spec.node_name = node_name
         pod.status.phase = "Running"
         # the authoritative bind instant (PodStatus.startTime): watchers
         # measure creation->bind off this stamp, not their dispatch time
         pod.status.start_time = self.clock.now()
         pod.status.conditions = [c for c in pod.status.conditions if c.type != "PodScheduled"]
-        self.update(pod)
+        self._write(pod)
 
     def evict_pod(self, pod: Pod) -> bool:
         """Eviction API: respects PDBs; returns False (429 analog) if a

@@ -118,8 +118,13 @@ _SOLVER_FAULT_KINDS = ("hbm", "device-lost", "compile")
 # only)
 _SOLVER_ENTRIES = ("plain", "sharded", "cuda")
 # (fault, verb, obj_kind) combos the kube draw picks from — each legal at
-# its verb per kube/chaos._FAULTS_BY_VERB, each absorbed by an existing
-# retry/relist path (the storms must stress, never wedge)
+# its verb per kube/chaos._FAULTS_BY_VERB (the storms must stress, never
+# wedge). A Node create conflict meets the provisioner's idempotent create;
+# a Node update conflict the controllers' retry_on_conflict, which re-reads
+# and re-applies its edit, and past its attempts leaves the node to the next
+# pass; a Pod update conflict the binder's next attempt (the stand-in's next
+# tick), with nothing of the bind stored; a stale read the conditional write
+# it makes lose, which reads again
 _KUBE_FAULT_COMBOS = (
     ("conflict", "create", "Node"),
     ("conflict", "update", "Node"),

@@ -3,6 +3,10 @@
 Equivalent of pkg/webhooks — in the in-memory API the admission chain runs
 synchronously inside create/update instead of over an HTTPS webhook, with the
 same two phases: defaulting first, then validation (rejection raises).
+
+The port's copy of karpenter_tpu/webhooks.py. The chain also admits the
+writes of the port's retry_on_conflict: its edit is admitted on each attempt
+before the write.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ def register(kube: KubeCluster, cloud_provider=None) -> None:
     kube._admission_registered = True
     kube._admission_provider = cloud_provider
     original_create, original_update = kube.create, kube.update
+    original_retry_on_conflict = kube.retry_on_conflict
 
     def _admit(obj):
         provider = kube._admission_provider
@@ -78,3 +83,14 @@ def register(kube: KubeCluster, cloud_provider=None) -> None:
 
     kube.create = admitted_create  # type: ignore[method-assign]
     kube.update = admitted_update  # type: ignore[method-assign]
+
+    def admitted_retry_on_conflict(kind, name, namespace, mutate, **kwargs):
+        def admitted(obj) -> bool:
+            if not mutate(obj):
+                return False
+            _admit(obj)
+            return True
+
+        return original_retry_on_conflict(kind, name, namespace, admitted, **kwargs)
+
+    kube.retry_on_conflict = admitted_retry_on_conflict  # type: ignore[method-assign]
