@@ -64,9 +64,9 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
   - consolidation through the disruption orchestrator
     (controllers/disruption/, controllers/consolidation/, with the node and
     termination controllers), at the same routing: consolidation_delete,
-    2,000 standing 16-CPU nodes each running 72 ReplicaSet-owned pods
-    (144,000 pods), where each pass's what-if fills one node's pods onto
-    the other 1,999 (K2) and the orchestrator deletes and drains it;
+    1,200 standing 16-CPU nodes each running 72 ReplicaSet-owned pods
+    (86,400 pods), where each pass's what-if fills one node's pods onto
+    the other 1,199 (K2) and the orchestrator deletes and drains it;
     consolidation_replace, 300 full nodes and one 64-CPU node running 72
     pods, whose what-if finds no slot (K2) and prices one cheaper node (K1),
     which the orchestrator launches, waits on and drains onto. A stand-in
@@ -140,23 +140,27 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     the same request over a gRPC loopback (service.server.serve() and
     service.client.SolverClient) and holds that plan and its kernel calls
     the same way;
-  - the wire (kube/apiserver.py, kube/client.py, kube/codec.py), at a
-    fifth of the headline's depth: runtime_round_http runs runtime_round's
-    cell, 2,000 pods on 60 standing nodes, with the Runtime on an
+  - the wire (kube/apiserver.py, kube/client.py, kube/codec.py), at the
+    headline's full width: runtime_round_http runs runtime_round's cell,
+    10,000 pods on 300 standing nodes x 500 types, with the Runtime on an
     HttpKubeClient (built by cmd/controller.build_kube_backend for
     --apiserver-url, 200 QPS / 300 burst) against an APIServer on
     127.0.0.1 in a child process, the standing nodes and the batch written
     in that process as other clients' writes; its LIST, watch delivery and
     node POSTs are measured, every K1/K2 call held, and the outcome must
     equal a provision_once() on an in-memory store of the same shape;
-    controller_process_http boots `python -m
-    karpenter_tpu_torch.cmd.controller --apiserver-url <url>` as a child
-    against an apiserver process, writes a 2,000-pod batch onto the empty
-    cluster (chip_process_http.py runs it at the headline's 10,000), times
-    the first pod
-    to the last Node the child POSTs, holds the node types against an
+    controller_process_http boots the entry point
+    (karpenter_tpu_torch.cmd.controller, run as `python -m` runs it, under
+    WIRE_COUNTED_CONTROLLER, which counts its client's requests) with
+    --apiserver-url as a child against an apiserver process, writes the
+    headline's 10,000 pods onto the empty cluster, times the first pod to
+    the last Node the child POSTs, holds the node types against an
     in-process solve (kernels and plain versions), and requires the Lease
-    released and exit code 0 on SIGTERM;
+    released and exit code 0 on SIGTERM. In both, the client's one shared
+    informer per kind feeds the round's topology reads (ROADMAP C2): the
+    provisioner thread sends at most 2 Pod LISTs a round (get_pods and the
+    cluster-sync check), none from the topology, and the server holds one
+    Pod and one Node watch stream of the client;
   - controller_restart_device_lost (ROADMAP C7): two controller processes
     in turn against an apiserver process. A real device-side assert on the
     card in the first one's K1 call ends its batch loop; it must exit
@@ -290,8 +294,14 @@ HOST_RATE_PODS = (100, 300)
 # the consolidation phases: (name, standing nodes, pods on each); the
 # replace cell's standing nodes are full and it adds one larger node (its
 # type, its pods). Pods of 0.1 CPU / 128Mi, ReplicaSet-owned and running;
-# nodes of 16 CPU / 32Gi / 110 pods (build_repack_state's fake-it-15)
-CONSOLIDATION_DELETE = ("consolidation_delete", 2000, 72)
+# nodes of 16 CPU / 32Gi / 110 pods (build_repack_state's fake-it-15). The
+# delete cell runs 1,200 of its 2,000 nodes: with the wire at the
+# headline's width the script took 1057.75 s of its 1200 s limit on an
+# NVIDIA H100 80GB HBM3 (700.00 W) machine, this cell 169.4 s of it, most
+# of that its two stores of 144,000 pods (70.23 s to build the kernel
+# run's); 1,200 nodes (86,400 pods) take about 68 s off, which brings that
+# run under 950 s
+CONSOLIDATION_DELETE = ("consolidation_delete", 1200, 72)
 CONSOLIDATION_REPLACE = ("consolidation_replace", 300, 110, "fake-it-63", 72)
 CONSOLIDATION_PASSES = 3
 CONSOLIDATION_POD = {"cpu": 0.1, "memory": "128Mi"}
@@ -457,14 +467,17 @@ SIDECAR_TRIALS = 3
 GRPC_TIMEOUT_S = 300.0
 # the wire (kube/apiserver.py, kube/client.py): runtime_round's cell over
 # HTTP, and a fresh controller process against an apiserver on an empty
-# cluster
-# the wire's two cells at a fifth of the headline's depth, the round on a
-# fifth of its standing nodes (the same pods per node): over HTTP each
-# topology LIST decodes every pod, so their wall grows with pods x groups;
-# each is held against an in-memory run of its own shape.
-# chip_process_http.py runs the fresh process at the headline's full depth
-RUNTIME_ROUND_HTTP = ("runtime_round_http", 2000, 60)
-CONTROLLER_PROCESS_HTTP = ("controller_process_http", 2000)
+# cluster, both at the headline's depth: the topology reads the client's
+# informer cache, so no LIST grows with pods x groups; each is held against
+# an in-memory run of its own shape
+RUNTIME_ROUND_HTTP = ("runtime_round_http", HEADLINE_PODS, 300)
+CONTROLLER_PROCESS_HTTP = ("controller_process_http", HEADLINE_PODS)
+# Pod LISTs the provisioner thread may send a round: get_pods and the
+# cluster-sync check (Cluster.synchronized)
+PROVISIONER_POD_LISTS_PER_ROUND = 2
+# how long the Node informer's store may take to hold every node the server
+# holds once the round is over (the stream decodes; no handler delays it)
+NODE_STORE_WAIT_S = 10.0
 # the kube fault domain (kube/chaos.py) on runtime_round's cell: conflicts
 # on the batch's binds (pod updates) and one stale read; the watch gap, its
 # compaction and the lease steal are the phase's actions
@@ -4561,9 +4574,6 @@ def instrument_wire(kube, recording) -> dict:
     thread (the round's get_pods) each request's wall and parsed body kept
     for its bytes, counted after the run. Its LISTs too: by thread, their
     count, items and wall (the request and the decode of every item)."""
-    from karpenter_tpu_torch.kube.codec import API_REGISTRY
-
-    plurals = {plural for _version, plural, _namespaced in API_REGISTRY.values()}
     rec = {"requests": {}, "requests_by_thread": {}, "lists_by_thread": {}, "node_posts_ms": [], "get_pods_requests": []}
     request, list_kind = kube._request, kube.list
 
@@ -4580,11 +4590,7 @@ def instrument_wire(kube, recording) -> dict:
         t0 = time.perf_counter()
         out = request(method, path, body)
         ms = (time.perf_counter() - t0) * 1e3
-        parts = [p for p in path.split("?")[0].split("/") if p]
-        resource = next((p for p in parts if p in plurals), "?")
-        if parts[-1] in ("binding", "eviction"):
-            resource += "/" + parts[-1]
-        key = f"{method} {resource}"
+        key = wire_request_key(method, path)
         rec["requests"][key] = rec["requests"].get(key, 0) + 1
         thread = threading.current_thread().name
         rec["requests_by_thread"][thread] = rec["requests_by_thread"].get(thread, 0) + 1
@@ -4598,6 +4604,102 @@ def instrument_wire(kube, recording) -> dict:
     return rec
 
 
+def wire_request_key(method: str, path: str) -> str:
+    """A request as "VERB resource" (a subresource after a slash)."""
+    from karpenter_tpu_torch.kube.codec import API_REGISTRY
+
+    plurals = {plural for _version, plural, _namespaced in API_REGISTRY.values()}
+    parts = [p for p in path.split("?")[0].split("/") if p]
+    resource = next((p for p in parts if p in plurals), "?")
+    if parts[-1] in ("binding", "eviction"):
+        resource += "/" + parts[-1]
+    return f"{method} {resource}"
+
+
+class WireCounts:
+    """The wire phases' counts for the shared informers' checks (ROADMAP
+    C2), installed on the classes, so that they count every HttpKubeClient
+    of the process: in this one (runtime_round_http) or in a controller
+    child (WIRE_COUNTED_CONTROLLER, which imports this module). LISTs by
+    thread and kind; the requests Topology._count_domains sends on its
+    thread, by verb and resource (a Node GET is a bound pod's node the Node
+    informer had not decoded yet); the provisioning rounds
+    (ProvisionerController.provision); and each client's informers' store
+    sizes. Install it before a client is built and uninstall() after."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.lists: dict = {}
+        self.topology_requests: dict = {}
+        self.rounds = 0
+        self.clients: list = []
+        self._undo: list = []
+
+    def install(self) -> "WireCounts":
+        from karpenter_tpu_torch.controllers.provisioning.provisioner import ProvisionerController
+        from karpenter_tpu_torch.kube.client import HttpKubeClient
+        from karpenter_tpu_torch.scheduler.topology import Topology
+
+        counts = self
+        init, list_kind, request = HttpKubeClient.__init__, HttpKubeClient.list, HttpKubeClient._request
+        count_domains, provision = Topology._count_domains, ProvisionerController.provision
+
+        def registered(client, *args, **kwargs):
+            init(client, *args, **kwargs)
+            with counts.lock:
+                counts.clients.append(client)
+
+        def counted_list(client, kind, namespace=None):
+            key = f"{threading.current_thread().name} {kind}"
+            with counts.lock:
+                counts.lists[key] = counts.lists.get(key, 0) + 1
+            return list_kind(client, kind, namespace)
+
+        def counted_request(client, method, path, body=None):
+            if getattr(counts.local, "topology", False):
+                key = wire_request_key(method, path)
+                with counts.lock:
+                    counts.topology_requests[key] = counts.topology_requests.get(key, 0) + 1
+            return request(client, method, path, body)
+
+        def flagged(topology, group):
+            counts.local.topology = True
+            try:
+                return count_domains(topology, group)
+            finally:
+                counts.local.topology = False
+
+        def counted_provision(controller):
+            with counts.lock:
+                counts.rounds += 1
+            return provision(controller)
+
+        self._undo = [
+            (HttpKubeClient, "__init__", init), (HttpKubeClient, "list", list_kind), (HttpKubeClient, "_request", request),
+            (Topology, "_count_domains", count_domains), (ProvisionerController, "provision", provision),
+        ]
+        HttpKubeClient.__init__, HttpKubeClient.list, HttpKubeClient._request = registered, counted_list, counted_request
+        Topology._count_domains, ProvisionerController.provision = flagged, counted_provision
+        return self
+
+    def uninstall(self) -> None:
+        for cls, attr, original in self._undo:
+            setattr(cls, attr, original)
+        self._undo = []
+
+    def report(self) -> dict:
+        with self.lock:
+            return {
+                "rounds": self.rounds,
+                "lists": dict(sorted(self.lists.items())),
+                "topology_requests": dict(sorted(self.topology_requests.items())),
+                "stores": [
+                    {kind: len(informer.store) for kind, informer in sorted(client._informers.items())} for client in self.clients
+                ],
+            }
+
+
 # an APIServer in a process of its own for runtime_round_http, driven over
 # its stdin: one JSON line answers each command
 APISERVER_CHILD = r"""
@@ -4608,8 +4710,8 @@ from karpenter_tpu_torch.api.objects import NodeCondition
 from karpenter_tpu_torch.kube.codec import API_REGISTRY, from_wire, to_wire
 
 srv = APIServer().start()
-create = srv.state.create
-node_times = []
+create, subscribe = srv.state.create, srv.state.subscribe
+node_times, subscribed = [], {}
 
 
 def timed_create(kind, namespace, wire):
@@ -4620,6 +4722,15 @@ def timed_create(kind, namespace, wire):
 
 
 srv.state.create = timed_create
+
+
+def counted_subscribe(kind, since_rv):
+    out = subscribe(kind, since_rv)
+    subscribed[kind] = subscribed.get(kind, 0) + 1
+    return out
+
+
+srv.state.subscribe = counted_subscribe
 
 
 class Writer:
@@ -4674,6 +4785,12 @@ for line in sys.stdin:
         print(json.dumps({"nodes": len(placed), "marked_ready": marked, "pods": sum(len(p) for _n, p in placed)}), flush=True)
     elif cmd == "report":
         print(json.dumps({"node_times": node_times}), flush=True)
+    elif cmd == "watches":
+        # watch streams by kind: accepted since the start, and open now
+        live = {}
+        for kind, _q in list(srv.state._watchers):
+            live[kind] = live.get(kind, 0) + 1
+        print(json.dumps({"opened": subscribed, "live": live}), flush=True)
     elif cmd == "stop":
         srv.state.chaos_kill_watches()
         srv.stop()
@@ -4724,7 +4841,7 @@ class APIServerChild:
 
 def runtime_round_http(dev, card_name) -> dict:
     """runtime_round's cell over the wire, at RUNTIME_ROUND_HTTP's depth
-    (2,000 pods on 60 standing nodes: the headline's pods per node): an
+    (the headline's 10,000 pods on 300 standing nodes x 500 types): an
     APIServer (kube/apiserver.py) on 127.0.0.1 in a process of its own
     (APIServerChild) holds the standing nodes and the provisioner, written
     as other clients' writes;
@@ -4743,7 +4860,10 @@ def runtime_round_http(dev, card_name) -> dict:
     provision_once() on an in-memory store built the same way, at the
     Runtime's measured min_batch; no node over capacity; after stop() the Runtime's threads end, the Lease
     is released in the server, and the client's watch threads end with the
-    server."""
+    server. The client's shared informers (ROADMAP C2), counted by
+    WireCounts: check_informer_reads, and the Pod and Node stores holding
+    what the server holds (the Node store given NODE_STORE_WAIT_S to take in
+    the last launches, its wait reported)."""
     from collections import Counter
     from types import SimpleNamespace
 
@@ -4757,6 +4877,7 @@ def runtime_round_http(dev, card_name) -> dict:
     name, pods_n, standing = RUNTIME_ROUND_HTTP
     server = APIServerChild()
     kube = rt = reader = None
+    counts = WireCounts().install()
     try:
         server.command("standing", standing)
         server.command("provisioner")
@@ -4822,7 +4943,16 @@ def runtime_round_http(dev, card_name) -> dict:
         alive = [t.name for t in rt.threads() if t.is_alive()]
         released, holds, got = runtime_reads(rt, reader, run, catalog, dev)
         node_times = [clocks["perf0"] + (w - clocks["wall0"]) for w in server.command("report")["node_times"]]
+        watches = server.command("watches")
+        server_nodes = len(reader.list_nodes())
+        t_nodes = time.perf_counter()
+        while len(kube._informers["Node"].store) != server_nodes and time.perf_counter() - t_nodes < NODE_STORE_WAIT_S:
+            time.sleep(0.01)
+        node_store_wait_ms = (time.perf_counter() - t_nodes) * 1e3
+        wire_counts = counts.report()
+        stores = {kind: len(informer.store) for kind, informer in sorted(kube._informers.items())}
     finally:
+        counts.uninstall()
         for client in (kube, reader):
             if client is not None:
                 client.stop()
@@ -4893,6 +5023,14 @@ def runtime_round_http(dev, card_name) -> dict:
         "requests": dict(sorted(wire["requests"].items())),
         "requests_by_thread": dict(sorted(wire["requests_by_thread"].items())),
         "lists_by_thread": dict(sorted(wire["lists_by_thread"].items())),
+        "lists_by_thread_and_kind": wire_counts["lists"],
+        "provisioner_rounds": wire_counts["rounds"],
+        "provisioner_pod_lists": wire_counts["lists"].get("provisioner Pod", 0),
+        "topology_requests": wire_counts["topology_requests"],
+        "watch_streams": watches,
+        "informer_store_sizes": stores,
+        "server_nodes": server_nodes,
+        "node_store_wait_ms": node_store_wait_ms,
         "nominated": len(nominated & names),
         "nodes_launched": len(got["launched"]),
         "launched_types": launched_types,
@@ -4926,7 +5064,24 @@ def runtime_round_http(dev, card_name) -> dict:
     check(not alive, f"{name}: threads alive {THREAD_JOIN_DEADLINE_S} s after stop(): {alive}")
     check(released, f"{name}: the Lease was not released in the server")
     check(not watch_alive and server.proc.returncode == 0, f"{name}: watch threads alive after the server stopped: {watch_alive}; server exit {server.proc.returncode}")
+    check_informer_reads(name, wire_counts, watches)
+    check(stores.get("Pod") == pods_n, f"{name}: the Pod informer's store holds {stores.get('Pod')} pods, the server {pods_n}")
+    check(stores.get("Node") == server_nodes, f"{name}: the Node informer's store holds {stores.get('Node')} nodes {NODE_STORE_WAIT_S} s after the round, the server {server_nodes}")
     return line
+
+
+def check_informer_reads(name: str, counts: dict, watches: dict) -> None:
+    """The shared informers' checks of a wire phase (ROADMAP C2), on a
+    WireCounts report: at most PROVISIONER_POD_LISTS_PER_ROUND Pod LISTs
+    from the provisioner thread a round, no Pod LIST from the topology's
+    domain counting (a Node GET there reads a node the cache lacked), and
+    one Pod and one Node watch stream of the client open at the server."""
+    rounds, pod_lists = counts["rounds"], counts["lists"].get("provisioner Pod", 0)
+    check(rounds >= 1 and pod_lists <= PROVISIONER_POD_LISTS_PER_ROUND * rounds, f"{name}: the provisioner thread sent {pod_lists} Pod LISTs in {rounds} rounds")
+    topology = counts["topology_requests"]
+    check(not any(key.endswith(" pods") for key in topology), f"{name}: the topology's domain counting sent {topology}")
+    live = watches.get("live", {})
+    check(live.get("Pod") == 1 and live.get("Node") == 1, f"{name}: watch streams open at the server: {live}")
 
 
 def expected_node_types(results, provider=None, created=None) -> dict:
@@ -5011,14 +5166,33 @@ def in_process_solve(dev, pods, plain: bool, provisioners=None, provider=None, k
     return record, results
 
 
+# the entry point as `python -m karpenter_tpu_torch.cmd.controller` runs it
+# (runpy, the arguments after the first, which names this script's
+# directory), counted by this module's WireCounts; one JSON line on stdout
+# when it exits
+WIRE_COUNTED_CONTROLLER = r"""
+import json, runpy, sys
+sys.path.insert(0, sys.argv.pop(1))
+import chip_smoke
+counts = chip_smoke.WireCounts().install()
+sys.argv = ["karpenter_tpu_torch.cmd.controller"] + sys.argv[1:]
+try:
+    runpy.run_module("karpenter_tpu_torch.cmd.controller", run_name="__main__", alter_sys=True)
+finally:
+    print(json.dumps({"wire": counts.report()}), flush=True)
+"""
+
+
 def controller_process_http(dev, card_name, command=None, pods_n=None) -> dict:
     """A fresh controller process against an apiserver: an APIServer on
-    127.0.0.1 in a process of its own (APIServerChild), and `python -m
-    karpenter_tpu_torch.cmd.controller --apiserver-url <url>
-    --health-probe-port <free>` (or `command`) as a child on the card. Boot:
+    127.0.0.1 in a process of its own (APIServerChild), and the entry point
+    with `--apiserver-url <url> --health-probe-port <free>` as a child on the
+    card: by default `karpenter_tpu_torch.cmd.controller` under
+    WIRE_COUNTED_CONTROLLER, which runs it as `python -m` does and counts its
+    client's requests, or `command`. Boot:
     spawn to both probes answering 200. Then the server writes the default
     provisioner and build_workload(pods_n) (default: CONTROLLER_PROCESS_HTTP's
-    2,000 pods) onto the empty cluster, so every pod lands on a new node (K1
+    10,000 pods) onto the empty cluster, so every pod lands on a new node (K1
     in the child, no K2). Measured: the
     first pod created to the last Node the child POSTs (its first round,
     the crossover measured at boot), the Node count, and SIGTERM to exit 0.
@@ -5029,8 +5203,10 @@ def controller_process_http(dev, card_name, command=None, pods_n=None) -> dict:
     node-count guard's fail-opens to the host loop recorded) and with the
     plain versions, whose new nodes fit their types; the child's log
     shows one provisioned batch of every pod with none unschedulable and
-    its solver on the card; the Lease is released in the server. The child
-    is killed and the server stopped on any failure."""
+    its solver on the card; the Lease is released in the server. Under
+    WIRE_COUNTED_CONTROLLER, the shared informers' checks
+    (check_informer_reads) and the Pod informer's store holding every pod.
+    The child is killed and the server stopped on any failure."""
     import signal
 
     from karpenter_tpu_torch import testing
@@ -5050,18 +5226,24 @@ def controller_process_http(dev, card_name, command=None, pods_n=None) -> dict:
     server = APIServerChild()
     reader = HttpKubeClient(server.url, qps=1e9, burst=10**9)  # the checks' reads
     port = free_port()
-    argv = list(command or CONTROLLER_COMMAND) + ["--apiserver-url", server.url, "--health-probe-port", str(port), "--log-level", "info"]
+    counted = command is None
+    head = [sys.executable, "-c", WIRE_COUNTED_CONTROLLER, ROOT] if counted else list(command)
+    argv = head + ["--apiserver-url", server.url, "--health-probe-port", str(port), "--log-level", "info"]
     lines: list = []
-    proc = log_reader = None
+    out_lines: list = []
+    watches = {}
+    proc = log_reader = out_reader = None
     ready_ms = shutdown_ms = t_first = created = None
     node_times, nodes = [], []
     released = False
     try:
         server.command("build", pods_n, "cph")
         t0 = time.perf_counter()
-        proc = subprocess.Popen(argv, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         log_reader = threading.Thread(target=lambda: lines.extend(proc.stderr), daemon=True)
         log_reader.start()
+        out_reader = threading.Thread(target=lambda: out_lines.extend(proc.stdout), daemon=True)
+        out_reader.start()
         deadline = t0 + BOOT_DEADLINE_S
         while time.perf_counter() < deadline and proc.poll() is None:
             if probe_status(port, "/healthz") == 200 and probe_status(port, "/readyz") == 200:
@@ -5083,6 +5265,7 @@ def controller_process_http(dev, card_name, command=None, pods_n=None) -> dict:
                     break
                 time.sleep(0.25)
             nodes = reader.list_nodes()
+            watches = server.command("watches")
             t1 = time.perf_counter()
             proc.send_signal(signal.SIGTERM)
             try:
@@ -5095,8 +5278,9 @@ def controller_process_http(dev, card_name, command=None, pods_n=None) -> dict:
         if proc is not None and proc.poll() is None:
             proc.kill()
             proc.wait()
-        if log_reader is not None:
-            log_reader.join(timeout=10)
+        for stream_reader in (log_reader, out_reader):
+            if stream_reader is not None:
+                stream_reader.join(timeout=10)
         reader.stop()
         server.stop()
     from collections import Counter
@@ -5104,6 +5288,7 @@ def controller_process_http(dev, card_name, command=None, pods_n=None) -> dict:
     from karpenter_tpu_torch.api import labels as lbl
 
     log = "".join(lines)
+    counts = next((json.loads(s)["wire"] for s in out_lines if s.startswith('{"wire"')), None)
     batches = [
         {"pods": int(m.group(1)), "new_nodes": int(m.group(2)), "launched": int(m.group(3)), "on_existing": int(m.group(4)), "unschedulable": int(m.group(5)), "ms": int(m.group(6))}
         for m in re.finditer(r"provisioned batch: (\d+) pods -> (\d+) new nodes \((\d+) launched\), (\d+) on existing, (\d+) unschedulable in (\d+) ms", log)
@@ -5115,7 +5300,7 @@ def controller_process_http(dev, card_name, command=None, pods_n=None) -> dict:
         "phase": "controller_process_http",
         "config": name,
         "card": card_name,
-        "command": argv,
+        "command": ([sys.executable, "-c", "chip_smoke.WIRE_COUNTED_CONTROLLER", ROOT] if counted else head) + argv[len(head):],
         "pods": pods_n,
         "types": len(default_instance_types()),
         "boot_to_ready_ms": ready_ms,
@@ -5133,6 +5318,13 @@ def controller_process_http(dev, card_name, command=None, pods_n=None) -> dict:
         "lease_released": released,
         "in_process": {"kernels": kernels_solve, "plain": plain_solve_rec},
         "kernel_launches": "in the child (K1's probe at boot, K1 in the round), whose counts this process cannot read",
+        "provisioner_rounds": counts["rounds"] if counts else None,
+        "provisioner_pod_lists": counts["lists"].get("provisioner Pod", 0) if counts else None,
+        "lists_by_thread_and_kind": counts["lists"] if counts else None,
+        "topology_requests": counts["topology_requests"] if counts else None,
+        "watch_streams": watches,
+        "informer_store_sizes": counts["stores"] if counts else None,
+        "server_nodes": len(nodes),
         "log_tail": log.splitlines()[-12:],
         # every line of the child's log above info level: warnings, errors and tracebacks
         "log_problems": [s for s in log.splitlines() if s.strip() and not INFO_LINE.match(s)][:LOG_PROBLEMS_KEPT],
@@ -5153,6 +5345,12 @@ def controller_process_http(dev, card_name, command=None, pods_n=None) -> dict:
     check(child_types == kernels_solve["types"], f"{name}: the child launched {child_types}, the in-process solve {kernels_solve['types']}")
     check(released, f"{name}: the Lease was not released in the server")
     check(shutdown_ms is not None and proc.returncode == 0, f"{name}: exit code {proc.returncode} after SIGTERM")
+    if counted:
+        check(counts is not None, f"{name}: the child printed no request counts")
+        check_informer_reads(name, counts, watches)
+        stores = counts["stores"]
+        check(any(sizes.get("Pod") == pods_n for sizes in stores), f"{name}: no informer's store holds the {pods_n} pods: {stores}")
+        check(any(sizes.get("Node") == len(nodes) for sizes in stores), f"{name}: no informer's store holds the server's {len(nodes)} nodes at exit: {stores}")
     return line
 
 

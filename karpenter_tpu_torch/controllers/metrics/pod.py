@@ -12,6 +12,10 @@ nodeSelector (controller.go:179-190). Startup time is observed once per pod
 when it first leaves Pending for Running (the pendingPods set semantics;
 this scrape-driven port measures against the clock rather than the Ready
 condition's transition time, which the simulation does not carry).
+
+A scrape reads the pods and their nodes from the kube client's informer
+cache (`cached_pods`, `cached_node`), as Karpenter's controller reads
+controller-runtime's cached client: over HTTP a scrape sends no request.
 """
 
 from __future__ import annotations
@@ -69,7 +73,7 @@ class PodMetricsController:
             "node": pod.spec.node_name or "",
             "phase": pod.status.phase,
         }
-        node = self.kube.get_node(pod.spec.node_name) if pod.spec.node_name else None
+        node = self.kube.cached_node(pod.spec.node_name) if pod.spec.node_name else None
         if node is None:
             values["zone"] = NOT_APPLICABLE
             values["arch"] = NOT_APPLICABLE
@@ -90,7 +94,7 @@ class PodMetricsController:
     def scrape(self) -> None:
         self.gauge.clear()
         live: set = set()
-        for pod in self.kube.list_pods():
+        for pod in self.kube.cached_pods():
             live.add(pod.uid)
             self.gauge.set(1, **self._labels(pod))
             # pendingPods semantics (controller.go:145-152): observe startup

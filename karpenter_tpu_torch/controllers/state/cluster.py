@@ -149,7 +149,10 @@ class Cluster:
         # its own LEAF lock (ir/delta.py) — recording under self._lock is
         # the intended pattern, never the other order
         self.delta_journal = ir_delta.DeltaJournal()
-        kube.watch("Node", self._on_node_event)
+        # its own copy of each node: a StateNode's node is handed to
+        # retry_on_conflict(held=...) and delete(), which write back into it,
+        # and over HTTP the event's object is the informer's, shared
+        kube.watch("Node", self._on_node_event, own_copy=True)
         kube.watch("Pod", self._on_pod_event)
 
     def detach(self) -> None:

@@ -1,6 +1,12 @@
 """Kube control-plane fault domain: deterministic API chaos + conflict accounting.
 
-The port's copy of karpenter_tpu/kube/chaos.py.
+The port's copy of karpenter_tpu/kube/chaos.py. Over HTTP the port's client
+keeps one shared informer per kind (kube/client.py), so two things differ
+from the reference's transport: a "watch" fault is consulted once per
+informer stream, not once per watch() call, and the topology's and the pod
+scraper's reads come from the informer's store and send no request, so no
+fault plan reaches them there. In memory they still read the store through
+`list_pods` and `get_node`, where a "get" fault is consulted as before.
 
 The cloud provider has a typed fault domain and the solver has its own
 (`solver/faults.py`); this module is the third leg — the Kubernetes API

@@ -17,12 +17,28 @@ the reference builds on (controllers.go:86-165):
 
 Every verb serializes through kube/codec.py, so state observed by
 controllers is always a decoded wire copy — reference semantics, where
-mutating a local object never changes the cluster until written back.
+mutating a local object never changes the cluster until written back. A
+watch event's object and a cached read's are the informer's own, shared by
+every handler and reader of the kind, which must not edit them; a handler
+whose objects its callers later edit (the state Cluster's Node handler,
+whose nodes retry_on_conflict and delete write back into) asks watch() for
+its own copy of each.
 
-The port's copy of karpenter_tpu/kube/client.py, with one addition:
-`retry_on_conflict`, client-go's RetryOnConflict, which re-reads the object
-and re-applies the caller's edit after a 409 instead of resending a stale
-object (update() keeps the reference's refresh-and-resend).
+The port's copy of karpenter_tpu/kube/client.py, with two additions:
+
+  - `retry_on_conflict`, client-go's RetryOnConflict, which re-reads the
+    object and re-applies the caller's edit after a 409 instead of
+    resending a stale object (update() keeps the reference's
+    refresh-and-resend);
+  - one shared informer per kind, client-go's SharedIndexInformer: the
+    first watch() of a kind starts its one ListAndWatch stream, and every
+    later watch() of that kind joins it, so an event is decoded once for
+    all handlers. Each handler has a queue and a thread of its own
+    (client-go's processorListener), so the store never waits on a slow
+    handler. The informer's store, indexed by namespace and name, is
+    what `cached_pods` and `cached_node` read, with no request, once its
+    first LIST is in (client-go's HasSynced). The reference opens a stream
+    per watch() and sends a LIST for every list.
 """
 
 from __future__ import annotations
@@ -30,6 +46,7 @@ from __future__ import annotations
 import copy
 import http.client
 import json
+import queue
 import random
 import threading
 from typing import Callable, Dict, List, Optional
@@ -63,6 +80,164 @@ DEFAULT_BURST = 300  # options.go:66
 # thundering-herded by every informer reconnecting on the same tick
 WATCH_BACKOFF_BASE = 0.05
 WATCH_BACKOFF_CAP = 2.0
+
+# how long a cached read waits for its informer's first LIST (client-go's
+# WaitForCacheSync) before it raises CacheNotSynced
+CACHE_SYNC_TIMEOUT = 30.0
+CACHE_SYNC_POLL = 0.05  # how often the wait looks at the client's stop flag
+
+
+class CacheNotSynced(TimeoutError):
+    """A cached read's informer had no complete LIST in its store by the
+    deadline, or the client was stopped first. The read sends no request in
+    its place."""
+
+
+class _Listener:
+    """One handler of a shared informer, with a queue and a thread of its
+    own (client-go's processorListener): the stream puts each event in every
+    listener's queue and reads on, so a slow handler delays only its own
+    deliveries, never the store or the other handlers. With `own_copy` the
+    handler gets a deep copy of each event's object, for a handler whose
+    objects its callers later edit."""
+
+    def __init__(self, kind: str, handler: Callable[[WatchEvent], None], replay: bool, own_copy: bool, index: int):
+        self.kind = kind
+        self.handler = handler
+        self.replay = replay
+        self.own_copy = own_copy
+        self.queue: "queue.SimpleQueue" = queue.SimpleQueue()
+        self.stopped = False
+        self.errors = 0
+        self.thread = threading.Thread(target=self._run, daemon=True, name=f"watch-{kind.lower()}-handler-{index}")
+
+    def stop(self) -> None:
+        """Deliver nothing more; the thread ends at its next event."""
+        self.stopped = True
+        self.queue.put(None)
+
+    def _run(self) -> None:
+        while True:
+            event = self.queue.get()
+            if event is None or self.stopped:
+                return
+            if self.own_copy:
+                event = WatchEvent(event.type, copy.deepcopy(event.obj))
+            # a handler that raises misses only this event: the stream, the
+            # store and every other handler go on as if it had returned
+            try:
+                self.handler(event)
+            except Exception:  # noqa: BLE001 - one handler's fault must not relist for all
+                self.errors += 1
+                log.exception("watch %s: a handler raised on %s %s", self.kind, event.type, event.obj.metadata.name)
+
+
+class _Informer:
+    """One kind's shared informer (client-go's SharedIndexInformer): one
+    ListAndWatch loop on a daemon thread, the store it keeps, and the
+    handlers it feeds, each through a _Listener.
+
+    The store maps (namespace, name) to the last object decoded, as
+    client-go's store keys by namespace/name, with an index by namespace.
+    `lock` guards the two and the listeners: an event goes into the store
+    and into every listener's queue under it, and a late handler's replay
+    of the store is queued under it, so every handler sees the store's
+    objects and then each later event, in order, once; a read copies out
+    what it needs under it. The store runs ahead of the handlers, never
+    behind them."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self.namespaced = API_REGISTRY[kind][2]
+        self.lock = threading.Lock()
+        self.store: Dict[tuple, object] = {}
+        self.by_namespace: Dict[str, Dict[str, object]] = {}
+        self.listeners: List[_Listener] = []
+        self.synced = threading.Event()
+        self._added = 0  # listeners ever added: their threads' names
+
+    @property
+    def handler_errors(self) -> int:
+        return sum(listener.errors for listener in self.listeners)
+
+    def _name_key(self, obj) -> tuple:
+        return (obj.metadata.namespace if self.namespaced else "", obj.metadata.name)
+
+    def _put(self, obj) -> None:
+        self.store[self._name_key(obj)] = obj
+        self.by_namespace.setdefault(obj.metadata.namespace, {})[obj.metadata.name] = obj
+
+    def _drop(self, obj) -> None:
+        # the delete of an object a recreate under its name has replaced
+        # leaves the new one
+        key = self._name_key(obj)
+        held = self.store.get(key)
+        if held is None or held.metadata.uid != obj.metadata.uid:
+            return
+        del self.store[key]
+        members = self.by_namespace[held.metadata.namespace]
+        del members[held.metadata.name]
+        if not members:
+            del self.by_namespace[held.metadata.namespace]
+
+    def add(self, handler: Callable[[WatchEvent], None], replay: bool, own_copy: bool) -> None:
+        """Register a handler; with `replay`, a synced store's objects reach
+        it as ADDED first (an unsynced store's come with its first LIST)."""
+        with self.lock:
+            self._added += 1
+            listener = _Listener(self.kind, handler, replay, own_copy, self._added)
+            if replay and self.synced.is_set():
+                for obj in self.store.values():
+                    listener.queue.put(WatchEvent(ADDED, obj))
+            self.listeners = self.listeners + [listener]
+            listener.thread.start()
+
+    def remove(self, handler: Callable[[WatchEvent], None]) -> None:
+        """Stop and drop the handler's registrations, matched by identity,
+        as the reference's unwatch does."""
+        with self.lock:
+            gone = [listener for listener in self.listeners if listener.handler is handler]
+            self.listeners = [listener for listener in self.listeners if listener.handler is not handler]
+        for listener in gone:
+            listener.stop()
+
+    def stop(self) -> None:
+        with self.lock:
+            listeners = self.listeners
+        for listener in listeners:
+            listener.stop()
+
+    def resync(self, listed: List[object], first: bool) -> None:
+        """Put a LIST in the store. The first goes to the handlers that
+        asked for a replay, as ADDED; a relist (after a 410 gap) goes to
+        every handler as the diff against the store by uid, as the
+        reference's informer diffs: ADDED, MODIFIED, and DELETED for an
+        object the gap hid the delete of."""
+        with self.lock:
+            previous = {obj.metadata.uid: obj for obj in self.store.values()}
+            current = {obj.metadata.uid for obj in listed}
+            self.store, self.by_namespace = {}, {}
+            for obj in listed:
+                self._put(obj)
+            events = [WatchEvent(ADDED if first or obj.metadata.uid not in previous else MODIFIED, obj) for obj in listed]
+            if not first:
+                events += [WatchEvent(DELETED, obj) for uid, obj in previous.items() if uid not in current]
+            for listener in self.listeners:
+                if listener.replay or not first:
+                    for event in events:
+                        listener.queue.put(event)
+            self.synced.set()
+
+    def apply(self, event: WatchEvent) -> None:
+        """One streamed event: into the store, then into every handler's
+        queue."""
+        with self.lock:
+            if event.type == DELETED:
+                self._drop(event.obj)
+            else:
+                self._put(event.obj)
+            for listener in self.listeners:
+                listener.queue.put(event)
 
 
 class TokenBucket:
@@ -131,8 +306,9 @@ class HttpKubeClient:
         # same default as KubeCluster: consumers dereference kube.clock.now()
         self.clock = clock or Clock()
         self._limiter = TokenBucket(qps, burst, clock=self.clock)
-        self._watch_threads: List[threading.Thread] = []
-        self._watch_cancels: List[tuple] = []  # (kind, handler, cancel Event)
+        self._watch_threads: List[threading.Thread] = []  # one per informer
+        self._informers: Dict[str, _Informer] = {}
+        self._informers_lock = threading.Lock()
         self._stop = threading.Event()
         self._local = threading.local()  # per-thread persistent connection
         # seeded per client: the jitter must differ BETWEEN informers of one
@@ -362,67 +538,67 @@ class HttpKubeClient:
             items = [o for o in items if o.metadata.namespace == namespace]
         return items
 
-    # -- watches (ListAndWatch informer) -------------------------------------
+    # -- watches (one shared ListAndWatch informer per kind) ------------------
 
-    def watch(self, kind: str, handler: Callable[[WatchEvent], None], replay: bool = True) -> None:
-        cancel = threading.Event()
-        thread = threading.Thread(
-            target=self._watch_loop, args=(kind, handler, replay, cancel), daemon=True, name=f"watch-{kind.lower()}"
-        )
-        self._watch_threads.append(thread)
-        self._watch_cancels.append((kind, handler, cancel))
-        thread.start()
+    def _informer(self, kind: str) -> _Informer:
+        """The kind's informer, started by its first user; it runs until
+        stop()."""
+        with self._informers_lock:
+            informer = self._informers.get(kind)
+            if informer is None:
+                informer = self._informers[kind] = _Informer(kind)
+                thread = threading.Thread(target=self._watch_loop, args=(informer,), daemon=True, name=f"watch-{kind.lower()}")
+                self._watch_threads.append(thread)
+                thread.start()
+        return informer
+
+    def watch(self, kind: str, handler: Callable[[WatchEvent], None], replay: bool = True, own_copy: bool = False) -> None:
+        """Join the kind's shared informer: `handler` gets each event on a
+        thread of its own, after the store's objects as ADDED with `replay`.
+        Event objects are the informer's, shared with every handler and
+        cached read of the kind; with `own_copy` the handler gets a deep
+        copy of each instead, for objects its callers later edit."""
+        self._informer(kind).add(handler, replay, own_copy)
 
     def watcher_count(self) -> int:
-        """Live (un-cancelled) watch registrations — the KubeCluster parity
-        seam for the invariant monitor's leaked-watch witness."""
-        return len(self._watch_cancels)
+        """Live (un-cancelled) watch registrations, not streams — the
+        KubeCluster parity seam for the invariant monitor's leaked-watch
+        witness."""
+        with self._informers_lock:
+            informers = list(self._informers.values())
+        return sum(len(informer.listeners) for informer in informers)
 
     def unwatch(self, kind: str, handler: Callable[[WatchEvent], None]) -> None:
-        """Cancel the watch registered for (kind, handler): the informer
-        loop exits at its next reconnect/poll boundary. The KubeCluster
+        """Cancel the watch registered for (kind, handler), matched by
+        identity; the kind's informer and its store go on. The KubeCluster
         parity seam a stopped/crashed Runtime uses to detach its caches."""
-        for entry in list(self._watch_cancels):
-            if entry[0] == kind and entry[1] is handler:
-                entry[2].set()
-                self._watch_cancels.remove(entry)
+        with self._informers_lock:
+            informer = self._informers.get(kind)
+        if informer is not None:
+            informer.remove(handler)
 
-    def _watch_loop(self, kind: str, handler: Callable[[WatchEvent], None], replay: bool, cancel=None) -> None:
-        known: Dict[str, object] = {}  # uid -> last object delivered to the handler
+    def _watch_loop(self, informer: _Informer) -> None:
+        kind = informer.kind
         rv = 0
         first = True
         attempt = 0  # consecutive reconnect failures (resets on a healthy stream)
-        while not self._stop.is_set() and not (cancel is not None and cancel.is_set()):
+        while not self._stop.is_set():
             try:
-                if first or rv == 0:
+                if rv == 0:
                     # list to (re)sync, then stream from the list version
                     out = self._request("GET", rest_path(kind))
                     rv = int(out.get("metadata", {}).get("resourceVersion") or 0)
-                    current = {}
-                    for w in out.get("items", []):
-                        o = from_wire(w, kind)
-                        current[o.metadata.uid] = o
-                    if replay or not first:
-                        # informer resync: a 410 gap can hide adds, updates,
-                        # AND deletes — diff against delivered state so a
-                        # deleted object still surfaces as DELETED instead of
-                        # living on as a ghost in the handler's cache
-                        for uid, o in current.items():
-                            handler(WatchEvent(ADDED if uid not in known else MODIFIED, o))
-                        for uid, o in known.items():
-                            if uid not in current:
-                                handler(WatchEvent(DELETED, o))
+                    informer.resync([from_wire(w, kind) for w in out.get("items", [])], first)
                     if not first:
                         from ..journal import JOURNAL
 
                         if JOURNAL.enabled:
                             JOURNAL.kube_event(f"watch-{kind.lower()}", "relist", transport="http")
-                    known = current
                     first = False
-                rv = self._stream(kind, rv, handler, known, cancel)
+                rv = self._stream(informer, rv)
                 attempt = 0  # the stream served (or closed cleanly): healthy
             except Exception as exc:  # noqa: BLE001 - reconnect like an informer
-                if self._stop.is_set() or (cancel is not None and cancel.is_set()):
+                if self._stop.is_set():
                     return
                 # full-jitter backoff (the apiclient retry idiom): every
                 # informer of every replica reconnecting to a restarted
@@ -432,7 +608,8 @@ class HttpKubeClient:
                 log.debug("watch %s: reconnecting after %s (attempt %d)", kind, exc, attempt)
                 self.clock.sleep(self._watch_rng.uniform(0.0, cap))
 
-    def _stream(self, kind: str, rv: int, handler: Callable[[WatchEvent], None], known: Dict[str, object], cancel=None) -> int:
+    def _stream(self, informer: _Informer, rv: int) -> int:
+        kind = informer.kind
         conn = self._new_connection(timeout=300)
         try:
             conn.request("GET", rest_path(kind) + f"?watch=true&resourceVersion={rv}", headers=self._auth_headers())
@@ -441,7 +618,7 @@ class HttpKubeClient:
                 return 0  # journal compacted: relist
             if resp.status >= 400:
                 raise ApiStatusError(resp.status, {})
-            while not self._stop.is_set() and not (cancel is not None and cancel.is_set()):
+            while not self._stop.is_set():
                 line = resp.readline()
                 if not line:
                     return rv  # server closed: reconnect from rv
@@ -451,18 +628,51 @@ class HttpKubeClient:
                 event = json.loads(line)
                 wire = event["object"]
                 rv = int(wire.get("metadata", {}).get("resourceVersion") or rv)
-                o = from_wire(wire, kind)
-                if event["type"] == DELETED:
-                    known.pop(o.metadata.uid, None)
-                else:
-                    known[o.metadata.uid] = o
-                handler(WatchEvent(event["type"], o))
+                informer.apply(WatchEvent(event["type"], from_wire(wire, kind)))
             return rv
         finally:
             conn.close()
 
+    # -- cached reads (the informer's store; no request) ----------------------
+
+    def _synced(self, kind: str) -> _Informer:
+        """The kind's informer once its first LIST is in the store,
+        starting it if none runs. Waits up to CACHE_SYNC_TIMEOUT seconds,
+        then raises CacheNotSynced; never sends a request in its place."""
+        informer = self._informer(kind)
+        waited = 0.0
+        while not informer.synced.wait(CACHE_SYNC_POLL):
+            waited += CACHE_SYNC_POLL
+            if self._stop.is_set() or waited >= CACHE_SYNC_TIMEOUT:
+                raise CacheNotSynced(f"{kind}: the informer's first LIST is not in its store after {waited:.2f} s")
+        return informer
+
+    def cached_pods(self, namespace: Optional[str] = None) -> List[Pod]:
+        """The Pod informer's store, of one namespace or all: what
+        list_pods() would return as of the last event decoded, read with
+        no request. The objects are the informer's own: read, never edit."""
+        informer = self._synced("Pod")
+        with informer.lock:
+            if namespace is None:
+                return list(informer.store.values())
+            return list(informer.by_namespace.get(namespace, {}).values())
+
+    def cached_node(self, name: str) -> Optional[Node]:
+        """The Node informer's object of that name, or None: get_node() as
+        of the last event decoded, read with no request. None also for a
+        node whose ADDED the stream has not decoded yet."""
+        if not name:
+            return None
+        informer = self._synced("Node")
+        with informer.lock:
+            return informer.store.get(("", name))
+
     def stop(self) -> None:
         self._stop.set()
+        with self._informers_lock:
+            informers = list(self._informers.values())
+        for informer in informers:
+            informer.stop()
 
     # -- typed conveniences (KubeCluster parity) ------------------------------
 

@@ -11,11 +11,13 @@ Watches dispatch synchronously on the mutating thread, which makes controller
 tests deterministic (the reference needs TriggerAndWait plumbing for the same
 reason).
 
-The port's copy of karpenter_tpu/kube/cluster.py, with two edits:
+The port's copy of karpenter_tpu/kube/cluster.py, with three edits:
 `retry_on_conflict`, client-go's RetryOnConflict, mutates a copy and lands
 it with a compare-and-swap, so an injected or organic 409 leaves the store
-and the event stream as they were; and `bind_pod` consults the fault plan
-before it edits the stored pod.
+and the event stream as they were; `bind_pod` consults the fault plan
+before it edits the stored pod; and `cached_pods` / `cached_node`, the
+informer-cache reads of HttpKubeClient, which here read the store (as
+watch() takes and ignores HttpKubeClient's `own_copy`).
 """
 
 from __future__ import annotations
@@ -313,7 +315,11 @@ class KubeCluster:
 
     # -- watches -------------------------------------------------------------
 
-    def watch(self, kind: str, handler: Callable[[WatchEvent], None], replay: bool = True) -> None:
+    def watch(self, kind: str, handler: Callable[[WatchEvent], None], replay: bool = True, own_copy: bool = False) -> None:
+        """Register a handler, called on the mutating thread. `own_copy`
+        is HttpKubeClient's (a copy of each of its informer's shared
+        objects); here every holder shares the store's objects by design,
+        and it is ignored."""
         with self._lock:
             self._watchers.setdefault(kind, []).append(handler)
             existing = list(self._objects.get(kind, {}).values()) if replay else []
@@ -466,6 +472,15 @@ class KubeCluster:
 
     def pending_pods(self) -> List[Pod]:
         return [p for p in self.list_pods() if not p.spec.node_name]
+
+    # the informer-cache reads HttpKubeClient serves from its shared
+    # informers' stores; here the store is the cache
+
+    def cached_pods(self, namespace: Optional[str] = None) -> List[Pod]:
+        return self.list_pods(namespace)
+
+    def cached_node(self, name: str) -> Optional[Node]:
+        return self.get_node(name)
 
     def bind_pod(self, pod: Pod, node_name: str) -> None:
         """Bind (schedule) a pod onto a node — the kube-scheduler's verb; the

@@ -6,7 +6,10 @@ domain counting against the cluster, requirement tightening per matching
 group, and post-placement recording.
 
 The `kube` client may be None (pure solver benchmarks); then no existing-pod
-counting happens. The `cluster` provides `for_pods_with_anti_affinity`.
+counting happens. Otherwise the bound pods and their nodes are read from its
+informer cache (`cached_pods`, `cached_node`; over HTTP no request, as
+Karpenter's countDomains reads its cached client), a node the cache lacks
+and the nominated pods' nodes directly. The `cluster` provides `for_pods_with_anti_affinity`.
 `nominated` holds (node name, pods) pairs that count as bound to that node
 although they are not yet: the pods a provisioning round placed before its
 capacity-failure re-solve (the port's addition; the JAX package counts bound
@@ -18,7 +21,7 @@ from __future__ import annotations
 from typing import Dict, Iterable, List, Optional, Sequence, Set
 
 from ..api import labels as lbl
-from ..api.objects import LabelSelector, OP_EXISTS, Pod
+from ..api.objects import LabelSelector, Node, OP_EXISTS, Pod
 from ..scheduling.requirement import Requirement
 from ..scheduling.requirements import Requirements
 from ..utils import pod as podutils
@@ -181,22 +184,37 @@ class Topology:
     # -- domain counting ------------------------------------------------------
 
     def _count_domains(self, group: TopologyGroup) -> None:
+        # the bound pods and their nodes come from the kube client's
+        # informer cache, as Karpenter's countDomains reads its cached
+        # client: over HTTP no request per group namespace
         if self.kube is None:
             return
         for namespace in group.namespaces:
-            for p in self.kube.list_pods(namespace=namespace):
+            for p in self.kube.cached_pods(namespace=namespace):
                 if not _ignored_for_topology(p):
-                    self._count_pod(group, p, p.spec.node_name)
+                    self._count_pod(group, p, p.spec.node_name, self._bound_node)
         for p, name in self.nominated:
             if p.namespace in group.namespaces and not (podutils.is_terminal(p) or podutils.is_terminating(p)):
-                self._count_pod(group, p, name)
+                # read directly: the round may have launched the node so
+                # recently that no watch event has brought it to the cache
+                self._count_pod(group, p, name, self.kube.get_node)
 
-    def _count_pod(self, group: TopologyGroup, p: Pod, node_name: Optional[str]) -> None:
+    def _bound_node(self, name: Optional[str]) -> Optional[Node]:
+        """A bound pod's node from the cache, or read directly when the
+        Node informer has not yet decoded the node the Pod informer's pod is
+        bound to (the two streams run apart): skipping the pod would leave
+        it out of the counts."""
+        node = self.kube.cached_node(name)
+        if node is None and name:
+            node = self.kube.get_node(name)
+        return node
+
+    def _count_pod(self, group: TopologyGroup, p: Pod, node_name: Optional[str], node_of) -> None:
         if group.selector is not None and not group.selector.matches(p.metadata.labels):
             return
         if p.uid in self.excluded_pods:
             return
-        node = self.kube.get_node(node_name)
+        node = node_of(node_name)
         if node is None:
             return
         domain = node.metadata.labels.get(group.key)
