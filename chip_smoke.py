@@ -80,10 +80,18 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     onto a spot-only fleet, then spot notices for the first 8 populated
     nodes; each notice quarantines its pool and re-solves the victim's pods
     with the victim excluded (K2 onto the standing nodes, K1 for the
-    replacements, the quarantined pools zeros in K1's `allowed`), launches
-    the replacement and drains the victim; then one provisioning round for
-    the recreated pods, the cloud's reclaim and the gc sweep. A warm-up and
-    3 timed waves on fresh fleets, held against 4 with the plain versions;
+    replacements, the quarantined pools zeros in K1's `allowed`), counting
+    what the wave's earlier re-solves placed (the controller's ledger),
+    launches the replacement and drains the victim; then one provisioning
+    round for the recreated pods, the cloud's reclaim and the gc sweep. A
+    warm-up and 3 timed waves on fresh fleets, held against 4 with the
+    plain versions, then one more through the kernels with the notices
+    split over 2 polls (MAX_MESSAGES 4 on the controller instance), whose
+    outcome must be the one-poll wave's; in every wave no node is booked
+    beyond its room (the pods bound at the start and every pod a notice
+    placed on it against its allocatable less the daemonset overhead), and
+    the line reports the bookings against the room, the replacements plus
+    the post-drain launches and the end state's $/hour;
   - the controller process (runtime.py, cmd/controller.py, service/):
     runtime_boot starts `python -m karpenter_tpu_torch.cmd.controller` as a
     child, waits for /healthz and /readyz, then /metrics and /debug, reads
@@ -314,6 +322,9 @@ BIG_ALLOCATABLE = {"cpu": 64, "memory": "128Gi", "pods": 110}
 WAVE = ("interruption_reclaim_wave", HEADLINE_PODS)
 WAVE_FRACTION, WAVE_MAX_VICTIMS = 0.6, 8
 WAVE_RUNS = 3
+# the split-poll wave: MAX_MESSAGES on the controller instance, so the 8
+# notices arrive in 2 polls with no provisioning round between them
+WAVE_SPLIT_MESSAGES = 4
 # the controller process: the entry point's command, how long it may take
 # to answer both probes and to exit on SIGTERM; the Runtime cell's standing
 # nodes (controller_round_overflow's shape) and its deadlines; the sidecar
@@ -2210,15 +2221,125 @@ def allowed_cleared(solve, k1_allowed, dev) -> dict:
     }
 
 
-def wave_run(dev, min_batch: int, plain: bool = False) -> dict:
+def node_price(env, node) -> float:
+    """$/hour of a node in the simulated cloud: its pool's price in the
+    backend's books (spot by type and zone, on-demand by type)."""
+    type_name, zone, capacity_type = pool_of(node)
+    if capacity_type == "spot":
+        return env.backend.get_spot_price(type_name, zone)
+    return env.backend.get_on_demand_price(type_name)
+
+
+class WaveBookings:
+    """What one wave booked onto each node against its room. Made on a
+    wave's fresh fleet: it reads the requests of the pods bound to each node
+    (daemonset pods aside) and each node's allocatable less the daemonset
+    overhead, and wraps the interruption controller's re-solve and the
+    provisioner's launch_nodes, so each launch inside a re-solve adds its
+    (node name, pods) pairs (`placed`; from the results when the caller
+    passed none: the new nodes with pods in order, every create of the wave
+    succeeding, then the standing nodes) and a replacement's room. The
+    provisioning rounds' launches are not the wave's. It reads only what
+    every version of the package has, so a comparison driver can attach it
+    to another tree's wave (chip_wave.py)."""
+
+    def __init__(self, env):
+        from karpenter_tpu_torch.utils import resources as res
+
+        self.res, self.env = res, env
+        overhead = {}
+        for pod in env.provisioner_controller.daemonset_pods():
+            overhead = res.merge(overhead, res.pod_requests(pod))
+        self.overhead = overhead
+        self.room, self.used, self.launched, self.booked_onto, self.placed_pods = {}, {}, [], set(), 0
+        for node in env.kube.list_nodes():
+            self._room(node)
+        for pod in env.kube.list_pods():
+            if pod.spec.node_name and not any(r.kind == "DaemonSet" for r in pod.metadata.owner_references):
+                self._add(pod.spec.node_name, pod)
+        inside = []
+        provision, launch = env.interruption._provision_replacement, env.provisioner_controller.launch_nodes
+
+        def resolving(node):
+            inside.append(node.name)
+            try:
+                return provision(node)
+            finally:
+                inside.pop()
+
+        def booking(results, *args, **kwargs):
+            names = launch(results, *args, **kwargs)
+            if inside:
+                placed = kwargs.get("placed")
+                if placed is None:
+                    new = [vn for vn in results.new_nodes if vn.pods]
+                    if len(names) != len(new):
+                        raise PhaseFailed(f"a replacement's create failed in the wave: {len(names)} of {len(new)} launched")
+                    placed = list(zip(names, (vn.pods for vn in new))) + [(v.node.name, v.pods) for v in results.existing_nodes if v.pods]
+                self.book(placed)
+            return names
+
+        env.interruption._provision_replacement = resolving
+        env.provisioner_controller.launch_nodes = booking
+
+    def _room(self, node) -> None:
+        if node.name not in self.room:
+            self.room[node.name] = self.res.subtract(dict(node.status.allocatable), self.overhead)
+
+    def _add(self, name, pod) -> None:
+        self.used[name] = self.res.merge(self.used.get(name, {}), self.res.pod_requests(pod))
+
+    def book(self, placed) -> None:
+        for name, pods in placed:
+            if name not in self.room:
+                self.launched.append(name)
+                self._room(self.env.kube.get_node(name))
+            for pod in pods:
+                self._add(name, pod)
+            self.booked_onto.add(name)
+            self.placed_pods += len(pods)
+
+    def summary(self) -> dict:
+        """The nodes booked beyond their room (in any resource, pod slots
+        included), the bookings and the room summed over the nodes the wave
+        booked onto (the pods bound there at the start included), the
+        replacements launched, and the end state's $/hour
+        (read when called: after the run, the cluster's nodes then)."""
+        over = sorted(
+            name for name, used in self.used.items()
+            if any(v > self.room[name].get(key, 0.0) + 1e-6 for key, v in used.items())
+        )
+        summed = {"booked": {}, "room": {}}
+        for name in self.booked_onto:
+            summed["booked"] = self.res.merge(summed["booked"], self.used[name])
+            summed["room"] = self.res.merge(summed["room"], self.room[name])
+        keys = ("cpu", "memory", "pods")
+        return {
+            "overbooked": len(over),
+            "overbooked_nodes": over[:10],
+            "placed_pods": self.placed_pods,
+            "booked": {key: summed["booked"].get(key, 0.0) for key in keys},
+            "room": {key: summed["room"].get(key, 0.0) for key in keys},
+            "replacements": len(self.launched),
+            "end_price_per_hour": sum(node_price(self.env, n) for n in self.env.kube.list_nodes()),
+        }
+
+
+def wave_run(dev, min_batch: int, plain: bool = False, max_messages=None) -> dict:
     """One reclaim wave on a fresh fleet. Timed: the poll_once() calls
-    until every notice is handled and deleted. Then converge: termination
-    until the victims are gone, one provisioning round for the pods the
-    ReplicaSet stand-in recreated and the binding of its nominations; the
-    clock past the deadlines, the cloud's reclaim, one gc sweep. With
-    plain=True both kernels' plain versions stand in at the seams the solve
-    calls; else each kernel call is captured and held against its plain
-    version on its own operands after the run."""
+    until every notice is handled and deleted (with `max_messages` set on
+    the controller instance, the notices arrive over several polls, with no
+    provisioning round between them; each notice records its poll). Then
+    converge: termination until the victims are gone, one provisioning
+    round for the pods the ReplicaSet stand-in recreated and the binding of
+    its nominations; the clock past the deadlines, the cloud's reclaim, one
+    gc sweep. WaveBookings holds what the re-solves booked against each
+    node's room over the whole wave (each re-solve counts what the wave's
+    earlier ones placed: the interruption controller's ledger), with the
+    replacements launched and the end state's $/hour. With plain=True both
+    kernels' plain versions stand in at the seams the solve calls; else
+    each kernel call is captured and held against its plain version on its
+    own operands after the run."""
     import gc
 
     from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
@@ -2242,6 +2363,9 @@ def wave_run(dev, min_batch: int, plain: bool = False) -> dict:
         populated = [n for n in fleet if kube.pods_on_node(n.name)]
         victims = populated[: max(1, min(WAVE_MAX_VICTIMS, int(len(populated) * WAVE_FRACTION)))]
         victim_pods = [len(kube.pods_on_node(v.name)) for v in victims]
+        bookings = WaveBookings(env)
+        if max_messages is not None:
+            env.interruption.MAX_MESSAGES = max_messages
         rec = instrument_wave(env, dev, captures)
         gc.collect()
         deadlines = [backend.interrupt_spot_instance(env.instance_id(v)) for v in victims]
@@ -2251,8 +2375,11 @@ def wave_run(dev, min_batch: int, plain: bool = False) -> dict:
         polls = 0
         t0 = time.perf_counter()
         while backend.notifications.depth() and polls < 10:
+            n0 = len(rec["notices"])
             env.interruption.poll_once()
             polls += 1
+            for notice in rec["notices"][n0:]:
+                notice["poll"] = polls
         sync(dev)
         wave_ms = (time.perf_counter() - t0) * 1e3
         wave_launches = read_launches()
@@ -2286,6 +2413,7 @@ def wave_run(dev, min_batch: int, plain: bool = False) -> dict:
         unbound = sum(1 for p in kube.list_pods() if p.spec.node_name not in nodes)
         over = over_capacity(env)
         depth = backend.notifications.depth()
+        booked = bookings.summary()
     finally:
         if rec is not None:
             rec["restore"]()
@@ -2330,6 +2458,8 @@ def wave_run(dev, min_batch: int, plain: bool = False) -> dict:
         "quarantined_pools": sorted(quarantined),
         "post_drain_launches": post_drain,
         "post_drain_on_quarantined": sorted(p for p in post_drain if p in quarantined),
+        "bookings": booked,
+        "launches_total": booked["replacements"] + len(post_drain),
         "bound_after_round": bound,
         "pending_after_round": pending,
         "reclaimed": reclaimed,
@@ -2358,16 +2488,22 @@ def wave_outcome(run) -> dict:
 def interruption_reclaim_wave(dev, min_batch: int, card_name) -> dict:
     """A spot reclaim wave through the interruption controller: a warm-up
     and WAVE_RUNS timed waves on fresh fleets, then the same with both
-    kernels' plain versions. Prints the `interruption` line and checks it."""
+    kernels' plain versions, then one more timed wave through the kernels
+    with the notices split over polls (WAVE_SPLIT_MESSAGES on the
+    controller instance). In every wave no node is booked beyond its room
+    (`overbooked`), and the split wave's outcome is the one-poll waves'.
+    Prints the `interruption` line and checks it."""
     name, pods_n = WAVE
     runs = [wave_run(dev, min_batch) for _ in range(1 + WAVE_RUNS)]
     plain = [wave_run(dev, min_batch, plain=True) for _ in range(1 + WAVE_RUNS)]
+    split = wave_run(dev, min_batch, max_messages=WAVE_SPLIT_MESSAGES)
     timed = runs[1:]
     last = timed[-1]
 
     def notice_line(n):
         return {
             "pods": n["pods"],
+            "poll": n["poll"],
             "victim_pods": n["victim_pods"],
             "state_nodes": n["state_nodes"],
             "route": n["route"],
@@ -2385,10 +2521,13 @@ def interruption_reclaim_wave(dev, min_batch: int, card_name) -> dict:
             "k1_allowed_cleared": n["k1_allowed_cleared"],
         }
 
+    def bookings_line(r):
+        return {**r["bookings"], "post_drain_launches": len(r["post_drain_launches"]), "launches_total": r["launches_total"]}
+
     holds = {}
     for kernel in ("bucket_type_cost", "warm_fill_counts"):
-        held = [h for r in runs for n in r["notices"] for h in n["held"] if h["kernel"] == kernel]
-        held += [h for r in runs for h in r["round_held"] if h["kernel"] == kernel]
+        held = [h for r in runs + [split] for n in r["notices"] for h in n["held"] if h["kernel"] == kernel]
+        held += [h for r in runs + [split] for h in r["round_held"] if h["kernel"] == kernel]
         holds[kernel] = {
             "calls": len(held),
             "identical": sum(h["identical"] for h in held),
@@ -2417,6 +2556,11 @@ def interruption_reclaim_wave(dev, min_batch: int, card_name) -> dict:
         "round": last["round"],
         "drained_pods": last["drained_pods"],
         "post_drain_launches": last["post_drain_launches"],
+        "overbooked": [r["bookings"]["overbooked"] for r in timed],
+        "bookings": bookings_line(last),
+        "bookings_runs": [bookings_line(r) for r in runs],
+        "launches_total_runs": [r["launches_total"] for r in timed],
+        "end_price_per_hour_runs": [r["bookings"]["end_price_per_hour"] for r in timed],
         "pending_after_round": last["pending_after_round"],
         "quarantined_pools": last["quarantined_pools"],
         "gc": last["gc"],
@@ -2425,17 +2569,31 @@ def interruption_reclaim_wave(dev, min_batch: int, card_name) -> dict:
         "kernel_launches": {
             "wave": {k: sum(r["wave_launches"][k] for r in timed) for k in ("bucket_type_cost", "warm_fill_counts")},
             "round": {k: sum(r["round_launches"][k] for r in timed) for k in ("bucket_type_cost", "warm_fill_counts")},
+            "split": {k: split["wave_launches"][k] + split["round_launches"][k] for k in ("bucket_type_cost", "warm_fill_counts")},
         },
         "kernel_holds": holds,
         "plain_run": {
             "launches": [r["wave_launches"] for r in plain] + [r["round_launches"] for r in plain],
             "wave_ms_runs": [r["wave_ms"] for r in plain[1:]],
+            "overbooked": [r["bookings"]["overbooked"] for r in plain],
             "outcomes_identical": [wave_outcome(r) for r in plain] == [wave_outcome(r) for r in runs],
+        },
+        "split_run": {
+            "max_messages": WAVE_SPLIT_MESSAGES,
+            "polls": split["polls"],
+            "notice_polls": [n["poll"] for n in split["notices"]],
+            "wave_ms": split["wave_ms"],
+            "resolve_ms": [n["resolve_ms"] for n in split["notices"]],
+            "routes": [n["route"] for n in split["notices"]],
+            "launches": {"wave": split["wave_launches"], "round": split["round_launches"]},
+            "bookings": bookings_line(split),
+            "outcome_equal_to_one_poll": wave_outcome(split) == wave_outcome(last),
         },
     }
     emit(line)
-    for i, r in enumerate(runs + plain):
-        tag = f"{name}: run {i}"
+    for i, r in enumerate(runs + plain + [split]):
+        tag = f"{name}: run {i}" if i < len(runs) + len(plain) else f"{name}: the split-poll run"
+        check(r["bookings"]["overbooked"] == 0, f"{tag}: {r['bookings']['overbooked']} nodes booked beyond their room: {r['bookings']['overbooked_nodes']}")
         check(len(r["victims"]) == WAVE_MAX_VICTIMS and r["handled"] == WAVE_MAX_VICTIMS, f"{tag}: {r['handled']} of {len(r['victims'])} notices handled")
         check(len(r["notices"]) == WAVE_MAX_VICTIMS, f"{tag}: {len(r['notices'])} re-solves for {WAVE_MAX_VICTIMS} notices")
         check(r["queue_depth"] == 0, f"{tag}: {r['queue_depth']} messages left on the queue")
@@ -2449,8 +2607,8 @@ def interruption_reclaim_wave(dev, min_batch: int, card_name) -> dict:
         check(not r["dead_nodes"], f"{tag}: nodes on dead instances: {r['dead_nodes'][:5]}")
         check(r["gc"] == {"orphans": [], "ghosts": []}, f"{tag}: gc collected {r['gc']}")
         check(not r["over_capacity"], f"{tag}: nodes over capacity: {r['over_capacity'][:5]}")
-    for i, r in enumerate(runs):
-        tag = f"{name}: run {i}"
+    for i, r in enumerate(runs + [split]):
+        tag = f"{name}: run {i}" if i < len(runs) else f"{name}: the split-poll run"
         dense = [n for n in r["notices"] if n["route"] == "dense"]
         check(any(n["launches"]["warm_fill_counts"] for n in dense), f"{tag}: no dense re-solve through K2")
         check(any(n["launches"]["bucket_type_cost"] for n in dense), f"{tag}: no dense re-solve through K1")
@@ -2467,6 +2625,9 @@ def interruption_reclaim_wave(dev, min_batch: int, card_name) -> dict:
     for i, r in enumerate(plain):
         check(not any(r["wave_launches"].values()) and not any(r["round_launches"].values()), f"{name}: the plain versions' run {i} launched kernels")
     check(line["plain_run"]["outcomes_identical"], f"{name}: the kernels' and the plain versions' waves differ in outcome")
+    want_polls = [i // WAVE_SPLIT_MESSAGES + 1 for i in range(WAVE_MAX_VICTIMS)]
+    check(line["split_run"]["notice_polls"] == want_polls, f"{name}: the split run's notices arrived in polls {line['split_run']['notice_polls']}, not {want_polls}")
+    check(line["split_run"]["outcome_equal_to_one_poll"], f"{name}: the split-poll wave's outcome differs from the one-poll wave's")
     return line
 
 
@@ -7414,8 +7575,9 @@ def main() -> int:
 
     def interruption_launches(kernel_name):
         """The wave's launches of one kernel over its timed runs, in the
-        re-solves and in the post-drain rounds."""
-        return {part: wave_line["kernel_launches"][part][kernel_name] for part in ("wave", "round")}
+        re-solves and in the post-drain rounds, and in the split-poll run
+        (re-solves and round together)."""
+        return {part: wave_line["kernel_launches"][part][kernel_name] for part in ("wave", "round", "split")}
 
     # 13. the launch floor: the device time of the smallest kernel PyTorch
     # launches (a fill of one element), in this run, on this card

@@ -271,7 +271,7 @@ class ProvisionerController:
             # the round's placements are nominated, not bound: the re-solve
             # counts them, or it would hand their capacity out again
             with TRACER.span("ice-resolve", attempt=attempt + 1, pods=len(retry_pods)):
-                retry_results = self._schedule_journaled(retry_pods, self._nominated_snapshot(placed), nominated=placed)
+                retry_results = self._schedule_journaled(retry_pods, self.nominated_snapshot(placed), nominated=placed)
                 any_unschedulable |= bool(retry_results.unschedulable)
                 ice_failed = []
                 launched += self.launch_nodes(retry_results, ice_failures=ice_failed, placed=placed)
@@ -341,9 +341,11 @@ class ProvisionerController:
         for pod, err in results.unschedulable.items():
             JOURNAL.pod_event(pod.metadata.name, "failed", error=str(err)[:200], trace_id=trace_id)
 
-    def _nominated_snapshot(self, placed: Sequence[tuple]) -> List[object]:
+    def nominated_snapshot(self, placed: Sequence[tuple]) -> List[object]:
         """The cluster's state nodes with the (node name, pods) placements
-        of `placed` counted on them."""
+        of `placed` counted on them (a pair whose node is not in cluster
+        state counts nowhere). The capacity-failure re-solve and the
+        interruption controller's re-solves solve on it."""
         nodes = self.cluster.nodes_snapshot()
         by_name = {state.name: state for state in nodes}
         for name, pods in placed:

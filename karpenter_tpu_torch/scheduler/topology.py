@@ -12,8 +12,10 @@ Karpenter's countDomains reads its cached client), a node the cache lacks
 and the nominated pods' nodes directly. The `cluster` provides `for_pods_with_anti_affinity`.
 `nominated` holds (node name, pods) pairs that count as bound to that node
 although they are not yet: the pods a provisioning round placed before its
-capacity-failure re-solve (the port's addition; the JAX package counts bound
-pods only).
+capacity-failure re-solve, and those the interruption controller's earlier
+re-solves placed (the port's addition; the JAX package counts bound pods
+only). A nominated pod is counted once, at its nominated node, even while
+it is still bound to another (the victim it is being moved off).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ class Topology:
         self.kube = kube
         self.cluster = cluster
         self.nominated = [(pod, name) for name, placed in nominated for pod in placed]
+        self._nominated_uids: Set[str] = {pod.uid for pod, _ in self.nominated}
         self.domains: Dict[str, Set[str]] = {k: set(v) for k, v in (domains or {}).items()}
         self.topologies: Dict[tuple, TopologyGroup] = {}
         self.inverse_topologies: Dict[tuple, TopologyGroup] = {}
@@ -151,7 +154,7 @@ class Topology:
             return
 
         def visit(pod: Pod, node) -> bool:
-            if pod.uid not in self.excluded_pods:
+            if pod.uid not in self.excluded_pods and pod.uid not in self._nominated_uids:
                 self._update_inverse_anti_affinity(pod, node.metadata.labels if node is not None else None)
             return True
 
@@ -191,7 +194,10 @@ class Topology:
             return
         for namespace in group.namespaces:
             for p in self.kube.cached_pods(namespace=namespace):
-                if not _ignored_for_topology(p):
+                # a nominated pod still bound to the node it is being moved
+                # off (an interruption victim, cordoned and deleting) is
+                # counted below at its nominated node, not here as well
+                if not _ignored_for_topology(p) and p.uid not in self._nominated_uids:
                     self._count_pod(group, p, p.spec.node_name, self._bound_node)
         for p, name in self.nominated:
             if p.namespace in group.namespaces and not (podutils.is_terminal(p) or podutils.is_terminating(p)):
