@@ -14,7 +14,8 @@ scenarios and the soak run dense, the rest on the host loop).
 It prints one JSON object per run: converged, the scores that must be zero
 (lost pods, budget violations, leaked instances, double launches, informer
 divergences, invariant violations, leaked threads and watches), pods bound
-and desired, the solver and kube fault counts, the breaker's state, the
+and desired, the solver and kube fault counts, the residency auditor's
+divergences, heals and audits, the breaker's state, the
 capsules, K1's and K2's launches in the run and its wall time. A run that
 raises is reported with its error, and the campaign goes on. The lines
 are also written to DIR/runs.jsonl, and the SCENARIO_*.json documents land
@@ -72,6 +73,7 @@ def run_one(scenario, transport: str, out: str) -> dict:
         "pods": [scores["pods_bound"], scores["pods_desired"]],
         "solver_faults": {"injected": scores["solver_faults_injected"], "total": scores["solver_faults_total"], "degraded": scores["degraded_solves_total"]},
         "breaker_state": scores["breaker_state"],
+        "residency": {"divergences": scores["residency_divergences"], "heals": scores["residency_heals"], "audit_passes": scores["audit_passes"]},
         "kube": {"injected": scores["kube_faults_injected"], "conflicts": scores["kube_conflicts_total"]},
         "capsule_triggers": sorted(scores["capsule_triggers"]),
         "restarts": scores["restarts"],

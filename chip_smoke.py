@@ -45,6 +45,26 @@ provisioning solve through the port's build_scheduler(...).solve(pods):
     one of the engine's two and one K2 launch each; the same churn with
     K2's plain version swapped in must place every pass identically and
     launch no kernel, and a last pass must place as a fresh solver does;
+  - incremental_residency: the engine serves the rows of the snapshot it
+    was handed. bind_after_snapshot, on incremental_churn_2400's cluster
+    and catalog with the auditor on every pass: on the cold pass and on a
+    full pass forced with reason audit, the snapshot is taken first, then
+    8 nodes are filled to their room and every pod of one more node is
+    deleted through the kube store, then the solve; a clean pass follows
+    each. Every pass must serve no row that differs from a fresh encode of
+    its own views, keep the resident head equal to the mirror's f32 head,
+    find no divergence, book no node beyond its room (the snapshot's bound
+    pods and the pass's placements) and place as a fresh solver on the
+    same snapshot and batch. ice_resolve_incremental, the headline's
+    10,000 pods (reclaim_wave_workload's, whose placed pods carry no
+    anti-affinity that would send a re-solve to the host loop) on 300
+    standing nodes with every pool of every type a warm-up round launched
+    refused, the provisioner's solver carrying the engine and the auditor:
+    every re-solve that runs dense must bypass the engine, the round book
+    no node beyond its room, nominations included, find no divergence and
+    decide as the same round with no engine. Both cases run through the
+    kernels, every K1 and K2 call held bit for bit, and again with the
+    plain versions;
   - the provisioning controller (controllers/provisioning/), routed by the
     crossover it measures on the card first (crossover: K1's probe round
     trip, and the exact host loop's seconds per pod beside the JAX
@@ -272,7 +292,12 @@ REBASE_SHAPES = [
 # the same churn on BASELINE config 4's 2,400-node warm cluster
 CHURNS = [("incremental_churn_300", 300), ("incremental_churn_2400", 2400)]
 CHURN_PODS, CHURN_WARMUP, CHURN_PASSES, CHURN_AUDIT_SEED = 50, 2, 12, 7
+# incremental_residency: bind_after_snapshot on incremental_churn_2400's
+# cluster and catalog, RESIDENCY_FILLED nodes filled after each planted
+# snapshot; ice_resolve_incremental on controller_round_overflow's shape
+RESIDENCY_NODES, RESIDENCY_TYPES, RESIDENCY_FILLED = 2400, 100, 8
 HEADLINE_PODS, HEADLINE_TYPES = 10_000, 500
+RESIDENCY_ICE = ("ice_resolve_incremental", HEADLINE_PODS, 300)
 # (name, pods, workload seed, types, warm nodes): bench.py's repack config
 # (BASELINE config 4 at 16k)
 REPACK = ("repack_16k_x_2400", 16_000, 5, 100, 2400)
@@ -1051,6 +1076,385 @@ def incremental_churn(dev, name: str, nodes: int, card_name) -> dict:
         line["rebase_bound_ms"] = line["rebase_bytes"] / H100_BYTES_PER_S * 1e3
     emit(line)
     return line
+
+
+def overbooked_nodes(snapshot, results) -> list:
+    """The nodes whose bound pods, as the solve's snapshot has them, and the
+    pods the solve placed on them together request more than the node has,
+    in any resource."""
+    from karpenter_tpu_torch.utils import resources as res
+
+    by_name = {state.name: state for state in snapshot}
+    over = []
+    for view in results.existing_nodes:
+        free = dict(by_name[view.node.name].available)
+        for pod in view.pods:
+            free = res.subtract(free, res.pod_requests(pod))
+        if any(v < -1e-6 for v in free.values()):
+            over.append(view.node.name)
+    return sorted(over)
+
+
+def served_stale_rows(views, enc) -> list:
+    """The rows of an encoding the engine served that differ, byte for byte
+    in any encoded field, from a fresh encode_warm_views of the same views."""
+    from karpenter_tpu_torch.ir.encode import encode_warm_views
+
+    fresh = encode_warm_views(views)
+    stale = []
+    for i, view in enumerate(views):
+        arrays = all(getattr(fresh, f)[i].tobytes() == getattr(enc, f)[i].tobytes() for f in ("usable", "avail_tol", "requests0", "head0"))
+        labels = (fresh.zone[i], fresh.ct[i], fresh.hostname[i], tuple(fresh.taint_sig[i])) == (enc.zone[i], enc.ct[i], enc.hostname[i], tuple(enc.taint_sig[i]))
+        if not (arrays and labels):
+            stale.append(view.node.name)
+    return stale
+
+
+def watch_engine(engine, served: list) -> None:
+    """Wrap the engine's advance: each pass appends its kind, reason and
+    dirty rows, the rows it served that a fresh encode of its own views
+    disagrees with, and whether the resident head's first V rows equal the
+    mirror's f32 head, byte for byte (None where the pass served none)."""
+    advance = engine.advance
+
+    def watched(views, *args):
+        adv = advance(views, *args)
+        rec = {"pass": adv.kind, "reason": adv.reason, "dirty_rows": adv.dirty_rows, "stale_rows": None, "head_dev_equal": None}
+        if adv.enc is not None:
+            rec["stale_rows"] = served_stale_rows(views, adv.enc)
+            head = adv.enc.head_dev[: len(views)].cpu().numpy()
+            rec["head_dev_equal"] = head.tobytes() == adv.enc.head0.astype(np.float32).tobytes()
+        served.append(rec)
+        return adv
+
+    engine.advance = watched
+
+
+def held_summary(held) -> dict:
+    """hold_kernel_calls' list as counts per kernel, whether every call was
+    identical and the largest difference."""
+    calls = {}
+    for h in held:
+        calls[h["kernel"]] = calls.get(h["kernel"], 0) + 1
+    return {"calls": calls, "identical": all(h["identical"] for h in held), "max_abs_err": max((h["max_abs_err"] for h in held), default=0.0)}
+
+
+def residency_bind_run(dev, plain: bool = False) -> dict:
+    """incremental_residency's bind_after_snapshot case on one tree's
+    package: incremental_churn_2400's cluster (testing.standing_cluster,
+    RESIDENCY_NODES nodes) and catalog, one DenseSolver carrying the
+    incremental engine and ResidencyAuditor(interval=1). Four passes: the
+    cold pass and a full pass forced with reason 'audit' are planted (the
+    snapshot, then RESIDENCY_FILLED nodes filled to their room by a bound
+    pod each and every pod of one more node deleted, through the kube
+    store, then the solve of churn_batch on that snapshot); each is
+    followed by a clean pass on a fresh snapshot. Per pass: the engine's
+    record (watch_engine), the divergences the auditor found, the nodes
+    booked beyond their room (overbooked_nodes), whether the placements
+    equal a fresh solver's on the same snapshot and batch, the launches
+    and, through the kernels, every K1/K2 call held against its plain
+    version. With plain=True the plain versions stand in at both seams,
+    for the fresh solver too."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.controllers.state.cluster import Cluster
+    from karpenter_tpu_torch.kube.cluster import KubeCluster
+    from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
+    from karpenter_tpu_torch.scheduler import build_scheduler
+    from karpenter_tpu_torch.solver import DenseSolver, DenseSolveStats
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+    from karpenter_tpu_torch.solver.audit import ResidencyAuditor
+    from karpenter_tpu_torch.solver.incremental import IncrementalEngine
+
+    names = [f"churn-n{i:04d}" for i in range(RESIDENCY_NODES)]
+    provider = FakeCloudProvider(instance_types(RESIDENCY_TYPES))
+    provisioners = [testing.make_provisioner()]
+    kube = KubeCluster()
+    testing.standing_cluster(kube, RESIDENCY_NODES)
+    bound = iter(range(1 << 20))
+
+    def bind(node, cpu, memory):
+        kube.create(testing.make_pod(
+            name=f"rsd-bound-{next(bound):04d}", labels={"app": "standing"}, requests={"cpu": cpu, "memory": memory},
+            node_name=node, phase="Running", unschedulable=False,
+        ))
+
+    # the node each planted pass empties holds pods from the start
+    emptied = [names[-1], names[-2]]
+    for node in emptied:
+        for _ in range(3):
+            bind(node, 4, "8Gi")
+    cluster = Cluster(kube, None)
+    engine = IncrementalEngine(cluster.delta_journal, device=dev)
+    auditor = ResidencyAuditor(seed=CHURN_AUDIT_SEED, interval=1)
+    solver = DenseSolver(min_batch=1, device=dev, incremental=engine, auditor=auditor)
+    served = []
+    watch_engine(engine, served)
+
+    def plant(filled, empty):
+        def mutate():
+            for node in filled:
+                bind(node, 16, "32Gi")  # the node's whole room
+            for pod in kube.list_pods():
+                if pod.spec.node_name == empty:
+                    kube.delete(pod, grace=False)
+
+        return mutate
+
+    k = RESIDENCY_FILLED
+    plan = [("cold", plant(names[:k], emptied[0])), ("next", None), ("audit", plant(names[k:2 * k], emptied[1])), ("next", None)]
+    saved = dense_module.bucket_cost_packed, fill_module.admission_counts
+    if plain:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = bucket_type_cost_packed, plain_admission_counts
+    passes = []
+    try:
+        for step, (planted, mutate) in enumerate(plan):
+            if planted == "audit":
+                engine.invalidate("audit")
+            snapshot = cluster.nodes_snapshot()
+            if mutate is not None:
+                mutate()
+            pods = testing.churn_batch(step, CHURN_PODS)
+            before = dict(auditor.divergences)
+            captures = []
+            if not plain:
+                capture_kernel_calls(captures)
+            solver.stats = DenseSolveStats()
+            read_launches()
+            try:
+                t0 = time.perf_counter()
+                results = build_scheduler(provisioners, provider, pods, cluster=cluster, state_nodes=snapshot, dense_solver=solver).solve(pods)
+                sync(dev)
+                wall = (time.perf_counter() - t0) * 1e3
+            finally:
+                if not plain:
+                    dense_module.bucket_cost_packed, fill_module.admission_counts = saved
+            launches = read_launches()
+            fresh = build_scheduler(provisioners, provider, pods, cluster=cluster, state_nodes=snapshot, dense_solver=DenseSolver(min_batch=1, device=dev)).solve(pods)
+            sync(dev)
+            fresh_launches = read_launches()
+            check(len(served) == step + 1, f"bind_after_snapshot: pass {step} advanced the engine {len(served) - step} times")
+            passes.append({
+                "step": step,
+                "planted": planted,
+                **served[step],
+                "divergences": {kind: n - before.get(kind, 0) for kind, n in auditor.divergences.items() if n != before.get(kind, 0)},
+                "overbooked": overbooked_nodes(snapshot, results),
+                "same_as_fresh": outcome(results, pods) == outcome(fresh, pods),
+                "outcome": outcome(results, pods),
+                "on_existing": sum(len(v.pods) for v in results.existing_nodes),
+                "wall_ms": wall,
+                "launches": launches,
+                "fresh_launches": fresh_launches,
+                "held": None if plain else held_summary(hold_kernel_calls(captures, dev)),
+            })
+    finally:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = saved
+    return {"passes": passes, "engine_passes": dict(engine.passes), "audits": auditor.audits, "divergences": dict(auditor.divergences)}
+
+
+def residency_ice_round(dev, min_batch: int, pools, engine: bool, plain: bool = False, audit: bool = True) -> dict:
+    """One round of incremental_residency's ice_resolve_incremental case on
+    one tree's package: RESIDENCY_ICE's pods (reclaim_wave_workload) created
+    in a store with its standing nodes, the fake provider strict with
+    `pools` refused, nodes launched one at a time; with `engine` the
+    provisioner's DenseSolver carries an IncrementalEngine on the cluster's
+    journal and, with `audit`, ResidencyAuditor(interval=1) (unset, as
+    the Runtime leaves it by default, nothing heals a stale row). Returns
+    the round's record
+    (run_round's), each schedule call's engine pass kinds, route and pods
+    placed onto standing nodes, the auditor's counts and, through the
+    kernels, every K1/K2 call of the round held against its plain version."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.solver import DenseSolver
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+    from karpenter_tpu_torch.solver.audit import ResidencyAuditor
+    from karpenter_tpu_torch.solver.incremental import IncrementalEngine
+
+    name, pods_n, standing = RESIDENCY_ICE
+    standing_names = {f"churn-n{i:04d}" for i in range(standing)}
+    captures, calls, rig = [], [], {}
+    saved = dense_module.bucket_cost_packed, fill_module.admission_counts
+
+    def prepare(env):
+        env.pods = testing.rename(testing.reclaim_wave_workload(pods_n), "rsd")
+        if pools is not None:
+            env.provider.allow_insufficient_capacity = False
+            env.provider.insufficient_capacity_pools = set(pools)
+        env.controller.LAUNCH_WORKERS = 1
+        if engine:
+            rig["engine"] = IncrementalEngine(env.cluster.delta_journal, device=dev)
+            rig["auditor"] = ResidencyAuditor(seed=CHURN_AUDIT_SEED, interval=1) if audit else None
+            env.solver = env.controller.dense_solver = DenseSolver(min_batch=min_batch, device=dev, incremental=rig["engine"], auditor=rig["auditor"])
+        schedule = env.controller.schedule
+
+        def watched(pods, state_nodes, opts=None, **kwargs):
+            kinds = dict(rig["engine"].passes) if engine else {}
+            results = schedule(pods, state_nodes, opts, **kwargs)
+            calls.append({
+                "pods": len(pods),
+                "passes": sorted(k for k, n in rig["engine"].passes.items() if n != kinds[k]) if engine else [],
+                "onto_standing": sum(len(v.pods) for v in results.existing_nodes if v.node.name in standing_names),
+            })
+            return results
+
+        env.controller.schedule = watched
+        if not plain:
+            capture_kernel_calls(captures)
+
+    try:
+        _env, rec = run_round(dev, pods_n, standing, min_batch, "rsd", prepare=prepare, plain=plain)
+    finally:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = saved
+    for call, timed in zip(calls, rec["schedule"]):
+        call["route"] = "dense" if timed["dense_batches"] else "host"
+        call["launches"] = timed["launches"]
+        call["wall_ms"] = timed["wall_ms"]
+    auditor = rig.get("auditor")
+    return {
+        "rec": rec,
+        "calls": calls,
+        "auditor": None if auditor is None else {"passes": auditor.passes, "audits": auditor.audits, "divergences": dict(auditor.divergences)},
+        "engine_passes": dict(rig["engine"].passes) if engine else None,
+        "held": None if plain else held_summary(hold_kernel_calls(captures, dev)),
+    }
+
+
+def residency_ice_pools(dev, min_batch: int):
+    """The instance types a warm-up round of RESIDENCY_ICE's batch launches
+    (no refusal, no engine), and every pool of them."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.api import labels as lbl
+
+    def prepare(env):
+        env.pods = testing.rename(testing.reclaim_wave_workload(RESIDENCY_ICE[1]), "rsd")
+        env.controller.LAUNCH_WORKERS = 1
+
+    env, _rec = run_round(dev, RESIDENCY_ICE[1], RESIDENCY_ICE[2], min_batch, "rsd", prepare=prepare)
+    catalog = {t.name(): t for t in env.provider.instance_types_list}
+    launched = sorted({node.metadata.labels[lbl.LABEL_INSTANCE_TYPE] for node in env.kube.list_nodes() if node.name in env.provider.live_instances})
+    return launched, {(t, o.zone, o.capacity_type) for t in launched for o in catalog[t].offerings()}
+
+
+def residency_cases(dev, min_batch: int) -> dict:
+    """Both cases of incremental_residency on the tree whose package is
+    imported, through the kernels and with the plain versions, with no
+    check applied: the phase (this tree) checks them, and chip_residency.py
+    runs them on another tree for comparison."""
+    t0 = time.perf_counter()
+    bind = {"kernels": residency_bind_run(dev), "plain": residency_bind_run(dev, plain=True)}
+    t1 = time.perf_counter()
+    refused_types, pools = residency_ice_pools(dev, min_batch)
+    ice = {
+        "refused_types": refused_types,
+        "refused_pools": len(pools),
+        "kernels": residency_ice_round(dev, min_batch, pools, engine=True),
+        "plain": residency_ice_round(dev, min_batch, pools, engine=True, plain=True),
+        "unaudited": residency_ice_round(dev, min_batch, pools, engine=True, audit=False),
+        "no_engine": residency_ice_round(dev, min_batch, pools, engine=False),
+    }
+    return {"bind_after_snapshot": bind, "ice_resolve_incremental": ice, "bind_s": t1 - t0, "ice_s": time.perf_counter() - t1}
+
+
+def residency_pass_line(passes) -> list:
+    """The passes of a bind_after_snapshot run as the phase line gives them."""
+    return [{k: v for k, v in p.items() if k != "outcome"} for p in passes]
+
+
+def incremental_residency(dev, min_batch: int, card_name) -> list:
+    """The phase: residency_cases on this tree, one line per case, and the
+    checks. Returns the two lines."""
+    cases = residency_cases(dev, min_batch)
+    checks = []
+    bind = cases["bind_after_snapshot"]
+    kern, plain = bind["kernels"], bind["plain"]
+    bind_line = {
+        "phase": "incremental_residency",
+        "case": "bind_after_snapshot",
+        "card": card_name,
+        "standing_nodes": RESIDENCY_NODES,
+        "types": RESIDENCY_TYPES,
+        "filled_per_plant": RESIDENCY_FILLED,
+        "pods_per_pass": CHURN_PODS,
+        "stale_rows": sum(len(p["stale_rows"] or ()) for run in (kern, plain) for p in run["passes"]),
+        "overbooked": sum(len(p["overbooked"]) for run in (kern, plain) for p in run["passes"]),
+        "divergences": {"kernels": kern["divergences"], "plain": plain["divergences"]},
+        "passes": residency_pass_line(kern["passes"]),
+        "plain_passes": residency_pass_line(plain["passes"]),
+        "engine_passes": kern["engine_passes"],
+        "audits": kern["audits"],
+        "kernel_launches": {k: sum(p["launches"][k] for p in kern["passes"]) for k in ("bucket_type_cost", "warm_fill_counts")},
+        "plain_launches": {k: sum(p["launches"][k] for p in plain["passes"]) for k in ("bucket_type_cost", "warm_fill_counts")},
+        "wall_s": cases["bind_s"],
+    }
+    emit(bind_line)
+    kinds = [(p["pass"], p["reason"]) for p in kern["passes"]]
+    checks += [
+        (kinds == [("full", "cold"), ("delta", ""), ("full", "audit"), ("delta", "")], f"bind_after_snapshot: pass kinds {kinds}"),
+        (bind_line["stale_rows"] == 0, "bind_after_snapshot: the engine served rows that differ from a fresh encode of the pass's views"),
+        (all(p["head_dev_equal"] for run in (kern, plain) for p in run["passes"]), "bind_after_snapshot: the resident head differs from the mirror's f32 head"),
+        (not kern["divergences"] and not plain["divergences"], f"bind_after_snapshot: divergences {bind_line['divergences']}"),
+        (bind_line["overbooked"] == 0, "bind_after_snapshot: a pass booked a node beyond its room"),
+        (all(p["same_as_fresh"] for run in (kern, plain) for p in run["passes"]), "bind_after_snapshot: a pass placed pods otherwise than a fresh solver"),
+        ([p["outcome"] for p in kern["passes"]] == [p["outcome"] for p in plain["passes"]], "bind_after_snapshot: the plain versions placed pods differently"),
+        (all(p["launches"]["warm_fill_counts"] == 1 for p in kern["passes"]), f"bind_after_snapshot: K2 launches per pass {[p['launches'] for p in kern['passes']]}"),
+        (all(p["held"]["identical"] for p in kern["passes"]), "bind_after_snapshot: a kernel call disagrees with its plain version"),
+        (not any(bind_line["plain_launches"].values()), f"bind_after_snapshot: the plain run launched {bind_line['plain_launches']}"),
+    ]
+
+    ice = cases["ice_resolve_incremental"]
+    name, pods_n, standing = RESIDENCY_ICE
+    runs = {k: ice[k] for k in ("kernels", "plain", "unaudited", "no_engine")}
+    kern = runs["kernels"]
+    resolves = kern["calls"][1:]
+    ice_line = {
+        "phase": "incremental_residency",
+        "case": name,
+        "card": card_name,
+        "pods": pods_n,
+        "standing_nodes": standing,
+        "types": HEADLINE_TYPES,
+        "min_batch": min_batch,
+        "refused_types": ice["refused_types"],
+        "refused_pools": ice["refused_pools"],
+        "primary": kern["calls"][0],
+        "resolves": resolves,
+        "overbooked": {k: r["rec"]["outcome"]["broken"]["over_capacity"] for k, r in runs.items()},
+        "broken": kern["rec"]["outcome"]["broken"],
+        "auditor": {k: r["auditor"] for k, r in runs.items()},
+        "engine_passes": {k: r["engine_passes"] for k, r in runs.items()},
+        "same_as_no_engine": kern["rec"]["outcome"] == runs["no_engine"]["rec"]["outcome"] == runs["unaudited"]["rec"]["outcome"],
+        "resolves_unaudited": runs["unaudited"]["calls"][1:],
+        "same_as_plain": kern["rec"]["outcome"] == runs["plain"]["rec"]["outcome"],
+        "round": round_summary(kern["rec"]),
+        "no_engine_round_ms": runs["no_engine"]["rec"]["wall_ms"],
+        "kernel_launches": kern["rec"]["launches"],
+        "plain_launches": runs["plain"]["rec"]["launches"],
+        "held": kern["held"],
+        "wall_s": cases["ice_s"],
+    }
+    emit(ice_line)
+    dense = [r for r in resolves if r["route"] == "dense"]
+    checks += [
+        (bool(resolves), f"{name}: no typed failure fed a re-solve"),
+        (kern["calls"][0]["passes"] == ["full"], f"{name}: the primary solve's engine pass {kern['calls'][0]['passes']}"),
+        (bool(dense), f"{name}: no re-solve ran dense: {resolves}"),
+        (all(r["passes"] == ["bypass"] for r in dense) and all(r["passes"] == [] for r in resolves if r["route"] == "host"), f"{name}: re-solves' engine passes {resolves}"),
+        (all(r["auditor"]["passes"] == 1 and not r["auditor"]["divergences"] for k, r in runs.items() if k in ("kernels", "plain")), f"{name}: the auditor {ice_line['auditor']}"),
+        (all(r["passes"] == ["bypass"] for r in ice_line["resolves_unaudited"] if r["route"] == "dense"), f"{name}: re-solves' engine passes with no auditor {ice_line['resolves_unaudited']}"),
+        (not any(ice_line["overbooked"].values()), f"{name}: nodes booked beyond their room {ice_line['overbooked']}"),
+        (not any(kern["rec"]["outcome"]["broken"].values()), f"{name}: the round broke placements {kern['rec']['outcome']['broken']}"),
+        (ice_line["same_as_no_engine"], f"{name}: the round with the engine decided otherwise than the round with none"),
+        (ice_line["same_as_plain"], f"{name}: the plain versions' round decided otherwise"),
+        (kern["rec"]["launches"]["bucket_type_cost"] >= 1 and kern["rec"]["launches"]["warm_fill_counts"] >= 1, f"{name}: launches {kern['rec']['launches']}"),
+        (all(runs[k]["held"]["identical"] for k in ("kernels", "unaudited", "no_engine")), f"{name}: a kernel call disagrees with its plain version"),
+        (not any(runs["plain"]["rec"]["launches"].values()), f"{name}: the plain run launched {runs['plain']['rec']['launches']}"),
+    ]
+    for cond, what in checks:
+        check(bool(cond), what)
+    return [bind_line, ice_line]
 
 
 def crossover(dev, card_name) -> dict:
@@ -3457,8 +3861,8 @@ def planted_divergence(dev, spool) -> dict:
     armed, planted = [], []
     advance = engine.advance
 
-    def advancing(views, ckey):
-        adv = advance(views, ckey)
+    def advancing(*args):
+        adv = advance(*args)
         if armed:
             armed.pop()
             res = engine._resident
@@ -3949,8 +4353,8 @@ def corruption_on_card(dev, kind: str, entry: str, spool) -> dict:
     passes = []
     advance = engine.advance
 
-    def logged(views, ckey):
-        adv = advance(views, ckey)
+    def logged(*args):
+        adv = advance(*args)
         passes.append((adv.kind, adv.reason))
         return adv
 
@@ -7440,6 +7844,10 @@ def main() -> int:
     # the headline batch on a busy cluster, the capacity-failure ladder and
     # the threaded batch loop
     min_batch = crossover(dev, card_name)["min_batch"]
+    # 10b. the incremental engine on the snapshot it was handed: mutations
+    # recorded after a full pass's snapshot, and the capacity-failure
+    # re-solve on nominated views, beside the same with no engine
+    residency_lines = incremental_residency(dev, min_batch, card_name)
     controller_lines = [
         controller_round_overflow(dev, min_batch, card_name),
         controller_ice_resolve(dev, min_batch, card_name),
@@ -7643,6 +8051,7 @@ def main() -> int:
                 "controller_launches": controller_launches("bucket_type_cost"),
                 "disruption_launches": disruption_launches("bucket_type_cost"),
                 "interruption_launches": interruption_launches("bucket_type_cost"),
+                "residency_launches": {line["case"]: line["kernel_launches"]["bucket_type_cost"] for line in residency_lines},
                 "runtime_launches": runtime_launches("bucket_type_cost"),
                 "traced_launches": traced_line["kernel_launches"]["bucket_type_cost"],
                 "recorded_launches": recorded_launches("bucket_type_cost"),
@@ -7713,6 +8122,7 @@ def main() -> int:
                 "controller_launches": controller_launches("warm_fill_counts"),
                 "disruption_launches": disruption_launches("warm_fill_counts"),
                 "interruption_launches": interruption_launches("warm_fill_counts"),
+                "residency_launches": {line["case"]: line["kernel_launches"]["warm_fill_counts"] for line in residency_lines},
                 "runtime_launches": runtime_launches("warm_fill_counts"),
                 "traced_launches": traced_line["kernel_launches"]["warm_fill_counts"],
                 "recorded_launches": recorded_launches("warm_fill_counts"),

@@ -345,8 +345,13 @@ class ProvisionerController:
         """The cluster's state nodes with the (node name, pods) placements
         of `placed` counted on them (a pair whose node is not in cluster
         state counts nowhere). The capacity-failure re-solve and the
-        interruption controller's re-solves solve on it."""
-        nodes = self.cluster.nodes_snapshot()
+        interruption controller's re-solves solve on it. It is a plain list
+        with no snapshot epoch: its views are not the cluster's snapshot, so
+        a solve on them bypasses the incremental engine (its resident state
+        is neither read nor written, and no audit runs), as a simulation
+        does. The nominations are in no journal, so the engine's rows could
+        not show them."""
+        nodes = list(self.cluster.nodes_snapshot())
         by_name = {state.name: state for state in nodes}
         for name, pods in placed:
             state = by_name.get(name)

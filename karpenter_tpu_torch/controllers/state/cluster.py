@@ -15,7 +15,9 @@ incremental solve engine (solver/incremental.py).
 
 The port's copy of karpenter_tpu/controllers/state/cluster.py. Counting a
 pod on a node is StateNode.add_pod, so the provisioner can count the pods a
-round nominated on a snapshot.
+round nominated on a snapshot. `nodes_snapshot()` returns a NodesSnapshot:
+the state nodes and the delta journal's epoch of the same instant, which is
+the incremental engine's checkpoint for a solve on them.
 """
 
 from __future__ import annotations
@@ -102,6 +104,19 @@ class StateNode:
         out.volume_limits = VolumeCount(self.volume_limits)
         out.marked_for_deletion = self.marked_for_deletion
         return out
+
+
+class NodesSnapshot(list):
+    """The state nodes of one instant and `epoch`, the delta journal's epoch
+    at that instant: both are read under the cluster lock, under which every
+    journal record is made. The incremental engine checkpoints at this epoch
+    (solver/incremental.py). A list built from it (a copy, a slice, a list
+    with other pods counted on its nodes) carries no epoch: it is not the
+    cluster's snapshot, and a solve on it leaves the resident state alone."""
+
+    def __init__(self, nodes, epoch: int):
+        super().__init__(nodes)
+        self.epoch = epoch
 
 
 def _pod_key(pod: Pod) -> str:
@@ -330,9 +345,9 @@ class Cluster:
             if not fn(state):
                 return
 
-    def nodes_snapshot(self) -> List[StateNode]:
+    def nodes_snapshot(self) -> NodesSnapshot:
         with self._lock:
-            return [state.snapshot() for state in self._nodes.values()]
+            return NodesSnapshot([state.snapshot() for state in self._nodes.values()], self.delta_journal.current_epoch())
 
     def get_state_node(self, name: str) -> Optional[StateNode]:
         with self._lock:

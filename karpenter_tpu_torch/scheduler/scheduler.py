@@ -117,6 +117,12 @@ class Scheduler:
         self._rejections: Optional[Dict[str, Dict[str, int]]] = (
             {} if TRACER.enabled and not opts.simulation_mode else None
         )
+        # the delta journal's epoch of the instant state_nodes were taken
+        # (Cluster.nodes_snapshot's NodesSnapshot), the incremental engine's
+        # checkpoint for this solve; None where the nodes are not the
+        # cluster's snapshot, and then the solve leaves the engine's resident
+        # state alone (solver/dense.py:_fill_existing)
+        self.snapshot_epoch: Optional[int] = getattr(state_nodes, "epoch", None)
         self._calculate_existing_nodes(state_nodes)
 
     def _calculate_existing_nodes(self, state_nodes) -> None:

@@ -24,6 +24,14 @@ Four divergence kinds, each a distinct failure shape:
   cube-stale      the dense solver's cached availability cube no longer
                   matches the host availability array it was built from.
 
+The missed-delta window starts where the previous audit's truth was
+taken: at the epoch of the snapshot whose views it re-encoded, which the
+engine holds as its resident checkpoint (`_Resident.epoch`). A record made
+after that snapshot, while the round ran on, is in the next audit's window,
+so truth that moved under it is never called a missed delta. Passes that
+bypass the engine (views that are not the cluster's snapshot) are neither
+audited nor counted toward the cadence.
+
 Every INTERVAL-th pass is audited. The per-audit sample is a seeded
 bounded draw of SAMPLE_ROWS rows, deterministic in (seed, audit index) and
 seeded with an int (utils/seeds.split_seed); every SHADOW_EVERY-th audit
@@ -168,9 +176,9 @@ def _differing_fields(fresh, j: int, mirror, i: int) -> List[str]:
 class ResidencyAuditor:
     """Audits one engine's resident state. DenseSolver consults
     `maybe_audit` once per real provision pass, right after the engine
-    advances and before the warm fill consumes the encoding — the one point
-    where the resident state, the caller's view snapshot and the journal
-    checkpoint all describe the same instant. `seed` seeds the sampled
+    advances and before the warm fill consumes the encoding, on passes
+    that did not bypass it: the resident state, the caller's view snapshot
+    and the journal checkpoint then all describe the snapshot's instant. `seed` seeds the sampled
     draw; every `shadow_every`-th audit is a full shadow."""
 
     def __init__(self, seed: int = 0, interval: Optional[int] = None, shadow_every: Optional[int] = None):
@@ -186,8 +194,9 @@ class ResidencyAuditor:
         # truth moved since its last audit without the journal naming the
         # node is a missed delta, not drift
         self._truth_digest: Dict[str, str] = {}
-        # journal epoch at the end of the previous audit: the window
-        # `dirty_since` answers the classifier over
+        # journal epoch of the snapshot the previous audit re-encoded (the
+        # engine's resident checkpoint): the window `dirty_since` answers
+        # the classifier over
         self._last_epoch = 0
         self.last_divergence: Optional[dict] = None
         # consecutive clean audits since the last divergence
@@ -289,7 +298,7 @@ class ResidencyAuditor:
             self.audits += 1
             AUDIT_PASSES.inc()
             self._truth_digest.update(fresh_digests)
-            self._last_epoch = engine.journal.current_epoch()
+            self._last_epoch = res.epoch
             if not kinds:
                 self.clean_streak += 1
                 return None

@@ -312,7 +312,8 @@ class DenseSolver:
     same device: it keeps the warm-view encoding and the device headroom
     resident across passes and applies the cluster journal's delta instead
     of re-encoding; None = fresh encode every pass. Simulation re-solves
-    always bypass it. `auditor` is a ResidencyAuditor (solver/audit.py)
+    always bypass it, and so do solves on views that are not the cluster's
+    snapshot (Scheduler.snapshot_epoch None). `auditor` is a ResidencyAuditor (solver/audit.py)
     that checks the engine's resident state each pass it is due.
 
     `hbm_budget_bytes` is the pre-solve device-memory budget
@@ -1257,16 +1258,21 @@ class DenseSolver:
             # delta pass hands back a byte-equal encoding with the O(cluster)
             # encode skipped and the device headroom already resident; a
             # full pass rebuilds it (attributed by reason). Simulation
-            # re-solves bypass: hypothetical views have no journal feed and
-            # must not clobber the real resident state.
-            from .incremental import PASS_DELTA, PASS_FULL
+            # re-solves never reach the engine: hypothetical views have no
+            # journal feed and must not clobber the real resident state.
+            # Views that are not the cluster's snapshot (no epoch: the
+            # capacity-failure re-solve's nominated views) pass as a bypass
+            # that reads and writes nothing resident, and are not audited.
+            from .incremental import PASS_BYPASS, PASS_DELTA, PASS_FULL
 
-            adv = self.incremental.advance(scheduler.existing_nodes, self._solve_ckey)
+            adv = self.incremental.advance(scheduler.existing_nodes, self._solve_ckey, scheduler.snapshot_epoch)
             healed = None
-            if self.auditor is not None:
-                # the one point where the resident state, the views snapshot
-                # and the journal checkpoint all describe the same instant:
-                # audit BEFORE the pass's encoding shapes any placement
+            if self.auditor is not None and adv.kind != PASS_BYPASS:
+                # the resident state, the views and the journal checkpoint
+                # all describe the same instant: the views are the snapshot's
+                # and the engine checkpointed at the snapshot's epoch, read
+                # under the cluster lock with those nodes. Audit BEFORE the
+                # pass's encoding shapes any placement
                 ta = time.perf_counter()
                 cached_cube = self._avail_cube_dev
                 healed = self.auditor.maybe_audit(

@@ -16,7 +16,9 @@ things alive across passes instead:
     warm-fill kernel reads its head in place (ops/warmfill.py:
     AdmissionSurface.counts_resident);
   * its checkpoint into the cluster `DeltaJournal` (ir/delta.py), the feed
-    that names the dirty rows.
+    that names the dirty rows. The checkpoint is the epoch of the snapshot
+    the pass was handed (Cluster.nodes_snapshot reads the nodes and the
+    journal's epoch under one lock), never an epoch read later.
 
 Each `advance()` classifies the pass:
 
@@ -31,19 +33,26 @@ Each `advance()` classifies the pass:
           ('grow'), a residency-auditor heal ('audit', solver/audit.py), or a
           dirty set so large the delta machinery would cost more than the
           full encode ('bulk').
-  bypass  there is nothing to manage (no views); the caller runs the fresh
-          path untouched.
+  bypass  there is nothing to manage (no views), or the views are not the
+          cluster's snapshot (no epoch: a re-solve on views with the round's
+          nominated pods counted on them). The caller runs the fresh path,
+          and the resident state is neither read nor written.
 
 Correctness posture: the engine NEVER trusts resident values for a row the
 journal (or the previous pass — see below) named dirty; those rows are
 recomputed from the CURRENT views with the same f64 expressions as the
-fresh path, so the mirror is byte-equal by determinism. A mutation that
-lands between the caller's views snapshot and the engine's epoch checkpoint
-is covered by the DOUBLE-WINDOW rule: every pass re-dirties the names the
-JOURNAL reported on the previous pass, so a row encoded from a stale
-snapshot is re-encoded from a fresh one on the very next pass. Rows
-re-encoded purely for healing leave the window immediately: the
-steady-state dirty set is bounded by two passes of churn.
+fresh path, so the mirror is byte-equal by determinism. Every pass, full or
+delta, stores the snapshot's epoch as its checkpoint, so the resident state
+describes exactly the snapshot it served: a mutation that lands after the
+snapshot (while the round lists its pods, say) is in the next pass's
+journal window whatever kind this pass was, and its row is recomputed
+then. The window of a delta pass reaches to the journal's newest record, so
+it may also name rows that moved after the snapshot; they are recomputed
+from the snapshot now (over-dirtying, which is safe) and again next pass.
+The DOUBLE-WINDOW rule (every pass re-dirties the names the JOURNAL
+reported on the previous pass) is kept, though the snapshot epoch already
+covers what it was for. Rows re-encoded purely for healing leave the window
+immediately: the steady-state dirty set is bounded by two passes of churn.
 
 Residency is not optional here: a failed upload or rebase raises out of the
 solve; nothing quietly continues on the host. A classified device fault at
@@ -163,12 +172,19 @@ class IncrementalEngine:
 
     # -- the per-pass entry point -----------------------------------------
 
-    def advance(self, views: Sequence, ckey: tuple) -> AdvanceResult:
+    def advance(self, views: Sequence, ckey: tuple, epoch: Optional[int]) -> AdvanceResult:
         """Produce this pass's WarmViewEncoding from the resident state plus
         the journal's delta, or rebuild it. `views` is the caller's
-        already-taken snapshot of scheduler.existing_nodes; `ckey` the
-        catalog key of this solve."""
+        scheduler.existing_nodes, built from a cluster snapshot; `ckey` the
+        catalog key of this solve; `epoch` the journal's epoch at that
+        snapshot (Scheduler.snapshot_epoch), which this pass stores as its
+        checkpoint, full or delta. With `epoch` None the views are not the
+        cluster's snapshot: the pass is a bypass that leaves the resident
+        state as it was."""
         t0 = time.perf_counter()
+        if epoch is None:
+            self._note(PASS_BYPASS)
+            return AdvanceResult(None, PASS_BYPASS, "", time.perf_counter() - t0, 0)
         if not views:
             # nothing resident to protect; drop state so a later non-empty
             # pass starts clean rather than diffing against a stale map
@@ -176,11 +192,6 @@ class IncrementalEngine:
             self._note(PASS_BYPASS)
             return AdvanceResult(None, PASS_BYPASS, "", time.perf_counter() - t0, 0)
 
-        # checkpoint AFTER the views snapshot: over-dirtying (a mutation
-        # between snapshot and checkpoint lands in this window) is safe —
-        # the row is recomputed from the snapshot now and re-dirtied next
-        # pass by the double-window rule, which heals any staleness
-        epoch = self.journal.current_epoch()
         names = [v.node.name for v in views]
 
         reason = self._full_reason(names, ckey, epoch)
@@ -361,9 +372,10 @@ class IncrementalEngine:
             log.warning("injected device-buffer corruption: resident head_dev[0, 0] perturbed")
         rebase_seconds = time.perf_counter() - t_rebase
 
-        # next pass's healing window: ONLY the rows the journal named this
-        # pass (plus rows new to the map) can have been encoded from a
-        # snapshot a concurrent mutation straddled. Rows re-encoded merely
+        # next pass's double window: the rows the journal named this pass
+        # (plus rows new to the map). A mutation after the snapshot is in the
+        # next window through the snapshot's epoch already; the rule stays
+        # as a second guard. Rows re-encoded merely
         # because they sat in the previous window are healed and must leave
         # it — carrying all of dirty_idx would make the window transitively
         # cumulative, growing every pass until it trips 'bulk'

@@ -115,8 +115,8 @@ class _Pair:
         log = []
         advance = engine.advance
 
-        def logging_advance(views, ckey):
-            adv = advance(views, ckey)
+        def logging_advance(*args):
+            adv = advance(*args)
             log.append((adv.kind, adv.reason))
             corrupt = self._armed.pop(id(engine), None)
             if corrupt is not None:

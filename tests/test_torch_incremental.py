@@ -93,15 +93,16 @@ class _Pair:
         port = build_scheduler(
             testing.campaign_provisioners(), self.provider, [], cluster=self.cluster,
             state_nodes=self.cluster.nodes_snapshot(), dense_solver=None,
-        ).existing_nodes
-        return ref, port
+        )
+        return ref, port.existing_nodes, port.snapshot_epoch
 
     def advance(self, ckey, ctx):
-        """Both engines over their views; asserts the port's pass equals the
-        reference's and its encoding a fresh encode. Returns the port's."""
-        ref_views, views = self.views()
+        """Both engines over their views (the port's with its snapshot's
+        journal epoch); asserts the port's pass equals the reference's and
+        its encoding a fresh encode. Returns the port's."""
+        ref_views, views, epoch = self.views()
         want = self.ref_engine.advance(ref_views, ckey)
-        got = self.engine.advance(views, ckey)
+        got = self.engine.advance(views, ckey, epoch)
         assert (got.kind, got.reason, got.dirty_rows) == (want.kind, want.reason, want.dirty_rows), ctx
         if got.enc is not None:
             _assert_enc_equal(got.enc, want.enc, ctx)
@@ -214,7 +215,7 @@ def test_empty_views_bypass_and_drop_state():
     pair = _Pair(4600, "mt", min_nodes=0, seed_nodes=4, types=20)
     assert pair.advance(("ck",), "cold").kind == PASS_FULL
     assert pair.ref_engine.advance([], ("ck",)).kind == PASS_BYPASS
-    adv = pair.engine.advance([], ("ck",))
+    adv = pair.engine.advance([], ("ck",), pair.cluster.nodes_snapshot().epoch)
     assert adv.kind == PASS_BYPASS and adv.enc is None
     adv = pair.advance(("ck",), "after bypass")
     assert adv.kind == PASS_FULL and adv.reason == "cold"
