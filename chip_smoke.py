@@ -350,6 +350,12 @@ WAVE_RUNS = 3
 # the split-poll wave: MAX_MESSAGES on the controller instance, so the 8
 # notices arrive in 2 polls with no provisioning round between them
 WAVE_SPLIT_MESSAGES = 4
+# the nomination window: on the wave's fleet, one round nominates a second
+# batch (testing.reclaim_wave_workload(2000, seed=43)) and leaves it
+# unbound while the wave's 8 notices arrive in one poll, as they do in a
+# Runtime with --interruption-queue whose notices come while a round's pods
+# wait to bind
+WINDOW = ("nomination_window", 2000, 43)
 # the controller process: the entry point's command, how long it may take
 # to answer both probes and to exit on SIGTERM; the Runtime cell's standing
 # nodes (controller_round_overflow's shape) and its deadlines; the sidecar
@@ -1341,8 +1347,8 @@ def residency_ice_pools(dev, min_batch: int):
 def residency_cases(dev, min_batch: int) -> dict:
     """Both cases of incremental_residency on the tree whose package is
     imported, through the kernels and with the plain versions, with no
-    check applied: the phase (this tree) checks them, and chip_residency.py
-    runs them on another tree for comparison."""
+    check applied: the phase (this tree) checks them, and `chip_cmp.py
+    residency_cases` runs them on another tree for comparison."""
     t0 = time.perf_counter()
     bind = {"kernels": residency_bind_run(dev), "plain": residency_bind_run(dev, plain=True)}
     t1 = time.perf_counter()
@@ -2643,11 +2649,13 @@ class WaveBookings:
     (node name, pods) pairs (`placed`; from the results when the caller
     passed none: the new nodes with pods in order, every create of the wave
     succeeding, then the standing nodes) and a replacement's room. The
-    provisioning rounds' launches are not the wave's. It reads only what
-    every version of the package has, so a comparison driver can attach it
-    to another tree's wave (chip_wave.py)."""
+    provisioning rounds' launches are not the wave's, unless `every_launch`
+    is set: then every launch from its making on is booked, a round's
+    nominations included (nomination_window). It reads only what every
+    version of the package has, so a comparison script can attach it to
+    another tree's package (chip_cmp.py)."""
 
-    def __init__(self, env):
+    def __init__(self, env, every_launch: bool = False):
         from karpenter_tpu_torch.utils import resources as res
 
         self.res, self.env = res, env
@@ -2673,12 +2681,12 @@ class WaveBookings:
 
         def booking(results, *args, **kwargs):
             names = launch(results, *args, **kwargs)
-            if inside:
+            if inside or every_launch:
                 placed = kwargs.get("placed")
                 if placed is None:
                     new = [vn for vn in results.new_nodes if vn.pods]
                     if len(names) != len(new):
-                        raise PhaseFailed(f"a replacement's create failed in the wave: {len(names)} of {len(new)} launched")
+                        raise PhaseFailed(f"a create failed in the wave: {len(names)} of {len(new)} launched")
                     placed = list(zip(names, (vn.pods for vn in new))) + [(v.node.name, v.pods) for v in results.existing_nodes if v.pods]
                 self.book(placed)
             return names
@@ -3032,6 +3040,215 @@ def interruption_reclaim_wave(dev, min_batch: int, card_name) -> dict:
     want_polls = [i // WAVE_SPLIT_MESSAGES + 1 for i in range(WAVE_MAX_VICTIMS)]
     check(line["split_run"]["notice_polls"] == want_polls, f"{name}: the split run's notices arrived in polls {line['split_run']['notice_polls']}, not {want_polls}")
     check(line["split_run"]["outcome_equal_to_one_poll"], f"{name}: the split-poll wave's outcome differs from the one-poll wave's")
+    return line
+
+
+def window_run(dev, min_batch: int, plain: bool = False) -> dict:
+    """The nomination window on a fresh fleet (wave_env): WINDOW's second
+    batch created and one provisioning round run on it (K2 fills the
+    fleet's spare room, K1 prices the new nodes), its nominations left
+    unbound; then the wave's notices (wave_run's victims) delivered and
+    handled in one poll. WaveBookings(every_launch=True) books the round's
+    (node name, pods) pairs and every re-solve's against each node's room,
+    read from a wrapper of launch_nodes (not from the port's record of
+    nominations, so `chip_cmp.py window_cases` reads any tree alike). Then
+    converge as wave_run does, the round's nominations bound first. With
+    plain=True both kernels' plain versions stand in at the solve's seams;
+    else every kernel call is captured and held against its plain version
+    after the run."""
+    from karpenter_tpu_torch import testing
+    from karpenter_tpu_torch.ops.feasibility import bucket_type_cost_packed
+    from karpenter_tpu_torch.solver import DenseSolveStats
+    from karpenter_tpu_torch.solver import dense as dense_module
+    from karpenter_tpu_torch.solver import warmfill as fill_module
+
+    name, batch, seed = WINDOW
+    saved = dense_module.bucket_cost_packed, fill_module.admission_counts
+    captures = []
+    if plain:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = bucket_type_cost_packed, plain_admission_counts
+    else:
+        capture_kernel_calls(captures)
+    try:
+        t0 = time.perf_counter()
+        env = wave_env(dev, min_batch)
+        setup_s = time.perf_counter() - t0
+        kube, backend = env.kube, env.backend
+        fleet = kube.list_nodes()
+        populated = [n for n in fleet if kube.pods_on_node(n.name)]
+        victims = populated[: max(1, min(WAVE_MAX_VICTIMS, int(len(populated) * WAVE_FRACTION)))]
+        bookings = WaveBookings(env, every_launch=True)
+        for pod in testing.rename(testing.reclaim_wave_workload(batch, seed), "round"):
+            kube.create(pod)
+        solver = env.provisioner_controller.dense_solver
+        round_stats = solver.stats = DenseSolveStats()
+        del captures[:]
+        read_launches()
+        t0 = time.perf_counter()
+        results = env.provision()
+        sync(dev)
+        round_ms = (time.perf_counter() - t0) * 1e3
+        round_launches = read_launches()
+        round_calls, captures[:] = list(captures), []
+        round_new = [pool_of(kube.get_node(n)) for n in bookings.launched]
+        round_pods = bookings.placed_pods
+        round_bound = sum(1 for p in kube.list_pods() if p.spec.node_name and p.name.startswith("dp-round-"))
+        deadlines = [backend.interrupt_spot_instance(env.instance_id(v)) for v in victims]
+        wave_stats = solver.stats = DenseSolveStats()
+        t0 = time.perf_counter()
+        handled = env.interruption.poll_once()
+        sync(dev)
+        wave_ms = (time.perf_counter() - t0) * 1e3
+        wave_launches = read_launches()
+        wave_calls, captures[:] = list(captures), []
+        booked = bookings.summary()
+        replacements = [pool_of(kube.get_node(n)) for n in bookings.launched[len(round_new):]]
+        bound_round = env.bind_nominated()
+        drain_passes = 0
+        while any(kube.get_node(v.name) is not None for v in victims) and drain_passes < 4:
+            env.termination_controller.reconcile_all()
+            drain_passes += 1
+        drained = len(env.recreated)
+        before = {n.name for n in kube.list_nodes()}
+        env.provision()
+        post_drain = [pool_of(n) for n in kube.list_nodes() if n.name not in before]
+        converge_launches = read_launches()
+        converge_calls, captures[:] = list(captures), []
+        env.bind_nominated()
+        pending = sum(1 for p in kube.list_pods() if not p.spec.node_name)
+        env.clock.step(max(deadlines) - env.clock.now() + 1.0)
+        reclaimed = backend.reclaim_due_instances()
+        swept = env.gc.reconcile()
+        live = {i.instance_id for i in backend.list_instances()}
+        nodes = {n.name: n for n in kube.list_nodes()}
+        dead_nodes = sorted(n for n, node in nodes.items() if env.instance_id(node) not in live)
+        unbound = sum(1 for p in kube.list_pods() if p.spec.node_name not in nodes)
+        over = over_capacity(env)
+        end_price = sum(node_price(env, n) for n in nodes.values())
+    finally:
+        dense_module.bucket_cost_packed, fill_module.admission_counts = saved
+    return {
+        "setup_s": setup_s,
+        "fleet": len(fleet),
+        "victims": [pool_of(v) for v in victims],
+        "round": {
+            "pods": batch,
+            "on_standing": sum(len(v.pods) for v in results.existing_nodes),
+            "new_node_pods": sum(len(n.pods) for n in results.new_nodes),
+            "new_nodes": round_new,
+            "unschedulable": len(results.unschedulable),
+            "route": "dense" if round_stats.batches else "host",
+            "booked_pods": round_pods,
+            "bound_before_wave": round_bound,
+            "ms": round_ms,
+        },
+        "handled": handled,
+        "wave_ms": wave_ms,
+        "wave_route": "dense" if wave_stats.batches else "host",
+        "wave_pods_to_host": wave_stats.pods_to_host,
+        "bookings": booked,
+        "replacements": replacements,
+        "bound_round": bound_round,
+        "drain_passes": drain_passes,
+        "drained_pods": drained,
+        "post_drain_launches": post_drain,
+        "launches_total": len(replacements) + len(post_drain),
+        "end_price_per_hour": end_price,
+        "pending_after_round": pending,
+        "unbound_pods": unbound,
+        "dead_nodes": dead_nodes,
+        "over_capacity": over,
+        "reclaimed": reclaimed,
+        "gc": swept,
+        "launches": {"round": round_launches, "wave": wave_launches, "converge": converge_launches},
+        "held": [] if plain else hold_kernel_calls(round_calls + wave_calls + converge_calls, dev),
+    }
+
+
+def window_outcome(run) -> dict:
+    """What the kernels' and the plain versions' windows must agree on."""
+    keys = ("victims", "replacements", "post_drain_launches", "pending_after_round", "end_price_per_hour")
+    return {**{k: run[k] for k in keys}, "round": {k: run["round"][k] for k in ("on_standing", "new_node_pods", "new_nodes")}, "overbooked": run["bookings"]["overbooked"]}
+
+
+def window_cases(dev, min_batch: int) -> dict:
+    """nomination_window's two runs, kernels then plain versions, with no
+    check (`chip_cmp.py window_cases` runs them on other trees' packages)."""
+    return {"kernels": window_run(dev, min_batch), "plain": window_run(dev, min_batch, plain=True)}
+
+
+def nomination_window(dev, min_batch: int, card_name) -> dict:
+    """A provisioning round's nominations still unbound when a spot reclaim
+    wave's notices arrive (window_run), through the kernels and through
+    their plain versions. Prints the `window` line and checks it: no node
+    booked beyond its room in either run, the same outcome, every K1/K2
+    call held bit for bit, K2 and K1 in the round and in the re-solves."""
+    name, batch, seed = WINDOW
+    t0 = time.perf_counter()
+    cases = window_cases(dev, min_batch)
+    kern, plain = cases["kernels"], cases["plain"]
+
+    def launches(run):
+        return {part: run["launches"][part] for part in ("round", "wave", "converge")}
+
+    holds = {}
+    for kernel in ("bucket_type_cost", "warm_fill_counts"):
+        held = [h for h in kern["held"] if h["kernel"] == kernel]
+        holds[kernel] = {
+            "calls": len(held),
+            "identical": sum(h["identical"] for h in held),
+            "max_abs_err": max((h["max_abs_err"] for h in held), default=0.0),
+        }
+    line = {
+        "phase": "window",
+        "config": name,
+        "card": card_name,
+        "min_batch": min_batch,
+        "fleet_pods": WAVE[1],
+        "round_pods": batch,
+        "round_seed": seed,
+        "fleet_nodes": kern["fleet"],
+        "victims": kern["victims"],
+        "round": kern["round"],
+        "handled": kern["handled"],
+        "wave_ms": kern["wave_ms"],
+        "wave_route": kern["wave_route"],
+        "overbooked": {"kernels": kern["bookings"]["overbooked"], "plain": plain["bookings"]["overbooked"]},
+        # WaveBookings' `replacements` counts the round's new nodes too
+        "bookings": {k: v for k, v in kern["bookings"].items() if k != "replacements"},
+        "replacements": kern["replacements"],
+        "post_drain_launches": kern["post_drain_launches"],
+        "launches_total": kern["launches_total"],
+        "end_price_per_hour": kern["end_price_per_hour"],
+        "kernel_launches": launches(kern),
+        "kernel_holds": holds,
+        "plain_run": {
+            "launches": launches(plain),
+            "overbooked": plain["bookings"]["overbooked"],
+            "outcome_identical": window_outcome(plain) == window_outcome(kern),
+        },
+        "setup_s": [kern["setup_s"], plain["setup_s"]],
+        "phase_s": time.perf_counter() - t0,
+    }
+    emit(line)
+    for tag, run in (("kernels", kern), ("plain", plain)):
+        check(run["bookings"]["overbooked"] == 0, f"{name} ({tag}): {run['bookings']['overbooked']} nodes booked beyond their room: {run['bookings']['overbooked_nodes']}")
+        check(run["round"]["bound_before_wave"] == 0, f"{name} ({tag}): {run['round']['bound_before_wave']} of the round's pods bound before the wave")
+        check(run["round"]["on_standing"] > 0, f"{name} ({tag}): the round nominated nothing onto the fleet")
+        check(run["handled"] == len(run["victims"]) == WAVE_MAX_VICTIMS, f"{name} ({tag}): {run['handled']} messages in the poll for {len(run['victims'])} victims")
+        check(len(run["replacements"]) > 0, f"{name} ({tag}): the re-solves launched no replacement")
+        check(run["pending_after_round"] == 0 and run["unbound_pods"] == 0, f"{name} ({tag}): {run['pending_after_round']} pods pending, {run['unbound_pods']} on gone nodes")
+        check(not run["dead_nodes"] and not run["over_capacity"], f"{name} ({tag}): dead nodes {run['dead_nodes'][:5]}, over capacity {run['over_capacity'][:5]}")
+        check(run["gc"] == {"orphans": [], "ghosts": []}, f"{name} ({tag}): gc collected {run['gc']}")
+    for part in ("round", "wave"):
+        got = kern["launches"][part]
+        check(got["warm_fill_counts"] > 0 and got["bucket_type_cost"] > 0, f"{name}: the {part} launched {got}, not both kernels")
+    for kernel in ("bucket_type_cost", "warm_fill_counts"):
+        launched = sum(kern["launches"][part][kernel] for part in ("round", "wave", "converge"))
+        check(holds[kernel]["calls"] == launched, f"{name}: {holds[kernel]['calls']} {kernel} calls held for {launched} launches")
+        check(holds[kernel]["identical"] == holds[kernel]["calls"], f"{name}: a {kernel} call differs from its plain version: {holds[kernel]}")
+    check(not any(v for part in plain["launches"].values() for v in part.values()), f"{name}: the plain versions' run launched kernels: {plain['launches']}")
+    check(line["plain_run"]["outcome_identical"], f"{name}: the kernels' and the plain versions' runs differ: {window_outcome(kern)} vs {window_outcome(plain)}")
     return line
 
 
@@ -7880,6 +8097,9 @@ def main() -> int:
     # nodes, K1 for the replacements) with the reclaimed pools quarantined,
     # the drain, the post-drain round and the gc sweep
     wave_line = interruption_reclaim_wave(dev, min_batch, card_name)
+    # 12b'. the nomination window: a round's nominations still unbound when
+    # the wave's notices arrive; every re-solve counts them
+    window_line = nomination_window(dev, min_batch, card_name)
 
     # 12c. the controller process: the entry point booted as a child (the
     # crossover measured at boot, the probes, SIGTERM), the headline batch
@@ -7987,6 +8207,11 @@ def main() -> int:
         (re-solves and round together)."""
         return {part: wave_line["kernel_launches"][part][kernel_name] for part in ("wave", "round", "split")}
 
+    def window_launches(kernel_name):
+        """The nomination window's launches of one kernel: the round that
+        nominates, the wave's re-solves, the converge's round."""
+        return {part: window_line["kernel_launches"][part][kernel_name] for part in ("round", "wave", "converge")}
+
     # 13. the launch floor: the device time of the smallest kernel PyTorch
     # launches (a fill of one element), in this run, on this card
     one = torch.zeros(1, device=dev)
@@ -8051,6 +8276,7 @@ def main() -> int:
                 "controller_launches": controller_launches("bucket_type_cost"),
                 "disruption_launches": disruption_launches("bucket_type_cost"),
                 "interruption_launches": interruption_launches("bucket_type_cost"),
+                "window_launches": window_launches("bucket_type_cost"),
                 "residency_launches": {line["case"]: line["kernel_launches"]["bucket_type_cost"] for line in residency_lines},
                 "runtime_launches": runtime_launches("bucket_type_cost"),
                 "traced_launches": traced_line["kernel_launches"]["bucket_type_cost"],
@@ -8122,6 +8348,7 @@ def main() -> int:
                 "controller_launches": controller_launches("warm_fill_counts"),
                 "disruption_launches": disruption_launches("warm_fill_counts"),
                 "interruption_launches": interruption_launches("warm_fill_counts"),
+                "window_launches": window_launches("warm_fill_counts"),
                 "residency_launches": {line["case"]: line["kernel_launches"]["warm_fill_counts"] for line in residency_lines},
                 "runtime_launches": runtime_launches("warm_fill_counts"),
                 "traced_launches": traced_line["kernel_launches"]["warm_fill_counts"],

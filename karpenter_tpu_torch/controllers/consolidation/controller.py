@@ -25,7 +25,10 @@ store per candidate, twice (kube.pods_on_node in _is_empty and
 _disruption_cost): on 2,000 nodes of 72 pods that is 4,000 scans of 144,000
 pods a pass. The cordons go through the backend's retry_on_conflict: a
 replace whose cordon loses to a conflict no retry absorbed is left to the
-next pass, its other nodes uncordoned.
+next pass, its other nodes uncordoned. And one deliberate difference: the
+what-if counts the live nominations of cluster state's record
+(`ProvisionerController.nominated_view`), where the reference solves on the
+bound pods only and can justify a DELETE with room a round has nominated.
 """
 
 from __future__ import annotations
@@ -397,7 +400,9 @@ class ConsolidationController:
         """Simulate scheduling the node's pods with the node gone
         (controller.go:430-498)."""
         reschedulable = [p for p in pods if not podutils.is_owned_by_daemonset(p) and not podutils.is_terminal(p)]
-        state_nodes = self.cluster.nodes_snapshot()
+        # room a round or a re-solve nominated is taken although no pod is
+        # bound there yet: a DELETE must not count on it
+        state_nodes, nominated = self.provisioner_controller.nominated_view(reschedulable)
         # the simulated solve's span tree (incl. the dense phase children)
         # nests under this, so a slow consolidation pass is attributable
         with TRACER.span("simulate", candidate=candidate.name, pods=len(reschedulable)):
@@ -405,6 +410,7 @@ class ConsolidationController:
                 reschedulable,
                 state_nodes,
                 opts=SchedulerOptions(simulation_mode=True, exclude_nodes=[candidate.name]),
+                nominated=nominated,
             )
         if results.unschedulable:
             return ConsolidationAction(ActionType.NO_ACTION, reason="pods would not reschedule")

@@ -5,8 +5,11 @@ Mirrors pkg/controllers/counter/controller.go — sums cluster-state capacity
 which the limits check consumes.
 
 The port's copy of karpenter_tpu/controllers/counter/controller.py. The
-status write goes through the backend's retry_on_conflict, and a conflict no
-retry absorbed leaves the provisioner to the next pass.
+status write goes through the backend's retry_on_conflict to the
+Provisioner's status subresource, so it lands the status only and runs no
+admission: a Provisioner another client wrote with no admission keeps the
+spec it was written with (the reference's full update defaults it). A
+conflict no retry absorbed leaves the provisioner to the next pass.
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ class CounterController:
                 return True
 
             try:
-                self.kube.retry_on_conflict("Provisioner", provisioner.name, provisioner.metadata.namespace, mutate, held=provisioner)
+                self.kube.retry_on_conflict(
+                    "Provisioner", provisioner.name, provisioner.metadata.namespace, mutate, held=provisioner, status_only=True
+                )
             except Conflict as err:
                 requeue("CounterController", provisioner, err)

@@ -26,7 +26,9 @@ re-simulation is the provisioner's schedule() in simulation mode, so on the
 card a batch of at least the solver's min_batch pods runs through K2 and,
 for new nodes, K1. The drifted flag is written through the backend's
 retry_on_conflict, and a conflict no retry absorbed leaves the candidate to
-the next pass.
+the next pass. The re-simulation counts the live nominations of cluster
+state's record (`ProvisionerController.nominated_view`); the reference's
+counts the bound pods only.
 """
 
 from __future__ import annotations
@@ -134,10 +136,13 @@ class MethodBase:
         pods = [p for p in self.kube.pods_on_node(node.name) if podutils.is_reschedulable(p)]
         if not pods:
             return []
+        # the live nominations hold room no bound pod shows yet
+        state_nodes, nominated = self.provisioner_controller.nominated_view(pods)
         results = self.provisioner_controller.schedule(
             pods,
-            self.cluster.nodes_snapshot(),
+            state_nodes,
             opts=SchedulerOptions(simulation_mode=True, exclude_nodes=[node.name]),
+            nominated=nominated,
         )
         if results.unschedulable:
             return None

@@ -48,23 +48,25 @@ A second deliberate difference: the pods a re-solve places are neither
 bound nor counted in cluster state until their successors bind, so in the
 reference each notice of a wave re-solves on a snapshot that shows the room
 earlier notices booked as free again, books it twice and books their
-replacements as empty nodes. Here the controller keeps a ledger of the
-(node name, pods) pairs its re-solves placed (`_booked`, from
-`launch_nodes(placed=)`), and every later re-solve counts them on its
-snapshot (`ProvisionerController.nominated_snapshot`) and in its topology
-domains (`schedule(nominated=)`), each pod once, at the node it was booked
-on. An entry leaves once its node is gone from cluster state or the
-cluster's nomination window (`Cluster.nomination_ttl`) has passed since the
-booking; a successor bound inside that window is counted twice, which can
-only cost a later re-solve an extra launch, never an over-booked node.
+replacements as empty nodes; and a notice handled between a provisioning
+round's nominations and their binds books the round's room again. Here
+every launch enters its (node name, pods) pairs in cluster state's record
+of nominations (`Cluster.nominate_pods`, from `launch_nodes`), and every
+re-solve counts the record's live pairs on its snapshot
+(`ProvisionerController.nominated_snapshot`) and in its topology domains
+(`schedule(nominated=)`), each pod once, at the node it was last nominated
+on. An entry leaves once its pod is bound there, once its node is gone from
+cluster state or once the cluster's nomination window
+(`Cluster.nomination_ttl`) has passed since the nomination; a successor
+bound inside that window is counted twice, which can only cost a later
+re-solve an extra launch, never an over-booked node.
 """
 
 from __future__ import annotations
 
-import copy
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
-from ...analysis import WITNESS, guarded_by, requires_lock
+from ...analysis import WITNESS, guarded_by
 from ...api import labels as lbl
 from ...api.objects import Node
 from ...events import Recorder
@@ -103,28 +105,7 @@ class _ReSolveFault(Exception):
     poll_once()'s per-message handler."""
 
 
-class _Booking:
-    """One (node name, pods) pair a re-solve placed, the pods as the booking
-    saw them, until `expiry`. `seen` is set once the node is in cluster
-    state (a replacement reaches it through the node watch, which may lag
-    the launch), so only a node that was there and left ends the entry."""
-
-    __slots__ = ("node", "pods", "expiry", "seen")
-
-    def __init__(self, node: str, pods: list, expiry: float, seen: bool):
-        self.node, self.pods, self.expiry, self.seen = node, pods, expiry, seen
-
-
-def _as_booked(pod):
-    """A copy of the pod that its eviction leaves as it is: a graceful delete
-    sets the deletion timestamp in place on the stored object, and the
-    topology counts no terminating pod among the nominated ones."""
-    clone = copy.copy(pod)
-    clone.metadata = copy.copy(pod.metadata)
-    return clone
-
-
-@guarded_by("_lock", "_handled", "_replaced", "_booked")
+@guarded_by("_lock", "_handled", "_replaced")
 class InterruptionController:
     MAX_MESSAGES = 10
 
@@ -154,7 +135,6 @@ class InterruptionController:
         self._lock = WITNESS.lock("interruption.controller")
         self._handled: dict = {}  # message_id -> expiry (duplicate suppression)
         self._replaced: dict = {}  # node name -> expiry (one proactive solve per victim)
-        self._booked: List[_Booking] = []  # what this controller's re-solves placed
         self.messages_received = REGISTRY.counter(
             "karpenter_interruption_messages_received",
             "Interruption queue messages received, by parsed kind ('malformed' for parse failures)",
@@ -406,12 +386,12 @@ class InterruptionController:
         ]
         if not pods:
             return 0
-        # what earlier re-solves placed is not bound yet: count it on the
-        # snapshot and in the topology domains, or this re-solve hands the
-        # same room out again and takes their replacements for empty nodes
-        with self._lock:
-            booked = self._live_bookings()
-            state_nodes = self.provisioner.nominated_snapshot(booked)
+        # what earlier re-solves and rounds nominated is not bound yet: count
+        # it on the snapshot and in the topology domains, or this re-solve
+        # hands the same room out again and takes their replacements for
+        # empty nodes
+        booked = self._live_bookings(pods)
+        state_nodes = self.provisioner.nominated_snapshot(booked)
         with TRACER.span("re-solve", node=node.name, pods=len(pods)):
             try:
                 results = self.provisioner.schedule(
@@ -423,9 +403,9 @@ class InterruptionController:
                 raise _ReSolveFault() from err
         placed: List[tuple] = []
         with TRACER.span("launch-replacement", node=node.name) as sp:
+            # the launch enters its pairs in cluster state's record
             launched = self.provisioner.launch_nodes(results, placed=placed)
             sp.set(launched=len(launched))
-        self._book(placed)
         self.recorder.interruption_replacement_launched(node, len(pods))
         log.info(
             "proactive re-solve for %s: %d pod(s) -> %d replacement node(s) launched, %d onto existing capacity",
@@ -434,26 +414,11 @@ class InterruptionController:
         return len(launched)
 
     def _book(self, placed: List[tuple]) -> None:
-        """Enter a launch's (node name, pods) pairs in the ledger for the
-        cluster's nomination window."""
-        expiry = self.clock.now() + self.cluster.nomination_ttl
-        entries = [
-            _Booking(name, [_as_booked(p) for p in pods], expiry, self.cluster.get_state_node(name) is not None)
-            for name, pods in placed
-        ]
-        with self._lock:
-            self._booked += entries
+        """Enter (node name, pods) pairs in cluster state's record of
+        nominations, as a launch does."""
+        self.cluster.nominate_pods(placed)
 
-    @requires_lock
-    def _live_bookings(self) -> List[tuple]:
-        """Drop the entries whose window has passed or whose node left
-        cluster state; the (node name, pods) pairs of the rest."""
-        now = self.clock.now()
-        live = []
-        for entry in self._booked:
-            present = self.cluster.get_state_node(entry.node) is not None
-            entry.seen |= present
-            if entry.expiry > now and (present or not entry.seen):
-                live.append(entry)
-        self._booked = live
-        return [(entry.node, entry.pods) for entry in live]
+    def _live_bookings(self, solving: Sequence = ()) -> List[tuple]:
+        """The record's live (node name, pods) pairs, less the pods of
+        `solving`, the re-solve's own."""
+        return self.cluster.nominations(solving=solving)

@@ -28,7 +28,12 @@ Three deliberate differences from the reference:
   where the pods the round nominated are not yet bound, so it hands their
   capacity out again; the port's re-solve counts them on their nodes, in
   the nodes' free resources and in the topology domains (over the solver
-  sidecar too: the request ships them as bound to their nodes);
+  sidecar too: the request ships them as bound to their nodes). It counts
+  every other live nomination too: `launch_nodes` enters every pair it
+  collects in cluster state's record of nominations
+  (`Cluster.nominate_pods`), and `nominated_view` is what every re-solve
+  reads, the interruption controller's and the disruption what-ifs'
+  included;
 - where the solver sidecar fails, its `schedule` falls back to the local
   scheduler; the port's lets the RemoteSchedulingError out of `schedule()`
   (and so out of the round), as a failure on the card would.
@@ -242,6 +247,9 @@ class ProvisionerController:
                     raise ClusterNotSynced("cluster state failed to synchronize")
                 self.clock.sleep(0.05)
 
+        # the primary solve reads no nominations: its batch holds the pods a
+        # round nominated that are still pending, and counting them again
+        # would book them twice
         state_nodes = self.cluster.nodes_snapshot()
         # batch: collect + constrain the pending pods (PVC validation and
         # volume-topology injection live inside get_pods)
@@ -255,8 +263,7 @@ class ProvisionerController:
         start = self.clock.now()
         results = self._schedule_journaled(pods, state_nodes)
         ice_failed: List[object] = []
-        placed: List[tuple] = []
-        launched = self.launch_nodes(results, ice_failures=ice_failed, placed=placed)
+        launched = self.launch_nodes(results, ice_failures=ice_failed)
         # fallback re-solve: a typed insufficient-capacity launch failure
         # already fed the provider's negative offering cache, so an
         # IMMEDIATE re-solve sees a universe with the exhausted pools
@@ -269,12 +276,15 @@ class ProvisionerController:
                 break
             retry_pods = [p for vn in ice_failed for p in vn.pods]
             # the round's placements are nominated, not bound: the re-solve
-            # counts them, or it would hand their capacity out again
+            # counts them and every other live nomination (cluster state's
+            # record, which launch_nodes entered them in), or it would hand
+            # their capacity out again
             with TRACER.span("ice-resolve", attempt=attempt + 1, pods=len(retry_pods)):
-                retry_results = self._schedule_journaled(retry_pods, self.nominated_snapshot(placed), nominated=placed)
+                state_nodes, nominated = self.nominated_view(retry_pods)
+                retry_results = self._schedule_journaled(retry_pods, state_nodes, nominated=nominated)
                 any_unschedulable |= bool(retry_results.unschedulable)
                 ice_failed = []
-                launched += self.launch_nodes(retry_results, ice_failures=ice_failed, placed=placed)
+                launched += self.launch_nodes(retry_results, ice_failures=ice_failed)
         if ice_failed:
             self._park_ice_failures(ice_failed)
         # requeue-with-backoff liveness: ANY pod left unschedulable this
@@ -341,24 +351,34 @@ class ProvisionerController:
         for pod, err in results.unschedulable.items():
             JOURNAL.pod_event(pod.metadata.name, "failed", error=str(err)[:200], trace_id=trace_id)
 
+    def nominated_view(self, pods: Sequence[Pod]) -> tuple:
+        """What a re-solve of `pods` solves on: the state nodes with the
+        live nominations of cluster state's record counted on them, and
+        those (node name, pods) pairs for the topology
+        (`schedule(nominated=)`); `pods` themselves are left out."""
+        nominated = self.cluster.nominations(solving=pods)
+        return self.nominated_snapshot(nominated), nominated
+
     def nominated_snapshot(self, placed: Sequence[tuple]) -> List[object]:
         """The cluster's state nodes with the (node name, pods) placements
         of `placed` counted on them (a pair whose node is not in cluster
-        state counts nowhere). The capacity-failure re-solve and the
-        interruption controller's re-solves solve on it. It is a plain list
-        with no snapshot epoch: its views are not the cluster's snapshot, so
-        a solve on them bypasses the incremental engine (its resident state
-        is neither read nor written, and no audit runs), as a simulation
-        does. The nominations are in no journal, so the engine's rows could
-        not show them."""
-        nodes = list(self.cluster.nodes_snapshot())
-        by_name = {state.name: state for state in nodes}
+        state counts nowhere). Where a pair falls on them, it is a plain
+        list with no snapshot epoch: its views are not the cluster's
+        snapshot, so a solve on them bypasses the incremental engine (its
+        resident state is neither read nor written, and no audit runs), as a
+        simulation does. The nominations are in no journal, so the engine's
+        rows could not show them. Where none does, it is the snapshot
+        itself, and the engine serves it."""
+        snapshot = self.cluster.nodes_snapshot()
+        by_name = {state.name: state for state in snapshot}
+        if not any(name in by_name for name, _ in placed):
+            return snapshot
         for name, pods in placed:
             state = by_name.get(name)
             if state is not None:
                 for pod in pods:
                     state.add_pod(pod)
-        return nodes
+        return list(snapshot)
 
     def _park_ice_failures(self, failed_nodes) -> None:
         """Terminal rung of the escalation ladder: every re-solve attempt
@@ -515,7 +535,8 @@ class ProvisionerController:
         launch — never share state) collects the virtual nodes whose launch
         hit a typed InsufficientCapacityError: the fallback re-solve input.
         `placed` (caller-owned too) collects a (node name, pods) pair for
-        each launched node and each existing node nominated pods."""
+        each launched node and each existing node nominated pods; every such
+        pair enters cluster state's record of nominations, whoever called."""
         with TRACER.span("launch") as sp:
             launched = self._launch_nodes(results, ice_failures, placed)
             sp.set(nodes=len(launched))
@@ -572,8 +593,7 @@ class ProvisionerController:
             with ThreadPoolExecutor(max_workers=min(len(approved), self.LAUNCH_WORKERS)) as pool:
                 names = list(pool.map(lambda vn: self._launch(vn, parent_ctx, ice_failures), approved))
         launched = [n for n in names if n is not None]
-        if placed is not None:
-            placed += [(name, vn.pods) for name, vn in zip(names, approved) if name is not None]
+        pairs = [(name, vn.pods) for name, vn in zip(names, approved) if name is not None]
         # nominate pods onto existing nodes they were scheduled against
         with TRACER.span("bind") as sp:
             nominated = 0
@@ -586,9 +606,12 @@ class ProvisionerController:
                         nominated += 1
                         if journal_on:
                             JOURNAL.pod_event(pod.metadata.name, "nominated", node=view.node.name)
-                    if placed is not None:
-                        placed.append((view.node.name, view.pods))
+                    pairs.append((view.node.name, view.pods))
             sp.set(nominated=nominated)
+        # every re-solve reads what this launch nominated until the pods bind
+        self.cluster.nominate_pods(pairs)
+        if placed is not None:
+            placed += pairs
         return launched
 
     def _launch(self, virtual_node, parent_ctx=None, ice_failures: Optional[List[object]] = None) -> Optional[str]:

@@ -18,11 +18,23 @@ pod on a node is StateNode.add_pod, so the provisioner can count the pods a
 round nominated on a snapshot. `nodes_snapshot()` returns a NodesSnapshot:
 the state nodes and the delta journal's epoch of the same instant, which is
 the incremental engine's checkpoint for a solve on them.
+
+A deliberate difference from the reference: cluster state keeps a record of
+every pod a launch nominated (`nominate_pods`, from
+ProvisionerController.launch_nodes), keyed by pod, so a pod's newest
+nomination replaces an older one. Every re-solve reads it (`nominations`):
+the provisioning round's capacity-failure re-solve, the interruption
+controller's re-solves and the disruption what-ifs. The reference counts
+bound pods only, so a re-solve between a round's nominations and their
+binds books the nominated room a second time. An entry leaves once its pod
+is bound at its node (the binding counts it from then on), once its node
+was seen here and has left, or once `nomination_ttl` has passed.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+import copy
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 from ...analysis import WITNESS, guarded_by, requires_lock
 from ...api import labels as lbl
@@ -119,6 +131,27 @@ class NodesSnapshot(list):
         self.epoch = epoch
 
 
+class _Nomination:
+    """A pod's newest nomination: its node, the pod as the launch saw it, and
+    its expiry. `seen` is set once the node is in cluster state (a launched
+    node reaches it through the node watch, which may lag the launch), so
+    only a node that was here and left ends the entry."""
+
+    __slots__ = ("node", "pod", "expiry", "seen")
+
+    def __init__(self, node: str, pod: Pod, expiry: float):
+        self.node, self.pod, self.expiry, self.seen = node, pod, expiry, False
+
+
+def _as_nominated(pod: Pod) -> Pod:
+    """A copy of the pod that its eviction leaves as it is: a graceful delete
+    sets the deletion timestamp in place on the stored object, and the
+    topology counts no terminating pod among the nominated ones."""
+    clone = copy.copy(pod)
+    clone.metadata = copy.copy(pod.metadata)
+    return clone
+
+
 def _pod_key(pod: Pod) -> str:
     """Namespaced name, the reference's binding key (cluster.go:129,266).
     Keying by name (not uid) makes a same-name recreate displace the stale
@@ -135,6 +168,7 @@ def _pod_key(pod: Pod) -> str:
     "_pods",
     "_anti_affinity_pods",
     "_nominated",
+    "_pod_nominations",
     "_consolidation_epoch",
     "_last_node_deletion",
     "_last_node_creation",
@@ -154,6 +188,7 @@ class Cluster:
         self._pods: Dict[str, Pod] = {}  # pod key -> pod (bound pods)
         self._anti_affinity_pods: Dict[str, Pod] = {}
         self._nominated: Dict[str, float] = {}  # node name -> expiry
+        self._pod_nominations: Dict[str, _Nomination] = {}  # pod key -> its newest nomination
         self._consolidation_epoch = 0
         self._last_node_deletion = 0.0
         self._last_node_creation = 0.0
@@ -395,6 +430,50 @@ class Cluster:
                 self._bump_epoch()
                 return False
             return True
+
+    def nominate_pods(self, pairs: Iterable[tuple]) -> None:
+        """Enter the (node name, pods) pairs of a launch in the record of
+        nominations, each pod as a copy, for the nomination window. A pod's
+        entry replaces its older one. The entries whose window has passed
+        leave here too, so the record holds one window's nominations even
+        where no re-solve reads it."""
+        now = self.clock.now()
+        expiry = now + self.nomination_ttl
+        entries = [(_pod_key(pod), _Nomination(name, _as_nominated(pod), expiry)) for name, pods in pairs for pod in pods]
+        with self._lock:
+            for key, entry in entries:
+                entry.seen = entry.node in self._nodes
+                # re-inserted, so the record stays in nomination order
+                self._pod_nominations.pop(key, None)
+                self._pod_nominations[key] = entry
+            # in nomination order the oldest expire first
+            while self._pod_nominations:
+                key, first = next(iter(self._pod_nominations.items()))
+                if first.expiry > now:
+                    break
+                del self._pod_nominations[key]
+
+    def nominations(self, solving: Sequence[Pod] = ()) -> List[tuple]:
+        """The live nominations as (node name, pods) pairs, in the order
+        they were made, after dropping the entries whose pod is bound at
+        their node, whose node was seen and has left, or whose window has
+        passed. The pods of `solving`, the re-solve's own batch, are left
+        out. The pairs are built under the lock: a launch on another thread
+        re-enters keys of the record while a re-solve reads it."""
+        now = self.clock.now()
+        skip = {_pod_key(pod) for pod in solving}
+        by_node: Dict[str, List[Pod]] = {}
+        with self._lock:
+            live: Dict[str, _Nomination] = {}
+            for key, entry in self._pod_nominations.items():
+                present = entry.node in self._nodes
+                entry.seen |= present
+                if entry.expiry > now and (present or not entry.seen) and self._bindings.get(key) != entry.node:
+                    live[key] = entry
+                    if key not in skip:
+                        by_node.setdefault(entry.node, []).append(entry.pod)
+            self._pod_nominations = live
+        return list(by_node.items())
 
     # -- consolidation bookkeeping ----------------------------------------------
 

@@ -18,15 +18,21 @@ need, over plain JSON dicts:
     (ADDED/MODIFIED/DELETED) from a bounded journal; a too-old version gets
     410 Gone so clients relist (the informer contract)
   - subresources: pods/{name}/eviction (PDB-aware, 429 on violation, the
-    eviction.go:100-107 status-code contract) and pods/{name}/binding (the
-    kube-scheduler's bind verb)
+    eviction.go:100-107 status-code contract), pods/{name}/binding (the
+    kube-scheduler's bind verb) and {plural}/{name}/status (a PUT that lands
+    the status only)
 
 State is wire-format dicts end to end; the server never imports the object
 model, so it exercises the codec + client exactly as a remote apiserver
 would.
 
 The port's copy of karpenter_tpu/kube/apiserver.py. One change of cost only:
-the handler sets TCP_NODELAY on its connections.
+the handler sets TCP_NODELAY on its connections. One addition: the status
+subresource, as the repo's CRD declares it for provisioners
+(deploy/karpenter-tpu.yaml, `subresources: status`). A PUT to
+{plural}/{name}/status keeps the stored object but its status, and no
+webhook sees it, since a registered rule names the resource, not its
+status.
 """
 
 from __future__ import annotations
@@ -308,10 +314,7 @@ class APIServerState:
             current = self._objects.get(key)
             if current is None:
                 raise ApiError(404, "NotFound", f"{kind} {name!r} not found")
-            incoming_rv = wire.get("metadata", {}).get("resourceVersion") or "0"
-            current_rv = current.get("metadata", {}).get("resourceVersion")
-            if incoming_rv not in ("0", "", None) and incoming_rv != current_rv:
-                raise ApiError(409, "Conflict", f"{kind} {name!r}: stale resourceVersion {incoming_rv} (current {current_rv})")
+            _check_version(kind, name, current, wire)
             meta = wire.setdefault("metadata", {})
             # immutable server-owned fields
             meta["uid"] = current["metadata"].get("uid")
@@ -328,6 +331,24 @@ class APIServerState:
             self._objects[key] = wire
             self._emit(kind, "MODIFIED", wire)
             return wire
+
+    def update_status(self, kind: str, namespace: str, name: str, wire: dict) -> dict:
+        """PUT {plural}/{name}/status: the stored object with the incoming
+        status, under the same resourceVersion check as update(); no
+        admission runs."""
+        self._chaos("update", kind)
+        with self._lock:
+            key = (kind, namespace, name)
+            current = self._objects.get(key)
+            if current is None:
+                raise ApiError(404, "NotFound", f"{kind} {name!r} not found")
+            _check_version(kind, name, current, wire)
+            stored = json.loads(json.dumps(current))
+            stored["status"] = wire.get("status", {})
+            self._bump(stored)
+            self._objects[key] = stored
+            self._emit(kind, "MODIFIED", stored)
+            return stored
 
     def delete(self, kind: str, namespace: str, name: str, force: bool = False) -> dict:
         self._chaos("delete", kind)
@@ -426,6 +447,15 @@ class APIServerState:
             status["conditions"] = [c for c in status.get("conditions", []) if c.get("type") != "PodScheduled"]
             self._bump(pod)
             self._emit("Pod", "MODIFIED", pod)
+
+
+def _check_version(kind: str, name: str, current: dict, wire: dict) -> None:
+    """Optimistic concurrency: a PUT carrying a non-zero resourceVersion
+    other than the stored one gets 409 Conflict."""
+    incoming_rv = wire.get("metadata", {}).get("resourceVersion") or "0"
+    current_rv = current.get("metadata", {}).get("resourceVersion")
+    if incoming_rv not in ("0", "", None) and incoming_rv != current_rv:
+        raise ApiError(409, "Conflict", f"{kind} {name!r}: stale resourceVersion {incoming_rv} (current {current_rv})")
 
 
 def _selector_matches(selector: Optional[dict], labels: Dict[str, str]) -> bool:
@@ -600,8 +630,11 @@ class _Handler(BaseHTTPRequestHandler):
     def do_PUT(self):
         url = urlparse(self.path)
         try:
-            kind, namespaced, namespace, name, _ = _parse_path(url.path)
-            wire = self.state.update(kind, namespace, name, self._read_body())
+            kind, namespaced, namespace, name, sub = _parse_path(url.path)
+            if sub == "status":
+                wire = self.state.update_status(kind, namespace, name, self._read_body())
+            else:
+                wire = self.state.update(kind, namespace, name, self._read_body())
             self._send_json(200, wire)
         except ApiError as err:
             self._send_error(err)

@@ -29,7 +29,8 @@ The port's copy of karpenter_tpu/kube/client.py, with two additions:
   - `retry_on_conflict`, client-go's RetryOnConflict, which re-reads the
     object and re-applies the caller's edit after a 409 instead of
     resending a stale object (update() keeps the reference's
-    refresh-and-resend);
+    refresh-and-resend); with `status_only` it PUTs to the
+    object's /status, which lands the status only;
   - one shared informer per kind, client-go's SharedIndexInformer: the
     first watch() of a kind starts its one ListAndWatch stream, and every
     later watch() of that kind joins it, so an event is decoded once for
@@ -421,11 +422,13 @@ class HttpKubeClient:
         obj.metadata.resource_version = int(out.get("metadata", {}).get("resourceVersion") or 0)
         return obj
 
-    def _conditional_put(self, obj, verb: str) -> dict:
-        """PUT `obj` at the resourceVersion it carries and return the
-        apiserver's answer; a 409 raises Conflict, counted under `verb`."""
+    def _conditional_put(self, obj, verb: str, status_only: bool = False) -> dict:
+        """PUT `obj` at the resourceVersion it carries (to its /status with
+        `status_only`) and return the apiserver's answer; a 409 raises
+        Conflict, counted under `verb`."""
+        path = rest_path(obj.kind, obj.metadata.namespace, obj.metadata.name) + ("/status" if status_only else "")
         try:
-            return self._request("PUT", rest_path(obj.kind, obj.metadata.namespace, obj.metadata.name), to_wire(obj))
+            return self._request("PUT", path, to_wire(obj))
         except ApiStatusError as err:
             if err.code == 404:
                 raise NotFound(str(err)) from err
@@ -442,12 +445,15 @@ class HttpKubeClient:
         mutate: Callable[[object], bool],
         held=None,
         copy_of: Callable[[object], object] = copy.deepcopy,
+        status_only: bool = False,
     ):
         """client-go's RetryOnConflict over the wire: apply `mutate` to a
         copy of the object and PUT it with the resourceVersion the copy
-        carries. The first attempt copies `held`, the caller's object, when
-        there is one (`copy_of`, a deep copy unless the caller knows its
-        edit touches less), so a write that meets no 409 costs one PUT;
+        carries (to the object's /status with `status_only`,
+        where the apiserver lands the status only). The first attempt
+        copies `held`, the caller's object, when there is one (`copy_of`, a
+        deep copy unless the caller knows its edit touches less), so a
+        write that meets no 409 costs one PUT;
         every other attempt GETs the object anew. On a 409 it tries again,
         up to RETRY_ON_CONFLICT_ATTEMPTS attempts, then raises
         ConflictExhausted. `mutate` returns False when the object needs no
@@ -467,7 +473,7 @@ class HttpKubeClient:
                 rebind(held, current)
                 return None
             try:
-                out = self._conditional_put(candidate, "update")
+                out = self._conditional_put(candidate, "update", status_only)
             except Conflict as conflict:
                 err, current = conflict, None
                 continue

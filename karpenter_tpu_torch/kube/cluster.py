@@ -14,7 +14,9 @@ reason).
 The port's copy of karpenter_tpu/kube/cluster.py, with three edits:
 `retry_on_conflict`, client-go's RetryOnConflict, mutates a copy and lands
 it with a compare-and-swap, so an injected or organic 409 leaves the store
-and the event stream as they were; `bind_pod` consults the fault plan
+and the event stream as they were (with `status_only` it lands the
+copy's status only, as a write to an object's /status does, and keeps the
+stored spec); `bind_pod` consults the fault plan
 before it edits the stored pod; and `cached_pods` / `cached_node`, the
 informer-cache reads of HttpKubeClient, which here read the store (as
 watch() takes and ignores HttpKubeClient's `own_copy`).
@@ -168,14 +170,17 @@ class KubeCluster:
         mutate: Callable[[object], bool],
         held=None,
         copy_of: Callable[[object], object] = copy.deepcopy,
+        status_only: bool = False,
     ):
         """client-go's RetryOnConflict: apply `mutate` to a copy of the
         object (`copy_of`, a deep copy unless the caller knows its edit
         touches less) and write the copy only if the store still holds the
-        version it was taken from. The first attempt copies `held`, the
-        caller's object, when there is one, so a write that meets no
-        conflict reads nothing; every other attempt reads the object
-        anew. On a conflict it tries again, up to RETRY_ON_CONFLICT_ATTEMPTS
+        version it was taken from. With `status_only` only the
+        copy's status lands, onto the stored object, whose spec and
+        metadata stay as stored: the write to the object's status
+        subresource. The first attempt copies `held`, the caller's object,
+        when there is one, so a write that meets no conflict reads nothing;
+        every other attempt reads the object anew. On a conflict it tries again, up to RETRY_ON_CONFLICT_ATTEMPTS
         attempts, then raises ConflictExhausted. `mutate` returns False
         when the object needs no write.
 
@@ -199,7 +204,7 @@ class KubeCluster:
                 rebind(held, current)
                 return None
             try:
-                stored = self._compare_and_swap(candidate, "update", seen)
+                stored = self._compare_and_swap(candidate, "update", seen, status_only)
             except Conflict as conflict:
                 err, current = conflict, None
                 continue
@@ -207,7 +212,7 @@ class KubeCluster:
             return stored
         raise conflict_exhausted(kind, name, err)
 
-    def _compare_and_swap(self, obj, verb: str, seen: Optional[tuple] = None) -> object:
+    def _compare_and_swap(self, obj, verb: str, seen: Optional[tuple] = None, status_only: bool = False) -> object:
         """The conditional write behind update_no_retry and
         retry_on_conflict: `obj` lands only if the store still holds the
         resourceVersion it carries; else a counted Conflict. A stale read's
@@ -219,7 +224,8 @@ class KubeCluster:
         deletion timestamp and finalizers of the copy it edited: delete()
         and finalize() change those in place without a new resourceVersion,
         so the write also loses when they moved, as it would against an
-        apiserver, and cannot undo a deletion."""
+        apiserver, and cannot undo a deletion. With `status_only` only its
+        status lands."""
         self._chaos(verb, obj.kind)
         with self._lock:
             store = self._objects.setdefault(obj.kind, {})
@@ -243,7 +249,11 @@ class KubeCluster:
             if seen is None:
                 store[key] = obj
             else:
-                vars(current).update(vars(obj))
+                if status_only:
+                    current.status = obj.status
+                    current.metadata.resource_version = self._version
+                else:
+                    vars(current).update(vars(obj))
                 obj = current
         self._dispatch(obj.kind, WatchEvent(MODIFIED, obj))
         return obj

@@ -6,7 +6,13 @@ same two phases: defaulting first, then validation (rejection raises).
 
 The port's copy of karpenter_tpu/webhooks.py. The chain also admits the
 writes of the port's retry_on_conflict: its edit is admitted on each attempt
-before the write.
+before the write. A write to the status subresource
+(`retry_on_conflict(..., status_only=True)`) is not admitted: it lands
+no spec, and an apiserver's webhook rule for a resource does not match its
+status. So the counter controller's status write leaves a Provisioner that
+another client wrote with no admission as it was written, where the
+reference's full update defaults it (and drifts every node launched from
+it before).
 """
 
 from __future__ import annotations
@@ -85,6 +91,9 @@ def register(kube: KubeCluster, cloud_provider=None) -> None:
     kube.update = admitted_update  # type: ignore[method-assign]
 
     def admitted_retry_on_conflict(kind, name, namespace, mutate, **kwargs):
+        if kwargs.get("status_only"):
+            return original_retry_on_conflict(kind, name, namespace, mutate, **kwargs)
+
         def admitted(obj) -> bool:
             if not mutate(obj):
                 return False

@@ -155,9 +155,11 @@ def server_record(srv) -> dict:
         return {f"{k}/{ns}/{n}": scrub(w) for (k, ns, n), w in sorted(state._objects.items())}
 
 
-def both(scenario):
+def both(scenario, apart=None):
     """`scenario(kit, wire)` on the JAX package, then on the port, each
-    with its own servers; the two records must be equal."""
+    with its own servers; the two records must be equal. `apart(record)`,
+    where given, splits a record into the part that must be equal and the
+    part a deliberate difference sets apart, returned as (ref's, port's)."""
     records = []
     for side in SIDES:
         w = Wire()
@@ -166,8 +168,23 @@ def both(scenario):
         finally:
             w.close()
     ref, port = records
+    if apart is not None:
+        (ref, ref_own), (port, port_own) = apart(ref), apart(port)
     assert port == ref
-    return port
+    return port if apart is None else (ref_own, port_own)
+
+
+def provisioner_spec_apart(record):
+    """The stored default Provisioner's spec, out of the server record at
+    the end of `record`: the reference's counter writes its status with a
+    full admitted update, which defaults the spec; the port's writes
+    /status, which keeps the spec as written (ROADMAP, "Deliberate
+    differences", was C9)."""
+    objects = dict(record[-1])
+    stored = dict(objects["Provisioner//default"])
+    spec = stored.pop("spec")
+    objects["Provisioner//default"] = stored
+    return record[:-1] + [objects], spec
 
 
 # -- tests/test_kube_backend.py: TestWireProtocol ------------------------------
@@ -570,7 +587,12 @@ class TestRuntimeOverHttp:
             rt.reconcile_once()
             return [action.type.name, gone, server_record(srv)]
 
-        both(scenario)
+        ref_spec, port_spec = both(scenario, apart=provisioner_spec_apart)
+        # another client wrote the provisioner with no admission (no webhook is
+        # registered in the server): the port's status write keeps its spec
+        # as written, the reference's full update defaults the weight
+        assert "weight" not in port_spec
+        assert ref_spec == {**port_spec, "weight": 0}
 
     def test_two_runtimes_one_leader(self):
         def scenario(k, w):

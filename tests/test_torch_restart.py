@@ -146,7 +146,8 @@ def test_empty_cluster_successor_places_the_held_batch(runtimes, monkeypatch):  
     lease = _lease(kube, b)
     assert lease.spec.holder_identity == b.elector.identity and lease.spec.lease_transitions == 1
     names = {f"lost-{i:03d}" for i in range(EMPTY_PODS)}
-    assert _wait(lambda: names <= _placed_names(placed), timeout=20.0), "the successor places every pod of the held batch"
+    # the round's results are kept once its launch has returned: wait for both
+    assert _wait(lambda: names <= _placed_names(placed) and b.provisioner.last_results is not None, timeout=20.0), "the successor places every pod of the held batch"
     assert b.healthy() and b.provisioner.last_results is not None and not b.provisioner.last_results.unschedulable
 
     # the JAX package's Runtime round of the same batch, no fault
